@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "raft_tpu_torch"
-SOURCES = ("corr_lookup.cu", "sep_conv_gru.cu")
+SOURCES = ("corr_lookup.cu", "corr_window.cu", "sep_conv_gru.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,12 +110,14 @@ def build_all() -> float:
 
 
 def compiler_report() -> str:
-    """``ptxas`` register, shared-memory and spill lines of the last build."""
+    """``ptxas`` register, shared-memory and spill lines of the last build,
+    under the name of each source."""
     lines = []
     for s in SOURCES:
         log = build_dir() / (Path(s).stem + ".log")
         if log.exists():
-            lines += [ln.strip() for ln in log.read_text().splitlines()
+            lines.append(f"{s}:")
+            lines += ["  " + ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry" in ln]
     return "\n".join(lines)

@@ -183,9 +183,6 @@ def check_port_support(config: RAFTConfig) -> None:
     if config.gru_impl == "xla" and not config.gru_ctx_hoist:
         todo.append("gru_ctx_hoist=False (the un-hoisted GRU): ROADMAP "
                     "Queue A item 6e")
-    if config.corr_impl == "pallas" and config.pallas_p_select != "all":
-        todo.append(f"pallas_p_select={config.pallas_p_select!r}: ROADMAP "
-                    f"Queue B item B3")
     if config.corr_impl == "pallas" and config.pallas_pack:
         todo.append("pallas_pack=True: ROADMAP Queue B item B5")
     if todo:

@@ -1,20 +1,26 @@
-"""RAFT (the full ``raft-things`` model), eval-mode pairwise inference.
+"""RAFT (the full ``raft-things`` model), eval-mode inference.
 
-The port of the JAX package's ``models/raft.py`` main path:
-``make_inference_fn`` -> ``raft_forward(train=False)`` -> ``_iterate_flow``
-under the fixed iteration policy.  Images are float [0, 1], NHWC, as in
-JAX.  Inside, activations are NCHW ``channels_last`` (NHWC in memory), so
-the two kernels read them through ``permute`` views without copies.
+The port of the JAX package's ``models/raft.py``: ``make_inference_fn``
+(pairwise) and ``make_ragged_inference_fn`` / ``make_ragged_counted_
+inference_fn`` (mixed-resolution items corner-anchored in one max box,
+``sizes=``) -> ``raft_forward(train=False)`` -> ``_iterate_flow`` under
+the fixed iteration policy.  Images are float [0, 1], NHWC, as in JAX.
+Inside, activations are NCHW ``channels_last`` (NHWC in memory), so the
+kernels read them through ``permute`` views without copies.
 
-Per iteration the loop runs the correlation lookup (``corr_impl='pallas'``:
-the CUDA kernel of ``ops/corr_cuda.py``; ``'blockwise'`` + ``'onehot'``:
-its plain version), the motion encoder, the SepConvGRU (``gru_impl=
-'pallas'``: the CUDA kernel of ``ops/gru_cuda.py``; ``'xla'``: its plain
-version) and the flow and mask heads; then convex upsampling.
+Per iteration the loop runs the correlation lookup, the motion encoder,
+the SepConvGRU (``gru_impl='pallas'``: the CUDA kernel of
+``ops/gru_cuda.py``; ``'xla'``: its plain version) and the flow and mask
+heads; then convex upsampling.  The lookup (``ops/corr_cuda.py``) is, with
+``corr_impl='pallas'``, the CUDA kernel of ``pallas_p_select`` ('all' or
+'window') or, for a ragged batch, the ragged kernel; with ``'blockwise'`` +
+``'onehot'``, the plain versions.  A ragged batch masks the images and the
+correlation features outside each item's crop; everything else runs over
+the whole max box, as in JAX, and the caller slices each item's crop.
 
-Entry points (:func:`init_raft_torch`, :func:`make_inference_fn`) run on
-CUDA unless the caller passes ``device="cpu"``, and raise when CUDA is
-absent and the CPU was not asked for.
+Entry points (:func:`init_raft_torch`, :func:`make_inference_fn`, the
+ragged ones) run on CUDA unless the caller passes ``device="cpu"``, and
+raise when CUDA is absent and the CPU was not asked for.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ import torch.nn as nn
 from ..config import RAFTConfig, check_port_support
 from ..ops.conv import init_conv_, to_nchw, to_nhwc
 from ..ops.coords import coords_grid
-from ..ops.corr import fmap2_pyramid, lookup_blockwise_onehot
-from ..ops.corr_cuda import make_fused_lookup
+from ..ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
+                        lookup_ragged_plain, mask_ragged_rows, ragged_pyramid)
+from ..ops.corr_cuda import (make_fused_lookup, make_ragged_fused_lookup,
+                             make_window_lookup)
 from ..ops.gru_cuda import fuse_gru_weights
 from ..ops.upsample import convex_upsample_flow
 from .encoders import BasicEncoder
@@ -114,11 +122,14 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     """Eval-mode RAFT on the device of the inputs (``train=False`` of the
     JAX function).  image1/image2 [B, H, W, 3] float32 in [0, 1], H and W
     multiples of 8; ``flow_init`` [B, H/8, W/8, 2] or None.  ``config``
-    selects the paths; ``model`` holds the weights."""
+    selects the paths; ``model`` holds the weights.
+
+    ``sizes`` (integer [B, 2], optional) makes the batch ragged: item b is
+    a corner-anchored ``sizes[b] = (h, w)`` crop of the ``H x W`` max box
+    (need not be multiples of 8).  The images are masked to zero outside
+    the crops, the correlation runs on each crop alone, and the flow is
+    valid on ``[:h, :w]`` of each item."""
     check_port_support(config)
-    if sizes is not None:
-        raise NotImplementedError("ragged mixed-resolution batches (sizes=) "
-                                  "are ROADMAP Queue A item 10")
     iters = config.iters if iters is None else iters
     B, H, W, _ = image1.shape
     if H % 8 or W % 8:
@@ -128,9 +139,22 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     if image2.shape != image1.shape:
         raise ValueError(f"image shapes differ: {tuple(image1.shape)} vs "
                          f"{tuple(image2.shape)}")
+    sizes8 = None
+    if sizes is not None:
+        sizes = torch.as_tensor(sizes, device=image1.device)
+        if tuple(sizes.shape) != (B, 2) or sizes.is_floating_point():
+            raise ValueError(f"sizes must be an integer [B, 2] = {[B, 2]} "
+                             f"tensor of live (h, w) per item, got "
+                             f"{sizes.dtype} {list(sizes.shape)}")
+        sizes = sizes.to(torch.int32)
+        # dead regions become exact zeros whatever the caller embedded, so
+        # each item's flow depends only on its crop
+        image1 = mask_ragged_rows(image1, sizes)
+        image2 = mask_ragged_rows(image2, sizes)
+        sizes8 = sizes // 8
     fmap1, fmap2, net, inp = encode_pair(model, image1, image2, config)
     return _iterate_flow(model, fmap1, fmap2, net, inp, config, iters,
-                         all_flows, flow_init)
+                         all_flows, flow_init, sizes8)
 
 
 class LoopState(NamedTuple):
@@ -143,17 +167,29 @@ class LoopState(NamedTuple):
 
 
 def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
-                 inp: torch.Tensor, config: RAFTConfig) -> LoopState:
+                 inp: torch.Tensor, config: RAFTConfig,
+                 sizes8: Optional[torch.Tensor] = None) -> LoopState:
     """Loop-invariant work, once per forward.  fmap1/fmap2 [B, C, h, w]
-    and inp [B, ctx, h, w] NCHW."""
+    and inp [B, ctx, h, w] NCHW; ``sizes8`` [B, 2] int32 live (h, w) per
+    item on the 1/8 grid for a ragged batch, else None."""
     B, _, h, w = fmap1.shape
     f1 = to_nhwc(fmap1.float()).contiguous()
     f2 = to_nhwc(fmap2.float()).contiguous()
-    r = config.corr_radius
-    if config.corr_impl == "pallas":
-        lookup = make_fused_lookup(f1, f2, config.corr_levels, r)
+    r, L = config.corr_radius, config.corr_levels
+    if sizes8 is not None and config.corr_impl == "pallas":
+        lookup = make_ragged_fused_lookup(f1, f2, sizes8, L, r)
+    elif sizes8 is not None:                # the masked plain twin
+        f1m = mask_ragged_rows(f1, sizes8)
+        levels = ragged_pyramid(f2, sizes8, L)
+
+        def lookup(coords):
+            return lookup_ragged_plain(f1m, levels, coords, sizes8, r)
+    elif config.corr_impl == "pallas" and config.pallas_p_select == "window":
+        lookup = make_window_lookup(f1, f2, L, r)
+    elif config.corr_impl == "pallas":
+        lookup = make_fused_lookup(f1, f2, L, r)
     else:                                   # 'blockwise' + 'onehot'
-        levels = fmap2_pyramid(f2, config.corr_levels)
+        levels = fmap2_pyramid(f2, L)
 
         def lookup(coords):
             return lookup_blockwise_onehot(f1, levels, coords, r)
@@ -182,10 +218,12 @@ def gru_step(model: RAFT, config: RAFTConfig, loop: LoopState,
 def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
                   net: torch.Tensor, inp: torch.Tensor, config: RAFTConfig,
                   iters: int, all_flows: bool,
-                  flow_init: Optional[torch.Tensor]) -> RAFTOutput:
+                  flow_init: Optional[torch.Tensor],
+                  sizes8: Optional[torch.Tensor] = None) -> RAFTOutput:
     """The recurrent core, fixed policy.  fmap1/fmap2 [B, C, h, w] and inp
-    [B, ctx, h, w] NCHW; net [B, h, w, hidden] NHWC."""
-    loop = prepare_loop(model, fmap1, fmap2, inp, config)
+    [B, ctx, h, w] NCHW; net [B, h, w, hidden] NHWC; ``sizes8`` as in
+    :func:`prepare_loop`."""
+    loop = prepare_loop(model, fmap1, fmap2, inp, config, sizes8)
     coords0 = loop.coords0
     coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
     B, h, w, _ = coords0.shape
@@ -209,21 +247,63 @@ def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
                       iters_used=iters_used)
 
 
-def make_inference_fn(config: RAFTConfig, iters: Optional[int] = None,
-                      device=None):
-    """``fn(model, image1, image2) -> flow`` [B, H, W, 2] on ``device``
-    (CUDA unless ``device="cpu"``).  Images are [B, H, W, 3] in [0, 1],
-    numpy arrays or tensors; they are moved to the device."""
+def _forward_on(config: RAFTConfig, iters: Optional[int], device):
+    """``forward(model, image1, image2, sizes=None) -> RAFTOutput`` on
+    ``device`` (CUDA unless ``device="cpu"``): images (and sizes) as numpy
+    arrays or tensors, moved to the model's device."""
     dev = resolve_device(device)
     check_port_support(config)
 
-    def fn(model: RAFT, image1, image2) -> torch.Tensor:
+    def forward(model: RAFT, image1, image2, sizes=None) -> RAFTOutput:
         p = next(model.parameters())
         if p.device.type != dev.type:
             raise ValueError(f"model is on {p.device}, the inference "
                              f"function on {dev}")
         im1 = torch.as_tensor(image1, dtype=torch.float32, device=p.device)
         im2 = torch.as_tensor(image2, dtype=torch.float32, device=p.device)
-        return raft_forward(model, im1, im2, config, iters=iters).flow
+        return raft_forward(model, im1, im2, config, iters=iters, sizes=sizes)
+
+    return forward
+
+
+def make_inference_fn(config: RAFTConfig, iters: Optional[int] = None,
+                      device=None):
+    """``fn(model, image1, image2) -> flow`` [B, H, W, 2] on ``device``
+    (CUDA unless ``device="cpu"``).  Images are [B, H, W, 3] in [0, 1],
+    numpy arrays or tensors; they are moved to the device."""
+    forward = _forward_on(config, iters, device)
+
+    def fn(model: RAFT, image1, image2) -> torch.Tensor:
+        return forward(model, image1, image2).flow
+
+    return fn
+
+
+def make_ragged_inference_fn(config: RAFTConfig, iters: Optional[int] = None,
+                             device=None):
+    """``fn(model, image1, image2, sizes) -> flow`` [B, H, W, 2] for a
+    ragged mixed-resolution batch on ``device`` (CUDA unless
+    ``device="cpu"``): images [B, H, W, 3] in [0, 1] hold each item
+    corner-anchored in the shared max box (``data.pipeline.embed_to_shape``),
+    ``sizes`` [B, 2] integer the items' full-resolution (h, w).  Item b's
+    flow is valid on ``[:sizes[b, 0], :sizes[b, 1]]``."""
+    forward = _forward_on(config, iters, device)
+
+    def fn(model: RAFT, image1, image2, sizes) -> torch.Tensor:
+        return forward(model, image1, image2, sizes).flow
+
+    return fn
+
+
+def make_ragged_counted_inference_fn(config: RAFTConfig,
+                                     iters: Optional[int] = None,
+                                     device=None):
+    """As :func:`make_ragged_inference_fn`, returning ``(flow,
+    iters_used)``, iters_used [B] int32 (the fixed policy's count)."""
+    forward = _forward_on(config, iters, device)
+
+    def fn(model: RAFT, image1, image2, sizes):
+        out = forward(model, image1, image2, sizes)
+        return out.flow, out.iters_used
 
     return fn

@@ -7,10 +7,17 @@ Semantics (those of the JAX package's ``ops/corr.py``):
 channels ordered (level, x-offset, y-offset): the window is
 **x-offset-major**.
 
-:func:`lookup_blockwise_onehot` is the plain PyTorch version of the CUDA
-lookup kernel (``ops/corr_cuda.py``): per query chunk and level one
-``[T, P]`` correlation tile, then the separable one-hot window lookup, as
-two small matmuls.  It never builds the ``(HW)^2`` volume.
+The plain PyTorch versions of the CUDA lookup kernels (``ops/corr_cuda.py``),
+none of which builds the ``(HW)^2`` volume:
+
+* :func:`lookup_blockwise_onehot` (``corr_lookup.cu``): per query chunk and
+  level one ``[T, P]`` correlation tile, then the separable one-hot window
+  lookup, as two small matmuls;
+* :func:`lookup_window_plain` (``corr_window_f32``): the same, correlating
+  each chunk only against the rows its windows touch (the window schedule);
+* :func:`lookup_ragged_plain` (``corr_ragged_f32``): mixed-resolution items
+  in one max box (:func:`mask_ragged_rows`, :func:`ragged_pyramid`), dead
+  queries exact zeros.
 """
 
 from __future__ import annotations
@@ -27,6 +34,40 @@ def fmap2_pyramid(fmap2: torch.Tensor, num_levels: int = 4) -> List[torch.Tensor
     levels = [fmap2]
     for _ in range(num_levels - 1):
         levels.append(avg_pool2d(levels[-1]))
+    return levels
+
+
+def live_mask(sizes: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """[B, H, W] bool: inside item b's corner-anchored ``sizes[b] = (h, w)``
+    crop of an ``H x W`` max box."""
+    sizes = sizes.to(torch.int32)
+    iy = torch.arange(H, device=sizes.device)[None, :, None]
+    ix = torch.arange(W, device=sizes.device)[None, None, :]
+    return (iy < sizes[:, 0, None, None]) & (ix < sizes[:, 1, None, None])
+
+
+def mask_ragged_rows(x: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """Zero everything outside each item's live crop of a shared max box.
+    x [B, H, W, ...] with every item corner-anchored at (0, 0); sizes
+    [B, 2] integer per-item (h, w) live extents.  Dtype-preserving."""
+    B, H, W = x.shape[:3]
+    live = live_mask(sizes, H, W).reshape((B, H, W) + (1,) * (x.dim() - 3))
+    return torch.where(live, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ragged_pyramid(fmap2: torch.Tensor, sizes: torch.Tensor,
+                   num_levels: int = 4) -> List[torch.Tensor]:
+    """Ragged twin of :func:`fmap2_pyramid` for items in one max box: mask
+    level 0 at ``sizes``, then per level pool and mask at the floor-halved
+    extents.  At an odd live extent the boundary window mixes a live row
+    with a dead one, and that window is exactly the first index the next
+    mask kills, so each level equals the crop's own pyramid embedded with
+    zeros outside.  Pooling first and masking once would not."""
+    sizes = sizes.to(torch.int32)
+    levels = [mask_ragged_rows(fmap2, sizes)]
+    for _ in range(num_levels - 1):
+        sizes = sizes // 2
+        levels.append(mask_ragged_rows(avg_pool2d(levels[-1]), sizes))
     return levels
 
 
@@ -95,3 +136,55 @@ def lookup_blockwise_onehot(fmap1: torch.Tensor,
                 (corr * scale).reshape(B, T, H2, W2), cc, radius, i))
         outs.append(torch.cat(per_level, dim=-1))
     return torch.cat(outs, dim=1).reshape(B, H, W, -1)
+
+
+def lookup_window_plain(fmap1: torch.Tensor,
+                        f2_levels: Sequence[torch.Tensor],
+                        coords: torch.Tensor, radius: int,
+                        chunk: int = 512) -> torch.Tensor:
+    """The window-scheduled lookup, shapes and values as
+    :func:`lookup_blockwise_onehot`.  Per (item, query chunk, level) the
+    schedule is the row range ``[min(iy0), max(iy0) + 2r + 1]`` of the
+    chunk's windows (``iy0 = floor(cy / 2^l) - r``) clipped to the map; a
+    chunk whose windows miss the map gives zeros, the others correlate
+    against those rows only."""
+    B, H, W, C = fmap1.shape
+    Q = H * W
+    n = 2 * radius + 1
+    f1 = fmap1.reshape(B, Q, C)
+    flat = coords.reshape(B, Q, 2)
+    scale = corr_scale(C)
+    out = fmap1.new_zeros((B, Q, len(f2_levels), n * n))
+    for lvl, f2 in enumerate(f2_levels):
+        _, H2, W2, _ = f2.shape
+        iy0 = (torch.floor(flat[..., 1] / (2.0 ** lvl)) - radius).nan_to_num(
+            1e8).clamp(-1e8, 1e8)
+        for b in range(B):
+            for s in range(0, Q, chunk):
+                lo = int(iy0[b, s:s + chunk].min())
+                hi = int(iy0[b, s:s + chunk].max()) + n    # last row, inclusive
+                if H2 == 0 or W2 == 0 or hi < 0 or lo >= H2:
+                    continue
+                r0, r1 = max(lo, 0), min(hi, H2 - 1)
+                f1c, cc = f1[b:b + 1, s:s + chunk], flat[b:b + 1, s:s + chunk]
+                rows = f2[b:b + 1, r0:r1 + 1].reshape(1, -1, C)
+                corr = torch.matmul(f1c, rows.transpose(1, 2)) * scale
+                out[b:b + 1, s:s + chunk, lvl] = lookup_partial_onehot(
+                    corr.reshape(1, f1c.shape[1], r1 - r0 + 1, W2), cc,
+                    radius, lvl, row_offset=r0)
+    return out.reshape(B, H, W, -1)
+
+
+def lookup_ragged_plain(fmap1: torch.Tensor,
+                        f2_levels: Sequence[torch.Tensor],
+                        coords: torch.Tensor, sizes8: torch.Tensor,
+                        radius: int, chunk: int = 512) -> torch.Tensor:
+    """The ragged lookup: fmap1 [B, H, W, C] masked by
+    :func:`mask_ragged_rows` and f2_levels by :func:`ragged_pyramid` at
+    ``sizes8`` [B, 2] (live (h, w) per item at the query grid), coords
+    [B, H, W, 2] -> [B, H, W, L*(2r+1)^2].  On each item's live crop the
+    values equal the crop's own lookup; dead queries are exact zeros."""
+    B, H, W, _ = fmap1.shape
+    out = lookup_blockwise_onehot(fmap1, f2_levels, coords, radius, chunk)
+    live = live_mask(sizes8.to(out.device), H, W)[..., None]
+    return torch.where(live, out, torch.zeros((), device=out.device))

@@ -95,7 +95,6 @@ def test_npz_checkpoint_round_trip_loads_strict(tmp_path):
     dict(compute_dtype="bfloat16"),
     dict(corr_precision="default"),
     dict(iters_policy="converge:0.5"),
-    dict(pallas_p_select="window"),
     dict(pallas_pack=True),
     dict(quant="int8"),
     dict(corr_impl="dense"),
@@ -124,5 +123,5 @@ def test_small_sizes_and_bad_knobs_raise():
     with pytest.raises(ValueError, match="divisible by 8"):
         rt.raft_forward(model, im, im, cfg)
     im = torch.zeros(1, 16, 24, 3)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        rt.raft_forward(model, im, im, cfg, sizes=torch.tensor([[16, 24]]))
+    with pytest.raises(ValueError, match="sizes"):
+        rt.raft_forward(model, im, im, cfg, sizes=torch.tensor([[16, 24, 3]]))
