@@ -9,8 +9,8 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    (nvidia-smi).  TF32 is switched off for matmuls and cuDNN, so every
    comparison below is float32 end to end; cuDNN runs in benchmark mode.
 2. build: compiles the three kernel sources of raft_tpu_torch/csrc (nvcc,
-   one process each, into build/raft_tpu_torch/) and prints the build time
-   and ptxas's report.
+   one process each, all started together, into build/raft_tpu_torch/) and
+   prints the build time and ptxas's report.
 3. kernels vs plain, at the main paths' shapes, each held to its plain
    PyTorch version at rtol = atol = 1e-5: the correlation lookup on a
    [1, 54, 128, 256] query map and its 4-level pyramid (coords with noise
@@ -20,7 +20,17 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    ragged lookup on a [3, 55, 156, 256] max box with live sizes8
    [[54, 128], [46, 155], [48, 64]], on both kinds of coords (live queries
    held, dead ones exactly 0); the SepConvGRU at 54x128 and at 2x37x45 (no tile
-   divides it).
+   divides it).  The packed lookup (pallas_pack=True, one launch over
+   every level, the narrow ones staged in whole rows) under 'all' and
+   'window' on the [1, 54, 128, 256] maps (levels 1-3 narrow) with both
+   kinds of coords and on a FlyingChairs-width [1, 48, 64, 256] map (every
+   level narrow), each against its plain version and against the first
+   lookup's output; a 0x0 level gives exact zeros.  The bfloat16 instantiations
+   (corr_precision='default' operands) of the four lookups against their
+   plain versions on the same bfloat16 operands at 1e-5, and the
+   bfloat16-I/O GRU against its plain version within 1 bf16 ulp of max|h|
+   (both compute in float32 and round once: a sum that lands at a rounding
+   boundary may round the other way).
 4. main path: raft-things (full width and depth, seeded random weights) on
    4 seeded frame pairs at 432x1024, batch 1, 12 iterations, through
    make_inference_fn with corr_impl='pallas', gru_impl='pallas'.  The flows
@@ -42,14 +52,36 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    crop; each item alone (batch 1, same box) against its row of the batch
    over 3 iterations, at the same bound; random pixels in the dead region
    leave every live crop bitwise equal (cuDNN deterministic).
+6b. P32 path (pallas_pack=True): 2 of those pairs under p_select 'all'
+   and 'window'; per iteration one launch of the packed lookup and none of
+   the other lookups; the same parity as phase 4.
+6c. BF path: the bench's pallas-bf16corr-ctx-gru-winpack configuration
+   (compute_dtype='bfloat16', corr_precision='default', pallas_pack=True,
+   p_select='window', p_blk 1024) on a bfloat16 copy of the model, 2 pairs:
+   finite flows, the bfloat16 kernels' launches.  Per iteration the kernel
+   step is held to the plain bfloat16 step from the same state, within the
+   plain bfloat16 step's own distance from the plain float32 step from
+   that state (the kernels change only the order of float32 sums, so they
+   must stay below what bfloat16 itself changes).  One request each of
+   pallas-bf16corr-ctx-gru (no pack, p_select 'all') and of its -win twin
+   (p_select 'window') drives the bfloat16 first and window lookups.
+   Then the ragged batch of phase 6 under bfloat16 and
+   'default', held the same way on each live crop.
 7. times (CUDA events, after warm-up): each kernel per call beside its
-   plain version and its bound; median request latency and pairs/s; the
-   ragged batch's median and pairs/s beside the three pairs run one by one
-   (printed, not held).
+   plain version and its bound — the packed lookup beside the first and
+   the window lookups on the same inputs, each bfloat16
+   instantiation beside its float32 kernel; median request latency and
+   pairs/s of the main, window, P32 and BF paths; the ragged batch's median
+   and pairs/s beside the three pairs run one by one (printed, not held).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
-kernels' functions, so library_ms is null.
+kernels' functions, so library_ms is null.  A bound is the larger of the
+bytes over the memory rate and the operations over the peak rate of their
+type: a product of two bfloat16 values at the tensor cores' bfloat16 rate
+(which these FP32-FMA kernels do not use), any other at the FP32 rate.
+cuDNN's benchmark mode is on from phase 1, before the first float32 or
+bfloat16 call of any shape.
 """
 
 from __future__ import annotations
@@ -63,9 +95,10 @@ import numpy as np
 import torch
 
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 H_IMG, W_IMG, ITERS, N_PAIRS = 432, 1024, 12, 4
-N_WINDOW = 2                 # phase 5 requests
+N_WINDOW = 2                 # phase 5, 6b and 6c requests
 BOX = (440, 1248)            # phase 6 max box and its live crops
 CROPS = ((436, 1024), (375, 1242), (384, 512))   # Sintel, KITTI, FlyingChairs
 TOL = 1e-5
@@ -102,6 +135,20 @@ def _compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return max_abs
 
 
+def _compare_ulp(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """bfloat16 outputs within 1 bf16 ulp (8 significant bits) of max|want|."""
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+    ok = bool(torch.isfinite(got).all()) and err <= ulp
+    print(f"{name}: max_abs_err {err:.3e}, 1 bf16 ulp of max|h| {ulp:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
 def _corr_positions(coords: torch.Tensor, sizes, radius: int) -> int:
     """In-map (2r+2)^2 window positions over every (query, level): the dot
     products these coordinates need.  ``sizes``: the levels' (h, w), or
@@ -119,15 +166,29 @@ def _corr_positions(coords: torch.Tensor, sizes, radius: int) -> int:
     return total
 
 
-def _gru_taps(H: int, W: int) -> int:
-    """In-image (pixel, tap) pairs of one 1x5 pass plus one 5x1 pass."""
+def _gru_flops(B: int, H: int, W: int, hid: int, mot: int, bf16_io: bool):
+    """(FP32 FLOPs, bf16 FLOPs) of one SepConvGRU call: each in-image tap
+    of the 1x5 and the 5x1 pass multiplies [h, motion] by the z|r weights
+    and [r*h, motion] by the q weights, plus ~20 elementwise FLOPs per
+    output of each pass.  With bfloat16 I/O the weights are bf16-rounded,
+    so a product of them with h (pass 1) or motion is one of two bfloat16
+    values; r*h and h1, the pass-2 input, are float32."""
     def per_axis(n):
         return sum(1 for x in range(n) for d in range(5) if 0 <= x + d - 2 < n)
-    return per_axis(W) * H + per_axis(H) * W
+    t1, t2 = B * per_axis(W) * H, B * per_axis(H) * W
+    zr_h, zr_m = hid * 2 * hid, mot * 2 * hid      # MACs per tap
+    q_h, q_m = hid * hid, mot * hid
+    elementwise = 20 * B * H * W * hid * 2
+    if not bf16_io:
+        return 2 * (t1 + t2) * (zr_h + zr_m + q_h + q_m) + elementwise, 0
+    bf16 = 2 * (t1 * (zr_h + zr_m + q_m) + t2 * (zr_m + q_m))
+    fp32 = 2 * (t1 * q_h + t2 * (zr_h + q_h)) + elementwise
+    return fp32, bf16
 
 
-def _bound_ms(nbytes: int, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS
+def _bound_ms(nbytes: int, fp32_flops: float, bf16_flops: float = 0.0):
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = fp32_flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -145,6 +206,81 @@ def _within(name: str, fk: torch.Tensor, fp: torch.Tensor, crops=None):
         if err / bound > worst:
             worst, msg = err / bound, f"{name}: max|diff| {err:.3e}, bound {bound:.3e}"
     return worst, msg
+
+
+def _corr_bound(f1, levels, coords, radius, positions=None, n_out=None,
+                extra_bytes=0):
+    """(bound ms, by) of a lookup on these inputs: f1, the levels and
+    coords read once (and ``extra_bytes``), the output written once;
+    2 FLOPs per channel of each in-map window position (``positions``,
+    counted from ``coords`` when None), products of bfloat16 values when
+    the operands are bfloat16, and 7 FP32 FLOPs per bilinear output
+    (``n_out``, every query's when None)."""
+    out_numel = coords.numel() // 2 * len(levels) * (2 * radius + 1) ** 2
+    n_out = out_numel if n_out is None else n_out
+    if positions is None:
+        positions = _corr_positions(
+            coords, [(x.shape[1], x.shape[2]) for x in levels], radius)
+    nbytes = (f1.element_size() * (f1.numel() + sum(x.numel() for x in levels))
+              + 4 * (coords.numel() + out_numel) + extra_bytes)
+    dots = 2 * f1.shape[-1] * positions
+    if f1.dtype == torch.bfloat16:
+        return _bound_ms(nbytes, 7 * n_out, dots)
+    return _bound_ms(nbytes, dots + 7 * n_out)
+
+
+def gru_inputs(rng, dev, B: int, H: int, W: int):
+    """Seeded SepConvGRU operands on a [B, H, W] grid: h, motion and the two
+    hoisted context terms (hidden, motion and context 128), float32."""
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    return (dev_t(np.tanh(rng.randn(B, H, W, 128))),
+            dev_t(np.maximum(rng.randn(B, H, W, 128), 0.0)),
+            (dev_t(0.5 * rng.randn(B, H, W, 384)),
+             dev_t(0.5 * rng.randn(B, H, W, 384))))
+
+
+def kernel_inputs(rng, dev, C: int = 256, L: int = 4, r: int = 4) -> dict:
+    """Phase 3's seeded kernel inputs at the main paths' shapes, drawn from
+    ``rng`` in this order (tools/port_kernel_ab.py times kernels on them
+    too): a [1, 54, 128, C] fmap1 and the L-level pyramid of another map;
+    coords with noise of +-(r+3) px and an eighth of the queries wholly
+    outside the map; windows scattered over the whole map; the ragged
+    [3, 55, 156, C] box masked to CROPS // 8 (``sizes8``) with both kinds of
+    coords; the GRU's operands on the 54x128 grid."""
+    from raft_tpu_torch.ops.coords import coords_grid
+    from raft_tpu_torch.ops.corr import (fmap2_pyramid, mask_ragged_rows,
+                                         ragged_pyramid)
+    h8, w8, hb, wb = H_IMG // 8, W_IMG // 8, BOX[0] // 8, BOX[1] // 8
+
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    def noisy(B, H, W):
+        noise = rng.uniform(-(r + 3), r + 3, (B, H, W, 2))
+        far = rng.rand(B, H, W) < 0.125               # wholly outside the map
+        noise[far] += np.array([-300.0, 700.0])
+        return (coords_grid(B, H, W, device=dev) + dev_t(noise)).contiguous()
+
+    def scattered(B, H, W):                           # as random-weight flows give
+        return (coords_grid(B, H, W, device=dev) + dev_t(rng.uniform(
+            -W, W, (B, H, W, 2)))).contiguous()
+
+    x = {"fmap1": dev_t(rng.randn(1, h8, w8, C))}
+    x["levels"] = [lv.contiguous() for lv in
+                   fmap2_pyramid(dev_t(rng.randn(1, h8, w8, C)), L)]
+    x["coords"] = noisy(1, h8, w8)
+    x["wild"] = scattered(1, h8, w8)
+    x["sizes8"] = torch.tensor([[h // 8, w // 8] for h, w in CROPS],
+                               dtype=torch.int32, device=dev)
+    x["rf1"] = mask_ragged_rows(dev_t(rng.randn(3, hb, wb, C)),
+                                x["sizes8"]).contiguous()
+    x["rlevels"] = [lv.contiguous() for lv in ragged_pyramid(
+        dev_t(rng.randn(3, hb, wb, C)), x["sizes8"], L)]
+    x["rcoords"] = noisy(3, hb, wb)
+    x["rwild"] = scattered(3, hb, wb)
+    x["gru"] = gru_inputs(rng, dev, 1, h8, w8)
+    return x
 
 
 def _launches(*wrappers) -> dict:
@@ -170,9 +306,10 @@ def main() -> int:
     from raft_tpu_torch.ops.coords import coords_grid
     from raft_tpu_torch.ops.corr import (fmap2_pyramid, live_mask,
                                          lookup_blockwise_onehot,
+                                         lookup_packed_plain,
                                          lookup_ragged_plain,
                                          lookup_window_plain, mask_ragged_rows,
-                                         ragged_pyramid)
+                                         packed_levels_from)
     from raft_tpu_torch.ops.upsample import convex_upsample_flow
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -191,7 +328,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
     kernels = (corr_cuda.corr_lookup_cuda, corr_cuda.corr_window_cuda,
-               corr_cuda.corr_ragged_cuda, gru_cuda.sep_conv_gru_cuda)
+               corr_cuda.corr_ragged_cuda, corr_cuda.corr_packed_cuda,
+               gru_cuda.sep_conv_gru_cuda)
 
     # -- 2. build ------------------------------------------------------
     secs = _build.build_all()
@@ -205,16 +343,8 @@ def main() -> int:
     def dev_t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
-    def noisy_coords(B, H, W):
-        noise = rng.uniform(-(r + 3), r + 3, (B, H, W, 2))
-        far = rng.rand(B, H, W) < 0.125               # wholly outside the map
-        noise[far] += np.array([-300.0, 700.0])
-        return (coords_grid(B, H, W, device=dev) + dev_t(noise)).contiguous()
-
-    fmap1 = dev_t(rng.randn(1, h8, w8, C))
-    levels = [lv.contiguous() for lv in
-              fmap2_pyramid(dev_t(rng.randn(1, h8, w8, C)), L)]
-    coords = noisy_coords(1, h8, w8)
+    k_in = kernel_inputs(rng, dev, C, L, r)
+    fmap1, levels, coords, wild = (k_in[k] for k in ("fmap1", "levels", "coords", "wild"))
     corr_k = corr_cuda.corr_lookup_cuda(fmap1, levels, coords, r)
     corr_p = lookup_blockwise_onehot(fmap1, levels, coords, r)
     corr_err = _compare("corr_lookup [1,54,128,256] L=4 r=4", corr_k, corr_p)
@@ -224,27 +354,19 @@ def main() -> int:
     _compare("corr_window against corr_lookup's output", win_k, corr_k)
     # windows scattered over the whole map, as random-weight flows give:
     # the kernel reads f2 from global memory instead of staging a box
-    wild = (coords_grid(1, h8, w8, device=dev) + dev_t(rng.uniform(
-        -w8, w8, (1, h8, w8, 2)))).contiguous()
     win_err = max(win_err, _compare(
         "corr_window, windows scattered over the map",
         corr_cuda.corr_window_cuda(fmap1, levels, wild, r),
         lookup_window_plain(fmap1, levels, wild, r)))
 
     hb, wb = BOX[0] // 8, BOX[1] // 8
-    sizes8 = torch.tensor([[h // 8, w // 8] for h, w in CROPS],
-                          dtype=torch.int32, device=dev)
-    rf1 = mask_ragged_rows(dev_t(rng.randn(3, hb, wb, C)), sizes8).contiguous()
-    rlevels = [lv.contiguous() for lv in
-               ragged_pyramid(dev_t(rng.randn(3, hb, wb, C)), sizes8, L)]
-    rcoords = noisy_coords(3, hb, wb)
+    sizes8, rf1, rlevels, rcoords, rwild = (
+        k_in[k] for k in ("sizes8", "rf1", "rlevels", "rcoords", "rwild"))
     rag_k = corr_cuda.corr_ragged_cuda(rf1, rlevels, rcoords, sizes8, r)
     rag_p = lookup_ragged_plain(rf1, rlevels, rcoords, sizes8, r)
     live8 = live_mask(sizes8, hb, wb)
     rag_err = _compare(f"corr_ragged [3,{hb},{wb},256] sizes8 "
                        f"{sizes8.tolist()} live queries", rag_k[live8], rag_p[live8])
-    rwild = (coords_grid(3, hb, wb, device=dev) + dev_t(rng.uniform(
-        -wb, wb, (3, hb, wb, 2)))).contiguous()
     rag_err = max(rag_err, _compare(
         "corr_ragged, windows scattered over the map, live queries",
         corr_cuda.corr_ragged_cuda(rf1, rlevels, rwild, sizes8, r)[live8],
@@ -259,18 +381,89 @@ def main() -> int:
     model = init_raft_torch(cfg_k, generator=gen, device=dev)
     fw = gru_cuda.fuse_gru_weights(model.update_block.gru, 128, 128)
 
-    def gru_inputs(B, H, W):
-        return (dev_t(np.tanh(rng.randn(B, H, W, 128))),
-                dev_t(np.maximum(rng.randn(B, H, W, 128), 0.0)),
-                (dev_t(0.5 * rng.randn(B, H, W, 384)),
-                 dev_t(0.5 * rng.randn(B, H, W, 384))))
-
     gru_err = 0.0
     for B, H, W in ((1, h8, w8), (2, 37, 45)):
-        h, mot, ctx = gru_inputs(B, H, W)
+        h, mot, ctx = k_in["gru"] if B == 1 else gru_inputs(rng, dev, B, H, W)
         got = gru_cuda.sep_conv_gru_cuda(fw, h, mot, ctx)
         want = gru_cuda.sep_conv_gru_plain(fw, h, mot, ctx)
         gru_err = max(gru_err, _compare(f"sep_conv_gru [{B},{H},{W},128]", got, want))
+
+    # the narrow-level (row-packed) lookup and the bfloat16 instantiations,
+    # drawn from their own seed so that the frames below stay those of the
+    # runs before them
+    rng5 = np.random.RandomState(5)
+
+    def noisy_coords5(B, H, W):
+        noise = rng5.uniform(-(r + 3), r + 3, (B, H, W, 2))
+        noise[rng5.rand(B, H, W) < 0.125] += np.array([-300.0, 700.0])
+        return (coords_grid(B, H, W, device=dev) + dev_t(noise)).contiguous()
+
+    nn_ = (2 * r + 1) ** 2
+    first = packed_levels_from([lv.shape[2] for lv in levels])   # 1 at 54x128
+    pack_err = 0.0
+    for ps in ("all", "window"):
+        for label, cc in (("noisy", coords), ("scattered", wild)):
+            pack_err = max(pack_err, _compare(
+                f"corr_packed {ps} [1,54,128,256] levels {first}-{L - 1} "
+                f"narrow, {label} coords",
+                corr_cuda.corr_packed_cuda(fmap1, levels, cc, r, ps),
+                lookup_packed_plain(fmap1, levels, cc, r, ps)))
+        _compare(f"corr_packed {ps} against corr_lookup's output",
+                 corr_cuda.corr_packed_cuda(fmap1, levels, coords, r, ps), corr_k)
+    hc, wc = 384 // 8, 512 // 8                  # FlyingChairs: W_0 = 64 packs
+    cf1 = dev_t(rng5.randn(1, hc, wc, C))
+    clevels = [lv.contiguous() for lv in fmap2_pyramid(dev_t(rng5.randn(1, hc, wc, C)), L)]
+    ccoords = noisy_coords5(1, hc, wc)
+    if packed_levels_from([lv.shape[2] for lv in clevels]) != 0:
+        raise AssertionError("the FlyingChairs-width map should pack at level 0")
+    for ps in ("all", "window"):
+        got = corr_cuda.corr_packed_cuda(cf1, clevels, ccoords, r, ps)
+        pack_err = max(pack_err, _compare(
+            f"corr_packed {ps} [1,{hc},{wc},256] every level narrow", got,
+            lookup_packed_plain(cf1, clevels, ccoords, r, ps)))
+        _compare(f"corr_packed {ps} [1,{hc},{wc},256] against corr_lookup's output",
+                 got, corr_cuda.corr_lookup_cuda(cf1, clevels, ccoords, r))
+
+    # a level pooled away to nothing (0x0) gives zeros and reads nothing
+    zlevels = levels + [torch.empty((1, 0, 0, C), device=dev)]
+    for ps in ("all", "window"):
+        zmax = float(corr_cuda.corr_packed_cuda(fmap1, zlevels, coords, r, ps)
+                     [..., L * nn_:].abs().max())
+        print(f"corr_packed {ps}, a 0x0 fifth level: max|out| {zmax}")
+        if zmax != 0.0:
+            raise AssertionError("corr_packed: a 0x0 level is not exact zeros")
+
+    # bfloat16 operands (corr_precision='default'): each lookup against its
+    # plain version on the same bfloat16 operands
+    bf1, blevels = fmap1.bfloat16(), [lv.bfloat16() for lv in levels]
+    bf_err = {
+        "corr_lookup": _compare(
+            "corr_lookup bf16 [1,54,128,256]",
+            corr_cuda.corr_lookup_cuda(bf1, blevels, coords, r),
+            lookup_blockwise_onehot(bf1, blevels, coords, r)),
+        "corr_window": _compare(
+            "corr_window bf16 [1,54,128,256]",
+            corr_cuda.corr_window_cuda(bf1, blevels, coords, r),
+            lookup_window_plain(bf1, blevels, coords, r)),
+        "corr_packed": max(_compare(
+            f"corr_packed {ps} bf16 [1,54,128,256]",
+            corr_cuda.corr_packed_cuda(bf1, blevels, coords, r, ps),
+            lookup_packed_plain(bf1, blevels, coords, r, ps))
+            for ps in ("all", "window"))}
+    rbf1, rblevels = rf1.bfloat16(), [lv.bfloat16() for lv in rlevels]
+    bf_err["corr_ragged"] = _compare(
+        "corr_ragged bf16 [3,55,156,256] live queries",
+        corr_cuda.corr_ragged_cuda(rbf1, rblevels, rcoords, sizes8, r)[live8],
+        lookup_ragged_plain(rbf1, rblevels, rcoords, sizes8, r)[live8])
+    # the GRU with bfloat16 I/O: float32 copies of the bf16-rounded weights
+    fw_bf = {k: v.bfloat16().float() for k, v in fw.items()}
+    gh = dev_t(np.tanh(rng5.randn(1, h8, w8, 128))).bfloat16()
+    gmot = dev_t(np.maximum(rng5.randn(1, h8, w8, 128), 0.0)).bfloat16()
+    gctx = tuple(dev_t(0.5 * rng5.randn(1, h8, w8, 384)).bfloat16() for _ in range(2))
+    bf_err["sep_conv_gru"] = _compare_ulp(
+        "sep_conv_gru bf16 I/O [1,54,128,128]",
+        gru_cuda.sep_conv_gru_cuda(fw_bf, gh, gmot, gctx),
+        gru_cuda.sep_conv_gru_plain(fw_bf, gh, gmot, gctx))
 
     # -- 4. main path: a few requests ------------------------------------
     def frame_pair(H, W, i):
@@ -296,6 +489,7 @@ def main() -> int:
             raise AssertionError(f"bad flow: shape {tuple(f.shape)}, finite "
                                  f"{bool(torch.isfinite(f).all())}")
     want = {"corr_lookup": N_PAIRS * ITERS, "corr_window": 0, "corr_ragged": 0,
+            "corr_packed": 0,
             "sep_conv_gru": N_PAIRS * ITERS * gru_cuda.LAUNCHES_PER_CALL}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -373,6 +567,7 @@ def main() -> int:
     print(f"window path: {N_WINDOW} requests at {H_IMG}x{W_IMG}, {ITERS} "
           f"iters; launches {launches_w}")
     want = {"corr_lookup": 0, "corr_window": N_WINDOW * ITERS, "corr_ragged": 0,
+            "corr_packed": 0,
             "sep_conv_gru": N_WINDOW * ITERS * gru_cuda.LAUNCHES_PER_CALL}
     if launches_w != want:
         raise AssertionError(f"window path launch counts {launches_w} != {want}")
@@ -403,6 +598,7 @@ def main() -> int:
     print(f"ragged path: batch of 3 in a {BOX[0]}x{BOX[1]} box, live "
           f"{[list(c) for c in CROPS]}, {ITERS} iters; launches {launches_r}")
     want = {"corr_lookup": 0, "corr_window": 0, "corr_ragged": ITERS,
+            "corr_packed": 0,
             "sep_conv_gru": ITERS * gru_cuda.LAUNCHES_PER_CALL}
     if launches_r != want:
         raise AssertionError(f"ragged path launch counts {launches_r} != {want}")
@@ -445,14 +641,148 @@ def main() -> int:
         if not all(same):
             raise AssertionError("dead-region pixels changed a live crop's flow")
 
+    # -- 6b. P32 path: pallas_pack=True under 'all' and 'window' -----------
+    def drive(label, infer, mdl, reqs, want):
+        """Run ``infer`` on each request with every count reset just
+        before; check the launch counts (``want``, others 0) and that every
+        flow is finite on its crop; returns the counts."""
+        _reset(*kernels)
+        outs = [infer(mdl, *req) for req in reqs]
+        torch.cuda.synchronize()
+        got = _launches(*kernels)
+        print(f"{label}: launches {got}")
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise AssertionError(f"{label}: launch counts {got} != {full}")
+        for o, req in zip(outs, reqs):
+            crops_ = ([tuple(o.shape[1:3])] * o.shape[0] if len(req) == 2
+                      else [tuple(x) for x in req[2]])
+            for b, (h, w) in enumerate(crops_):
+                if not bool(torch.isfinite(o[b, :h, :w]).all()):
+                    raise AssertionError(f"{label}: non-finite flow")
+        return got
+
+    gru_per_iter = gru_cuda.LAUNCHES_PER_CALL
+    n_it = N_WINDOW * ITERS
+    launches_p32, infer_p32 = {}, {}
+    for ps in ("all", "window"):
+        cfg_pk = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                                 pallas_pack=True, pallas_p_select=ps)
+        infer_p32[ps] = make_inference_fn(cfg_pk, iters=ITERS)
+        launches_p32[ps] = drive(
+            f"P32 path, p_select={ps!r}: {N_WINDOW} requests at "
+            f"{H_IMG}x{W_IMG}, {ITERS} iters", infer_p32[ps], model,
+            pairs[:N_WINDOW], {"corr_packed": n_it,
+                               "sep_conv_gru": n_it * gru_per_iter})
+        with torch.no_grad():
+            for i, (a, b) in enumerate(pairs[:N_WINDOW]):
+                worst = step_parity(cfg_pk, cfg_p, torch.from_numpy(a).to(dev),
+                                    torch.from_numpy(b).to(dev))
+                e2e = _within("3 iterations end to end",
+                              make_inference_fn(cfg_pk, iters=3)(model, a, b),
+                              make_inference_fn(cfg_p, iters=3)(model, a, b))
+                print(f"P32 {ps} pair {i}: every iteration, worst {worst[1]}; {e2e[1]}")
+                if worst[0] > 1.0 or e2e[0] > 1.0:
+                    raise AssertionError(f"P32 {ps} pair {i}: kernel path "
+                                         f"disagrees with the plain path")
+
+    # -- 6c. BF path: bfloat16 compute, 'default' corr, pack + window ------
+    cfg_bf = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                             compute_dtype="bfloat16", corr_precision="default",
+                             pallas_pack=True, pallas_p_select="window",
+                             pallas_p_blk=1024)
+    # the same seeded weights as `model`, rounded to bfloat16 once
+    model_bf = init_raft_torch(cfg_bf, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+    infer_bf = make_inference_fn(cfg_bf, iters=ITERS)
+    launches_bf = drive(
+        f"BF path: {N_WINDOW} requests at {H_IMG}x{W_IMG}, {ITERS} iters",
+        infer_bf, model_bf, pairs[:N_WINDOW],
+        {"corr_packed": n_it, "sep_conv_gru": n_it * gru_per_iter})
+    cfg_bfc = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                              compute_dtype="bfloat16", corr_precision="default")
+    infer_bfc = make_inference_fn(cfg_bfc, iters=ITERS)
+    launches_bfc = drive(
+        f"pallas-bf16corr-ctx-gru: 1 request at {H_IMG}x{W_IMG}, {ITERS} iters",
+        infer_bfc, model_bf, pairs[:1],
+        {"corr_lookup": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
+    cfg_bfw = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                              compute_dtype="bfloat16", corr_precision="default",
+                              pallas_p_select="window", pallas_p_blk=1024)
+    launches_bfw = drive(
+        f"pallas-bf16corr-ctx-gru-win: 1 request at {H_IMG}x{W_IMG}, {ITERS} iters",
+        make_inference_fn(cfg_bfw, iters=ITERS), model_bf, pairs[:1],
+        {"corr_window": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
+    cfg_pb = RAFTConfig.full(corr_impl="blockwise", corr_lookup="onehot",
+                             gru_impl="xla", compute_dtype="bfloat16",
+                             corr_precision="default")
+
+    def bf16_step_parity(cfg_k, t1, t2, sizes=None, crops=None):
+        """Worst (ratio, message) over the iterations of |kernel step -
+        plain bf16 step| / |plain bf16 step - plain float32 step|, all three
+        steps taken from the kernel path's state (the float32 step on the
+        float32 model, the state upcast), on each crop."""
+        sizes8 = None
+        if sizes is not None:
+            t1, t2 = mask_ragged_rows(t1, sizes), mask_ragged_rows(t2, sizes)
+            sizes8 = sizes // 8
+        fm1, fm2, net, inp = encode_pair(model_bf, t1, t2, cfg_k)
+        loop_k = prepare_loop(model_bf, fm1, fm2, inp, cfg_k, sizes8)
+        loop_b = prepare_loop(model_bf, fm1, fm2, inp, cfg_pb, sizes8)
+        loop_f = prepare_loop(model, fm1.float(), fm2.float(), inp.float(),
+                              cfg_p, sizes8)
+        c0, coords1, worst = loop_k.coords0, loop_k.coords0, (0.0, "")
+        if crops is None:
+            crops = [(t1.shape[1], t1.shape[2])] * t1.shape[0]
+        for it in range(ITERS):
+            net_k, ck, mk = gru_step(model_bf, cfg_k, loop_k, net, coords1)
+            _, cb, mb = gru_step(model_bf, cfg_pb, loop_b, net, coords1)
+            _, cf, mf = gru_step(model, cfg_p, loop_f, net.float(), coords1)
+            fk, fb, ff = (convex_upsample_flow(c - c0, m.float()) for c, m in
+                          ((ck, mk), (cb, mb), (cf, mf)))
+            for b, (h, w) in enumerate(crops):
+                dk = float((fk[b, :h, :w] - fb[b, :h, :w]).abs().max())
+                env = float((fb[b, :h, :w] - ff[b, :h, :w]).abs().max())
+                ratio = dk / max(env, 1e-30)
+                if ratio > worst[0] or not worst[1]:
+                    worst = (ratio, f"iteration {it} item {b}: kernel vs "
+                             f"plain bf16 {dk:.3e}, plain bf16 vs plain f32 "
+                             f"{env:.3e}")
+            net, coords1 = net_k, ck
+        return worst
+
+    with torch.no_grad():
+        for i, (a, b) in enumerate(pairs[:N_WINDOW]):
+            worst = bf16_step_parity(cfg_bf, torch.from_numpy(a).to(dev),
+                                     torch.from_numpy(b).to(dev))
+            print(f"BF pair {i}: per-iteration steps, worst {worst[1]} "
+                  f"(ratio {worst[0]:.3f})")
+            if not worst[0] <= 1.0:
+                raise AssertionError(f"BF pair {i}: the kernel step departs "
+                                     f"from the plain bf16 step further than "
+                                     f"bf16 does from float32")
+    cfg_rbf = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                              compute_dtype="bfloat16", corr_precision="default")
+    infer_rbf = make_ragged_inference_fn(cfg_rbf, iters=ITERS)
+    launches_rbf = drive(
+        f"BF ragged batch of 3 in {BOX[0]}x{BOX[1]}, {ITERS} iters",
+        infer_rbf, model_bf, [(rim1, rim2, sizes)],
+        {"corr_ragged": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
+    with torch.no_grad():
+        worst = bf16_step_parity(cfg_rbf, torch.from_numpy(rim1).to(dev),
+                                 torch.from_numpy(rim2).to(dev),
+                                 torch.from_numpy(sizes).to(dev), CROPS)
+    print(f"BF ragged batch, each live crop: per-iteration steps, worst "
+          f"{worst[1]} (ratio {worst[0]:.3f})")
+    if not worst[0] <= 1.0:
+        raise AssertionError("BF ragged batch: the kernel step departs from "
+                             "the plain bf16 step further than bf16 does "
+                             "from float32")
+
     # -- 7. times ----------------------------------------------------------
     corr_ms = _time_ms(lambda: corr_cuda.corr_lookup_cuda(fmap1, levels, coords, r), 3, 50)
     corr_plain_ms = _time_ms(lambda: lookup_blockwise_onehot(fmap1, levels, coords, r), 1, 10)
-    level_hw = [(lv.shape[1], lv.shape[2]) for lv in levels]
-    corr_bytes = 4 * (fmap1.numel() + sum(lv.numel() for lv in levels)
-                      + coords.numel() + corr_k.numel())
-    corr_flops = 2 * C * _corr_positions(coords, level_hw, r) + 7 * corr_k.numel()
-    corr_bound, corr_by = _bound_ms(corr_bytes, corr_flops)
+    corr_bound, corr_by = _corr_bound(fmap1, levels, coords, r)
 
     win_ms = _time_ms(lambda: corr_cuda.corr_window_cuda(fmap1, levels, coords, r), 3, 50)
     win_plain_ms = _time_ms(lambda: lookup_window_plain(fmap1, levels, coords, r), 1, 5)
@@ -464,38 +794,73 @@ def main() -> int:
         clip = [(min(lv.shape[1], h >> i), min(lv.shape[2], w >> i))
                 for i, lv in enumerate(rlevels)]
         rag_pos += _corr_positions(rcoords[b][live8[b]], clip, r)
-    rag_bytes = 4 * (rf1.numel() + sum(lv.numel() for lv in rlevels)
-                     + rcoords.numel() + sizes8.numel() + rag_k.numel())
-    rag_flops = 2 * C * rag_pos + 7 * int(live8.sum()) * L * (2 * r + 1) ** 2
-    rag_bound, rag_by = _bound_ms(rag_bytes, rag_flops)
 
-    h, mot, ctx = gru_inputs(1, h8, w8)
+    def rag_bound(f1, lvs):                      # live queries' in-crop work
+        return _corr_bound(f1, lvs, rcoords, r, rag_pos,
+                           int(live8.sum()) * L * nn_, 4 * sizes8.numel())
+
+    rag_bound_ms, rag_by = rag_bound(rf1, rlevels)
+
+    h, mot, ctx = gru_inputs(rng, dev, 1, h8, w8)
     gru_ms = _time_ms(lambda: gru_cuda.sep_conv_gru_cuda(fw, h, mot, ctx), 3, 50)
     gru_plain_ms = _time_ms(lambda: gru_cuda.sep_conv_gru_plain(fw, h, mot, ctx), 2, 10)
-    macs_per_tap = 256 * 256 + (128 + 128) * 128     # launch A + launch B
-    gru_flops = 2 * macs_per_tap * _gru_taps(h8, w8) + 20 * h.numel() * 2
-    gru_bytes = 4 * (h.numel() * 2 + mot.numel() + ctx[0].numel() + ctx[1].numel()
-                     + sum(v.numel() for v in fw.values()))
-    gru_bound, gru_by = _bound_ms(gru_bytes, gru_flops)
+
+    def gru_bound(hh, mm, cc, w):                # activations in, h out, weights
+        nbytes = (hh.element_size() * (2 * hh.numel() + mm.numel() + cc[0].numel()
+                                       + cc[1].numel())
+                  + 4 * sum(v.numel() for v in w.values()))
+        return _bound_ms(nbytes, *_gru_flops(1, h8, w8, 128, 128,
+                                             hh.dtype == torch.bfloat16))
+
+    gru_bound_ms, gru_by = gru_bound(h, mot, ctx, fw)
     print(f"corr_lookup: {corr_ms:.4f} ms/call (plain {corr_plain_ms:.4f}), bound "
-          f"{corr_bound:.4f} ms by {corr_by} ({corr_flops / 1e9:.3f} GFLOP, "
-          f"{corr_bytes / 1e6:.1f} MB)")
+          f"{corr_bound:.4f} ms by {corr_by}")
     print(f"corr_window: {win_ms:.4f} ms/call (plain {win_plain_ms:.4f}), bound "
           f"{corr_bound:.4f} ms by {corr_by} (the inputs and work of corr_lookup)")
     print(f"corr_ragged: {rag_ms:.4f} ms/call (plain {rag_plain_ms:.4f}), bound "
-          f"{rag_bound:.4f} ms by {rag_by} ({rag_flops / 1e9:.3f} GFLOP, "
-          f"{rag_bytes / 1e6:.1f} MB)")
+          f"{rag_bound_ms:.4f} ms by {rag_by}")
     print(f"sep_conv_gru: {gru_ms:.4f} ms/call (plain {gru_plain_ms:.4f}), bound "
-          f"{gru_bound:.4f} ms by {gru_by} ({gru_flops / 1e9:.3f} GFLOP, "
-          f"{gru_bytes / 1e6:.1f} MB)")
+          f"{gru_bound_ms:.4f} ms by {gru_by}")
     print("library_ms: null for all — no single PyTorch call computes a "
           "windowed correlation lookup or a SepConvGRU iteration")
 
-    def call_ms(fn, *args):
+    # the packed lookup beside the first and the window lookups, same inputs
+    pk = {}
+    for ps in ("all", "window"):
+        pk[ps] = _time_ms(lambda: corr_cuda.corr_packed_cuda(fmap1, levels, coords, r, ps), 3, 50)
+        pk[ps + "_plain"] = _time_ms(lambda: lookup_packed_plain(fmap1, levels, coords, r, ps), 1, 5)
+    print(f"corr_packed [1,54,128,256], levels {first}-{L - 1} narrow: 'all' "
+          f"{pk['all']:.4f} ms/call (plain {pk['all_plain']:.4f}), 'window' "
+          f"{pk['window']:.4f} (plain {pk['window_plain']:.4f}), bound "
+          f"{corr_bound:.4f} ms by {corr_by}; on the same inputs corr_lookup "
+          f"{corr_ms:.4f}, corr_window {win_ms:.4f}")
+
+    # each bfloat16 instantiation beside its float32 kernel, same inputs
+    bf_ms = {
+        "corr_lookup": (_time_ms(lambda: corr_cuda.corr_lookup_cuda(bf1, blevels, coords, r), 3, 50),
+                        _time_ms(lambda: lookup_blockwise_onehot(bf1, blevels, coords, r), 1, 5),
+                        _corr_bound(bf1, blevels, coords, r), corr_ms),
+        "corr_window": (_time_ms(lambda: corr_cuda.corr_window_cuda(bf1, blevels, coords, r), 3, 50),
+                        _time_ms(lambda: lookup_window_plain(bf1, blevels, coords, r), 1, 5),
+                        _corr_bound(bf1, blevels, coords, r), win_ms),
+        "corr_packed": (_time_ms(lambda: corr_cuda.corr_packed_cuda(bf1, blevels, coords, r, "window"), 3, 50),
+                        _time_ms(lambda: lookup_packed_plain(bf1, blevels, coords, r, "window"), 1, 5),
+                        _corr_bound(bf1, blevels, coords, r), pk["window"]),
+        "corr_ragged": (_time_ms(lambda: corr_cuda.corr_ragged_cuda(rbf1, rblevels, rcoords, sizes8, r), 3, 50),
+                        _time_ms(lambda: lookup_ragged_plain(rbf1, rblevels, rcoords, sizes8, r), 1, 5),
+                        rag_bound(rbf1, rblevels), rag_ms),
+        "sep_conv_gru": (_time_ms(lambda: gru_cuda.sep_conv_gru_cuda(fw_bf, gh, gmot, gctx), 3, 50),
+                         _time_ms(lambda: gru_cuda.sep_conv_gru_plain(fw_bf, gh, gmot, gctx), 2, 10),
+                         gru_bound(gh, gmot, gctx, fw_bf), gru_ms)}
+    for name, (ms, plain_ms, (bound, by), f32_ms) in bf_ms.items():
+        print(f"{name} bf16: {ms:.4f} ms/call (float32 kernel {f32_ms:.4f}, plain "
+              f"{plain_ms:.4f}), bound {bound:.4f} ms by {by}")
+
+    def call_ms(fn, *args, mdl=model):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(model, *args)
+        fn(mdl, *args)
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end)
@@ -513,6 +878,17 @@ def main() -> int:
     med_w = statistics.median([call_ms(infer_w, *pairs[i % N_PAIRS]) for i in range(8)])
     print(f"e2e {H_IMG}x{W_IMG} batch 1, {ITERS} iters, pallas_p_select='window': "
           f"median {med_w:.2f} ms/request ({1e3 / med_w:.2f} pairs/s)")
+    med_more = {}
+    for label, fn, mdl in (("P32 all", infer_p32["all"], model),
+                           ("P32 window", infer_p32["window"], model),
+                           ("BF", infer_bf, model_bf),
+                           ("pallas-bf16corr-ctx-gru", infer_bfc, model_bf)):
+        call_ms(fn, *pairs[0], mdl=mdl)
+        med_more[label] = statistics.median(
+            [call_ms(fn, *pairs[i % N_PAIRS], mdl=mdl) for i in range(8)])
+        print(f"e2e {H_IMG}x{W_IMG} batch 1, {ITERS} iters, {label}: median "
+              f"{med_more[label]:.2f} ms/request ({1e3 / med_more[label]:.2f} "
+              f"pairs/s) against the float32 main path's {med_k:.2f}")
 
     call_ms(infer_r, rim1, rim2, sizes)
     lat_r = [call_ms(infer_r, rim1, rim2, sizes) for _ in range(6)]
@@ -555,6 +931,24 @@ def main() -> int:
     stages = {"encoders": e0.elapsed_time(e1), "loop_setup": e1.elapsed_time(e2),
               "iterations": e2.elapsed_time(e3), "upsample": e3.elapsed_time(e4)}
     print("stages ms/request: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    # the BF path's stages, before any profiler session (whose hooks slow
+    # the host, and the BF path waits on the host)
+    with torch.no_grad():
+        be = [ev()]
+        bfm1, bfm2, bnet, binp = encode_pair(model_bf, a, b, cfg_bf)
+        be.append(ev())
+        bloop = prepare_loop(model_bf, bfm1, bfm2, binp, cfg_bf)
+        be.append(ev())
+        bc1 = bloop.coords0
+        for _ in range(ITERS):
+            bnet, bc1, bmk = gru_step(model_bf, cfg_bf, bloop, bnet, bc1)
+        be.append(ev())
+        convex_upsample_flow(bc1 - bloop.coords0, bmk.float())
+        be.append(ev())
+    torch.cuda.synchronize()
+    print("BF stages ms/request: " + ", ".join(
+        f"{k} {be[i].elapsed_time(be[i + 1]):.3f}" for i, k in enumerate(
+            ("encoders", "loop_setup", "iterations", "upsample"))))
     # the two lookups on this request's own coordinates: at the first
     # iteration (flow 0, coherent windows) and after the last (the random
     # weights' flow of hundreds of pixels, incoherent windows)
@@ -588,6 +982,9 @@ def main() -> int:
 
     it_pairs = iter(pairs[:2])
     profiled("request", "requests", 2, lambda: infer_k(model, *next(it_pairs)))
+    it_pairs = iter(pairs[:2])
+    profiled("BF request", "BF requests", 2,
+             lambda: infer_bf(model_bf, *next(it_pairs)))
     profiled("batch", "ragged batches", 2, lambda: infer_r(model, rim1, rim2, sizes))
     # why cudnn.benchmark is on: the motion encoder's convc2 at batch 3 and
     # about the ragged box's grid, by cuDNN's heuristic choice and
@@ -610,6 +1007,11 @@ def main() -> int:
                               "latency_ms_all": lat_k, "plain_latency_ms_median": med_p,
                               "plain_pairs_per_s": 1e3 / med_p,
                               "window_latency_ms_median": med_w,
+                              "p32_all_latency_ms_median": med_more["P32 all"],
+                              "p32_window_latency_ms_median": med_more["P32 window"],
+                              "bf_latency_ms_median": med_more["BF"],
+                              "bf16corr_ctx_gru_latency_ms_median":
+                                  med_more["pallas-bf16corr-ctx-gru"],
                               "ragged_batch_ms_median": med_r,
                               "ragged_pairs_per_s": 3e3 / med_r,
                               "ragged_batch_ms_all": lat_r,
@@ -622,20 +1024,38 @@ def main() -> int:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": None}
 
+    print(f"device: {smi}")
     print(json.dumps({"kernels": [
         entry("corr_lookup", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:349", launches["corr_lookup"],
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242", launches["sep_conv_gru"],
-              gru_err, gru_ms, gru_plain_ms, gru_bound, gru_by),
+              gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
         entry("corr_window", "raft_tpu_torch/csrc/corr_window.cu",
               "raft_tpu/ops/corr_pallas.py:342", launches_w["corr_window"],
               win_err, win_ms, win_plain_ms, corr_bound, corr_by),
         entry("corr_ragged", "raft_tpu_torch/csrc/corr_window.cu",
               "raft_tpu/ops/corr_pallas.py:604", launches_r["corr_ragged"],
-              rag_err, rag_ms, rag_plain_ms, rag_bound, rag_by),
-    ]}))
+              rag_err, rag_ms, rag_plain_ms, rag_bound_ms, rag_by),
+        entry("corr_packed", "raft_tpu_torch/csrc/corr_window.cu",
+              "raft_tpu/ops/corr_pallas.py:125",
+              launches_p32["all"]["corr_packed"] + launches_p32["window"]["corr_packed"],
+              pack_err, pk["all"], pk["all_plain"], corr_bound, corr_by),
+    ] + [entry(f"{name}_bf16", f"raft_tpu_torch/csrc/{src}", replaces, runs,
+               bf_err[name], bf_ms[name][0], bf_ms[name][1], *bf_ms[name][2])
+         for name, src, replaces, runs in (
+             ("corr_lookup", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:349",
+              launches_bfc["corr_lookup"]),
+             ("corr_window", "corr_window.cu", "raft_tpu/ops/corr_pallas.py:342",
+              launches_bfw["corr_window"]),
+             ("corr_packed", "corr_window.cu", "raft_tpu/ops/corr_pallas.py:125",
+              launches_bf["corr_packed"]),
+             ("corr_ragged", "corr_window.cu", "raft_tpu/ops/corr_pallas.py:604",
+              launches_rbf["corr_ragged"]),
+             ("sep_conv_gru", "sep_conv_gru.cu", "raft_tpu/ops/gru_pallas.py:242",
+              launches_bf["sep_conv_gru"] + launches_bfc["sep_conv_gru"]
+              + launches_bfw["sep_conv_gru"] + launches_rbf["sep_conv_gru"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

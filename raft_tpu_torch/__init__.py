@@ -2,9 +2,9 @@
 
 It imports torch and numpy only — never jax, never raft_tpu.  It runs
 eval-mode inference of the full ``raft-things`` model, pairwise and on
-ragged mixed-resolution batches, with hand-written CUDA kernels for the
-correlation lookups (``ops/corr_cuda.py``) and the SepConvGRU iteration
-(``ops/gru_cuda.py``).
+ragged mixed-resolution batches, in float32 or under the bf16 compute
+policy, with hand-written CUDA kernels for the correlation lookups
+(``ops/corr_cuda.py``) and the SepConvGRU iteration (``ops/gru_cuda.py``).
 
     model = init_raft_torch(RAFTConfig.full(), device="cuda")
     cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")

@@ -15,6 +15,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -110,14 +111,26 @@ def build_all() -> float:
 
 
 def compiler_report() -> str:
-    """``ptxas`` register, shared-memory and spill lines of the last build,
-    under the name of each source."""
+    """One line per source of the last build from ``ptxas -v``: its kernel
+    entries and their register range, then each entry that spills."""
     lines = []
     for s in SOURCES:
         log = build_dir() / (Path(s).stem + ".log")
-        if log.exists():
-            lines.append(f"{s}:")
-            lines += ["  " + ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln
-                      or "Compiling entry" in ln]
+        if not log.exists():
+            continue
+        entry, regs, spills = "", [], []
+        for ln in log.read_text().splitlines():
+            if "Compiling entry" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills.append(f"  spills {m.group(1)} B stores / {m.group(2)} B "
+                              f"loads in {entry[:100]}")
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                regs.append(int(m.group(1)))
+        if regs:
+            lines.append(f"{s}: {len(regs)} entries, {min(regs)}-{max(regs)} "
+                         f"registers per thread")
+        lines += spills
     return "\n".join(lines)

@@ -62,6 +62,28 @@ class RAFTConfig:
     ``pallas_q_blk``, ``pallas_p_blk``, ``pallas_lookup_style`` and
     ``gru_block_rows`` are accepted and validated as in JAX but change no
     value: the CUDA kernels have their own fixed tiling.
+    ``pallas_pack=True`` runs the lookup through its own kernel (the packed
+    entry of ``csrc/corr_window.cu``), which stages the narrow pyramid
+    levels (``W_l <= 64``, the levels the TPU packs row by row) in whole
+    rows; the values are those of the unpacked lookup.
+
+    ``compute_dtype='bfloat16'`` is the JAX package's bf16 policy: the
+    weights (batch-norm statistics included) and the activations of the
+    encoders and the update block are bfloat16 — the model is cast once,
+    by :func:`~raft_tpu_torch.models.raft.init_raft_torch` or by the
+    caller's ``model.to(torch.bfloat16)``, not per request — while the
+    correlation is computed from float32 feature maps, the GRU computes in
+    float32 with bfloat16 I/O, coordinates stay float32 and the upsampling
+    runs in float32.
+
+    ``corr_precision='default'`` means what one default-precision pass of
+    the TPU's matrix unit does with the lookup's float32 operands: the dot
+    products take fmap1 and each fmap2 pyramid level rounded to bfloat16
+    (the pyramid pooled in float32 first, each level rounded after) and
+    accumulate in float32.  The port stores those operands as bfloat16,
+    which halves the lookup's feature bytes.  ``'highest'`` keeps them
+    float32.  (On the JAX package's CPU backend 'default' computes in
+    float32, so there the two values agree.)
     """
 
     small: bool = False
@@ -163,12 +185,6 @@ def check_port_support(config: RAFTConfig) -> None:
     if config.small:
         todo.append("small=True (the raft-small variant): ROADMAP Queue A "
                     "item 6b")
-    if config.compute_dtype != "float32":
-        todo.append(f"compute_dtype={config.compute_dtype!r}: ROADMAP "
-                    f"Queue A item 6a")
-    if config.corr_precision != "highest":
-        todo.append(f"corr_precision={config.corr_precision!r}: ROADMAP "
-                    f"Queue A item 6a")
     if parse_iters_policy(config.iters_policy)[0] != "fixed":
         todo.append(f"iters_policy={config.iters_policy!r}: ROADMAP Queue A "
                     f"item 6c")
@@ -183,8 +199,6 @@ def check_port_support(config: RAFTConfig) -> None:
     if config.gru_impl == "xla" and not config.gru_ctx_hoist:
         todo.append("gru_ctx_hoist=False (the un-hoisted GRU): ROADMAP "
                     "Queue A item 6e")
-    if config.corr_impl == "pallas" and config.pallas_pack:
-        todo.append("pallas_pack=True: ROADMAP Queue B item B5")
     if todo:
         raise NotImplementedError(
             "not ported to raft_tpu_torch yet: " + "; ".join(todo))

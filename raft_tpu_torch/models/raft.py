@@ -13,10 +13,21 @@ the SepConvGRU (``gru_impl='pallas'``: the CUDA kernel of
 ``ops/gru_cuda.py``; ``'xla'``: its plain version) and the flow and mask
 heads; then convex upsampling.  The lookup (``ops/corr_cuda.py``) is, with
 ``corr_impl='pallas'``, the CUDA kernel of ``pallas_p_select`` ('all' or
-'window') or, for a ragged batch, the ragged kernel; with ``'blockwise'`` +
-``'onehot'``, the plain versions.  A ragged batch masks the images and the
-correlation features outside each item's crop; everything else runs over
-the whole max box, as in JAX, and the caller slices each item's crop.
+'window'; with ``pallas_pack=True`` the narrow levels go to the packed
+kernel) or, for a ragged batch, the ragged kernel (``pallas_pack`` does not
+apply there, as in JAX); with ``'blockwise'`` + ``'onehot'``, the plain
+versions.  A ragged batch masks the images and the correlation features
+outside each item's crop; everything else runs over the whole max box, as
+in JAX, and the caller slices each item's crop.
+
+``compute_dtype='bfloat16'`` follows the JAX package's policy: the images
+are cast after ``2x - 1``; the model's weights must already be bfloat16
+(:func:`init_raft_torch` makes them so; a model loaded from float32
+weights is cast once with ``model.to(torch.bfloat16)``), so no request
+casts a parameter; encoders, motion encoder, GRU I/O and heads run in
+bfloat16; the correlation is computed from float32 maps (bfloat16-rounded
+operands under ``corr_precision='default'``) and cast to bfloat16; the
+coordinates and the upsampling stay float32.
 
 Entry points (:func:`init_raft_torch`, :func:`make_inference_fn`, the
 ragged ones) run on CUDA unless the caller passes ``device="cpu"``, and
@@ -33,8 +44,8 @@ import torch.nn as nn
 from ..config import RAFTConfig, check_port_support
 from ..ops.conv import init_conv_, to_nchw, to_nhwc
 from ..ops.coords import coords_grid
-from ..ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
-                        lookup_ragged_plain, mask_ragged_rows, ragged_pyramid)
+from ..ops.corr import (lookup_blockwise_onehot, lookup_operands,
+                        lookup_ragged_plain, mask_ragged_rows)
 from ..ops.corr_cuda import (make_fused_lookup, make_ragged_fused_lookup,
                              make_window_lookup)
 from ..ops.gru_cuda import fuse_gru_weights
@@ -76,13 +87,20 @@ class RAFT(nn.Module):
             config.corr_feature_dim, config.hidden_dim, config.context_dim)
 
 
+def compute_dtype(config: RAFTConfig) -> torch.dtype:
+    """The activations' and weights' dtype of ``config.compute_dtype``."""
+    return torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
+
+
 def init_raft_torch(config: RAFTConfig,
                     generator: Optional[torch.Generator] = None,
                     device=None) -> RAFT:
     """A RAFT module with seeded random weights (Kaiming fan-out normal
     convs, zero biases, identity batch-norm statistics), in eval mode on
-    ``device``.  Weights are drawn on the CPU from ``generator`` (default:
-    seed 0), so one seed gives the same weights on every device."""
+    ``device``, in ``config.compute_dtype``.  Weights are drawn in float32
+    on the CPU from ``generator`` (default: seed 0), so one seed gives the
+    same weights on every device; under ``compute_dtype='bfloat16'`` every
+    parameter and buffer is then rounded to bfloat16, once."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -90,22 +108,34 @@ def init_raft_torch(config: RAFTConfig,
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             init_conv_(m, generator)
-    return model.to(dev).eval()
+    return model.to(dev, compute_dtype(config)).eval()
 
 
-def _preprocess(image: torch.Tensor) -> torch.Tensor:
-    """[B, H, W, 3] in [0, 1] -> NCHW channels_last in [-1, 1]."""
-    return to_nchw((2.0 * image - 1.0).contiguous())
+def _preprocess(image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, W, 3] float32 in [0, 1] -> NCHW channels_last in [-1, 1],
+    cast to ``dtype`` after the affine map."""
+    return to_nchw((2.0 * image - 1.0).to(dtype).contiguous())
+
+
+def _check_model_dtype(model: RAFT, config: RAFTConfig) -> None:
+    want = compute_dtype(config)
+    got = next(model.parameters()).dtype
+    if got != want:
+        raise ValueError(
+            f"the model's weights are {got}, compute_dtype={config.compute_dtype!r} "
+            f"needs {want}: cast the model once (model.to({want})) or build "
+            f"it with init_raft_torch(config)")
 
 
 def encode_pair(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
                 config: RAFTConfig):
     """The encoders: one fnet pass over both frames (batch 2B), one cnet
-    pass over frame 1.  Returns fmap1, fmap2, inp (NCHW) and the initial
-    net [B, h, w, hidden] (NHWC)."""
+    pass over frame 1, in ``config.compute_dtype``.  Returns fmap1, fmap2,
+    inp (NCHW) and the initial net [B, h, w, hidden] (NHWC)."""
     B = image1.shape[0]
-    x1 = _preprocess(image1.float())
-    x2 = _preprocess(image2.float())
+    cdt = compute_dtype(config)
+    x1 = _preprocess(image1.float(), cdt)
+    x2 = _preprocess(image2.float(), cdt)
     fmaps = model.fnet(torch.cat([x1, x2], dim=0))
     cnet = model.cnet(x1)
     hid = config.hidden_dim
@@ -130,6 +160,7 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     the crops, the correlation runs on each crop alone, and the flow is
     valid on ``[:h, :w]`` of each item."""
     check_port_support(config)
+    _check_model_dtype(model, config)
     iters = config.iters if iters is None else iters
     B, H, W, _ = image1.shape
     if H % 8 or W % 8:
@@ -171,28 +202,30 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
                  sizes8: Optional[torch.Tensor] = None) -> LoopState:
     """Loop-invariant work, once per forward.  fmap1/fmap2 [B, C, h, w]
     and inp [B, ctx, h, w] NCHW; ``sizes8`` [B, 2] int32 live (h, w) per
-    item on the 1/8 grid for a ragged batch, else None."""
+    item on the 1/8 grid for a ragged batch, else None.  The lookup's
+    operands are float32 maps (bfloat16-rounded under
+    ``corr_precision='default'``), whatever the compute dtype."""
     B, _, h, w = fmap1.shape
-    f1 = to_nhwc(fmap1.float()).contiguous()
-    f2 = to_nhwc(fmap2.float()).contiguous()
-    r, L = config.corr_radius, config.corr_levels
-    if sizes8 is not None and config.corr_impl == "pallas":
-        lookup = make_ragged_fused_lookup(f1, f2, sizes8, L, r)
+    f1 = to_nhwc(fmap1)
+    f2 = to_nhwc(fmap2)
+    r, L, prec = config.corr_radius, config.corr_levels, config.corr_precision
+    pallas = config.corr_impl == "pallas"
+    if sizes8 is not None and pallas:
+        lookup = make_ragged_fused_lookup(f1, f2, sizes8, L, r, prec)
     elif sizes8 is not None:                # the masked plain twin
-        f1m = mask_ragged_rows(f1, sizes8)
-        levels = ragged_pyramid(f2, sizes8, L)
+        f1m, levels = lookup_operands(f1, f2, L, prec, sizes8)
 
         def lookup(coords):
             return lookup_ragged_plain(f1m, levels, coords, sizes8, r)
-    elif config.corr_impl == "pallas" and config.pallas_p_select == "window":
-        lookup = make_window_lookup(f1, f2, L, r)
-    elif config.corr_impl == "pallas":
-        lookup = make_fused_lookup(f1, f2, L, r)
+    elif pallas and config.pallas_p_select == "window":
+        lookup = make_window_lookup(f1, f2, L, r, config.pallas_pack, prec)
+    elif pallas:
+        lookup = make_fused_lookup(f1, f2, L, r, config.pallas_pack, prec)
     else:                                   # 'blockwise' + 'onehot'
-        levels = fmap2_pyramid(f2, L)
+        f1p, levels = lookup_operands(f1, f2, L, prec)
 
         def lookup(coords):
-            return lookup_blockwise_onehot(f1, levels, coords, r)
+            return lookup_blockwise_onehot(f1p, levels, coords, r)
 
     gru = model.update_block.gru
     return LoopState(
@@ -205,14 +238,18 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
 def gru_step(model: RAFT, config: RAFTConfig, loop: LoopState,
              net: torch.Tensor, coords1: torch.Tensor):
     """One GRU iteration: lookup, motion encoder, SepConvGRU, heads.
-    net [B, h, w, hidden] and coords1 [B, h, w, 2] NHWC; returns the new
-    (net, coords1, mask), mask NHWC [B, h, w, 576]."""
-    corr = loop.lookup(coords1)
-    flow = coords1 - loop.coords0
+    net [B, h, w, hidden] (compute dtype) and coords1 [B, h, w, 2] (float32)
+    NHWC; returns the new (net, coords1, mask), mask NHWC [B, h, w, 576] in
+    the compute dtype.  The float32 correlation and flow are cast to the
+    compute dtype, the flow update back to float32 before it moves
+    coords1."""
+    cdt = compute_dtype(config)
+    corr = loop.lookup(coords1).to(cdt)
+    flow = (coords1 - loop.coords0).to(cdt)
     net, mask, delta_flow = model.update_block(
         net, to_nchw(corr), to_nchw(flow), loop.gru_ctx, loop.gru_weights,
         gru_impl=config.gru_impl)
-    return net, coords1 + to_nhwc(delta_flow), to_nhwc(mask)
+    return net, coords1 + to_nhwc(delta_flow).float(), to_nhwc(mask)
 
 
 def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -227,12 +264,13 @@ def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
     coords0 = loop.coords0
     coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
     B, h, w, _ = coords0.shape
-    mask = torch.zeros((B, h, w, 64 * 9), device=coords0.device)
+    mask = torch.zeros((B, h, w, 64 * 9), dtype=compute_dtype(config),
+                       device=coords0.device)
     flows = []
     for _ in range(iters):
         net, coords1, mask = gru_step(model, config, loop, net, coords1)
         if all_flows:
-            flows.append(convex_upsample_flow(coords1 - coords0, mask))
+            flows.append(convex_upsample_flow(coords1 - coords0, mask.float()))
 
     flow_lr = coords1 - coords0
     if all_flows:
@@ -240,7 +278,7 @@ def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
         final = flow_iters[-1]
     else:
         flow_iters = None
-        final = convex_upsample_flow(flow_lr, mask)
+        final = convex_upsample_flow(flow_lr, mask.float())
     iters_used = torch.full((B,), iters, dtype=torch.int32,
                             device=coords0.device)
     return RAFTOutput(flow=final, flow_iters=flow_iters, flow_lr=flow_lr,

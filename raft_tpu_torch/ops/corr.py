@@ -13,20 +13,33 @@ none of which builds the ``(HW)^2`` volume:
 * :func:`lookup_blockwise_onehot` (``corr_lookup.cu``): per query chunk and
   level one ``[T, P]`` correlation tile, then the separable one-hot window
   lookup, as two small matmuls;
-* :func:`lookup_window_plain` (``corr_window_f32``): the same, correlating
+* :func:`lookup_window_plain` (``corr_window.cu``): the same, correlating
   each chunk only against the rows its windows touch (the window schedule);
-* :func:`lookup_ragged_plain` (``corr_ragged_f32``): mixed-resolution items
-  in one max box (:func:`mask_ragged_rows`, :func:`ragged_pyramid`), dead
-  queries exact zeros.
+* :func:`lookup_ragged_plain` (``corr_window.cu``, ragged entry):
+  mixed-resolution items in one max box (:func:`mask_ragged_rows`,
+  :func:`ragged_pyramid`), dead queries exact zeros;
+* :func:`lookup_packed_plain` (``corr_window.cu``, packed entry,
+  ``pallas_pack=True``):
+  the TPU's row-packed formulation on the narrow levels (the predicate of
+  :func:`packed_levels_from`), the others as above.
+
+Operands may be float32 or bfloat16 (:func:`lookup_operands` rounds them
+under ``corr_precision='default'``); every plain version computes in
+float32 and returns float32.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from .conv import avg_pool2d
+
+# The TPU's vector lanes: raft_tpu's row-packed kernel lays ``128 // W_l``
+# rows of a narrow level side by side to fill them.
+LANES = 128
 
 
 def fmap2_pyramid(fmap2: torch.Tensor, num_levels: int = 4) -> List[torch.Tensor]:
@@ -71,6 +84,50 @@ def ragged_pyramid(fmap2: torch.Tensor, sizes: torch.Tensor,
     return levels
 
 
+def pack_factor(w2: int) -> int:
+    """Rows of width ``w2`` the TPU's row-packed kernel lays side by side:
+    ``max(1, 128 // W_l)`` (``raft_tpu/lint/budget.py::corr_level_plan``)."""
+    return max(1, LANES // w2)
+
+
+def packed_levels_from(widths: Sequence[int]) -> int:
+    """Index of the first level that ``pallas_pack=True`` runs packed: a
+    level packs iff ``128 // W_l >= 2``, i.e. ``W_l <= 64``.  A level pooled
+    away to width 0 counts as packed (it gives zeros whichever kernel takes
+    it).  Pooling halves the width, so the packed levels are the suffix of
+    the pyramid from this index; raises when ``widths`` are not so."""
+    packed = [w == 0 or pack_factor(w) >= 2 for w in widths]
+    first = packed.index(True) if True in packed else len(widths)
+    if not all(packed[first:]):
+        raise ValueError(f"level widths {list(widths)}: the packed levels "
+                         f"are not a suffix")
+    return first
+
+
+def lookup_operands(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                    num_levels: int, corr_precision: str = "highest",
+                    sizes8: Optional[torch.Tensor] = None):
+    """The lookup's operands, once per forward: fmap1 [B, H, W, C] and the
+    ``num_levels`` pyramid of fmap2, pooled in float32 (masked per level for
+    a ragged batch at ``sizes8``, see :func:`ragged_pyramid`).  Under
+    ``corr_precision='default'`` fmap1 and each pooled level are then
+    rounded to bfloat16: the lookup's dot products take bfloat16 operands
+    and accumulate in float32, as one bf16 pass of the TPU's matrix unit
+    does.  Returns contiguous (f1, levels)."""
+    if corr_precision not in ("highest", "default"):
+        raise ValueError(f"corr_precision must be 'highest' or 'default', "
+                         f"got {corr_precision!r}")
+    f1, f2 = fmap1.float(), fmap2.float()
+    if sizes8 is None:
+        levels = fmap2_pyramid(f2, num_levels)
+    else:
+        f1 = mask_ragged_rows(f1, sizes8)
+        levels = ragged_pyramid(f2, sizes8, num_levels)
+    if corr_precision == "default":
+        f1, levels = f1.bfloat16(), [lv.bfloat16() for lv in levels]
+    return f1.contiguous(), [lv.contiguous() for lv in levels]
+
+
 def corr_scale(c: int) -> float:
     """``1/sqrt(C)`` rounded to float32, as the JAX package computes it."""
     return float(torch.rsqrt(torch.tensor(float(c), dtype=torch.float32)))
@@ -113,29 +170,80 @@ def lookup_partial_onehot(corr3: torch.Tensor, coords: torch.Tensor,
     return win.reshape(B, Q, n * n)
 
 
+def _level_blockwise(f1: torch.Tensor, f2: torch.Tensor, coords: torch.Tensor,
+                     radius: int, level: int, chunk: int) -> torch.Tensor:
+    """One level of :func:`lookup_blockwise_onehot`: f1 [B, Q, C] and f2
+    [B, H2, W2, C] float32, coords [B, Q, 2] -> [B, Q, (2r+1)^2]."""
+    B, Q, C = f1.shape
+    _, H2, W2, _ = f2.shape
+    scale = corr_scale(C)
+    f2t = f2.reshape(B, H2 * W2, C).transpose(1, 2)
+    outs = []
+    for s in range(0, Q, chunk):
+        f1c, cc = f1[:, s:s + chunk], coords[:, s:s + chunk]
+        corr = torch.matmul(f1c, f2t)
+        outs.append(lookup_partial_onehot(
+            (corr * scale).reshape(B, f1c.shape[1], H2, W2), cc, radius, level))
+    return torch.cat(outs, dim=1)
+
+
 def lookup_blockwise_onehot(fmap1: torch.Tensor,
                             f2_levels: Sequence[torch.Tensor],
                             coords: torch.Tensor, radius: int,
                             chunk: int = 512) -> torch.Tensor:
-    """fmap1 [B, H, W, C], f2_levels [B, H/2^l, W/2^l, C], coords
-    [B, H, W, 2] -> [B, H, W, L*(2r+1)^2], all float32."""
+    """fmap1 [B, H, W, C], f2_levels [B, H/2^l, W/2^l, C] (float32 or
+    bfloat16), coords [B, H, W, 2] -> [B, H, W, L*(2r+1)^2] float32."""
     B, H, W, C = fmap1.shape
-    Q = H * W
-    f1 = fmap1.reshape(B, Q, C)
-    flat = coords.reshape(B, Q, 2)
+    f1 = fmap1.reshape(B, H * W, C).float()
+    flat = coords.reshape(B, H * W, 2)
+    return torch.cat([_level_blockwise(f1, f2.float(), flat, radius, lvl, chunk)
+                      for lvl, f2 in enumerate(f2_levels)],
+                     dim=-1).reshape(B, H, W, -1)
+
+
+def _chunk_rows(iy0: torch.Tensor, n: int, H2: int):
+    """The schedule of one query chunk: the rows ``[r0, r1]`` of a level
+    with ``H2`` rows that windows starting at rows ``iy0`` touch (a window
+    reads rows ``iy0 .. iy0 + n``), or None when they miss the map."""
+    lo, hi = int(iy0.min()), int(iy0.max()) + n
+    if H2 == 0 or hi < 0 or lo >= H2:
+        return None
+    return max(lo, 0), min(hi, H2 - 1)
+
+
+def _window_starts(coords: torch.Tensor, radius: int,
+                   level: int) -> torch.Tensor:
+    """First window row ``floor(cy / 2^l) - r`` of each query, huge or NaN
+    coordinates clamped far outside the map."""
+    return (torch.floor(coords[..., 1] / (2.0 ** level)) - radius).nan_to_num(
+        1e8).clamp(-1e8, 1e8)
+
+
+def _level_window(f1: torch.Tensor, f2: torch.Tensor, coords: torch.Tensor,
+                  radius: int, level: int, chunk: int) -> torch.Tensor:
+    """One level of :func:`lookup_window_plain`, shapes as
+    :func:`_level_blockwise`."""
+    B, Q, C = f1.shape
+    _, H2, W2, _ = f2.shape
+    n = 2 * radius + 1
     scale = corr_scale(C)
-    outs = []
-    for s in range(0, Q, chunk):
-        f1c, cc = f1[:, s:s + chunk], flat[:, s:s + chunk]
-        T = f1c.shape[1]
-        per_level = []
-        for i, f2 in enumerate(f2_levels):
-            _, H2, W2, _ = f2.shape
-            corr = torch.matmul(f1c, f2.reshape(B, H2 * W2, C).transpose(1, 2))
-            per_level.append(lookup_partial_onehot(
-                (corr * scale).reshape(B, T, H2, W2), cc, radius, i))
-        outs.append(torch.cat(per_level, dim=-1))
-    return torch.cat(outs, dim=1).reshape(B, H, W, -1)
+    out = f1.new_zeros((B, Q, n * n))
+    if W2 == 0:
+        return out
+    iy0 = _window_starts(coords, radius, level)
+    for b in range(B):
+        for s in range(0, Q, chunk):
+            rows = _chunk_rows(iy0[b, s:s + chunk], n, H2)
+            if rows is None:
+                continue
+            r0, r1 = rows
+            f1c, cc = f1[b:b + 1, s:s + chunk], coords[b:b + 1, s:s + chunk]
+            f2r = f2[b:b + 1, r0:r1 + 1].reshape(1, -1, C)
+            corr = torch.matmul(f1c, f2r.transpose(1, 2)) * scale
+            out[b:b + 1, s:s + chunk] = lookup_partial_onehot(
+                corr.reshape(1, f1c.shape[1], r1 - r0 + 1, W2), cc, radius,
+                level, row_offset=r0)
+    return out
 
 
 def lookup_window_plain(fmap1: torch.Tensor,
@@ -149,30 +257,103 @@ def lookup_window_plain(fmap1: torch.Tensor,
     chunk whose windows miss the map gives zeros, the others correlate
     against those rows only."""
     B, H, W, C = fmap1.shape
-    Q = H * W
+    f1 = fmap1.reshape(B, H * W, C).float()
+    flat = coords.reshape(B, H * W, 2)
+    return torch.cat([_level_window(f1, f2.float(), flat, radius, lvl, chunk)
+                      for lvl, f2 in enumerate(f2_levels)],
+                     dim=-1).reshape(B, H, W, -1)
+
+
+def _level_packed(f1: torch.Tensor, f2: torch.Tensor, coords: torch.Tensor,
+                  radius: int, level: int, p_select: str,
+                  chunk: int) -> torch.Tensor:
+    """One narrow level in the TPU's row-packed formulation
+    (``raft_tpu/ops/corr_pallas.py::_packed_body``), shapes as
+    :func:`_level_blockwise`.  ``pack`` rows of width W2 are laid side by
+    side as packed rows of width ``pack * W2``; per y tap of each window
+    row a one-hot matmul over packed rows, then the parity-aware x taps of
+    the packed row (tap (x, y) at ``(y % pack) * W2 + x``) guarded to their
+    own sub-row, so windows never wrap into a neighbouring row.  The x
+    one-hot has two non-zero weights per output, so it is taken as two
+    gathers (the same sum: the one-hot adds exact zeros).  Under
+    p_select='window' each chunk correlates only against the packed rows
+    its windows touch."""
+    B, Q, C = f1.shape
+    _, H2, W2, _ = f2.shape
     n = 2 * radius + 1
-    f1 = fmap1.reshape(B, Q, C)
-    flat = coords.reshape(B, Q, 2)
+    out = f1.new_zeros((B, Q, n, n))
+    if H2 == 0 or W2 == 0:
+        return out.reshape(B, Q, n * n)
+    pack = pack_factor(W2)
+    n_rows = -(-H2 // pack)
+    u = pack * W2
+    f2p = F.pad(f2, (0, 0, 0, 0, 0, n_rows * pack - H2)).reshape(B, n_rows, u, C)
     scale = corr_scale(C)
-    out = fmap1.new_zeros((B, Q, len(f2_levels), n * n))
+    c = coords / (2.0 ** level)
+    cx0, cy0 = torch.floor(c[..., 0]), torch.floor(c[..., 1])
+    fx, fy = c[..., 0] - cx0, c[..., 1] - cy0
+    iota = torch.arange(n, device=f1.device)
+    tx = cx0.long()[..., None] - radius + iota                  # [B, Q, n(x)]
+    ty0 = cy0.long()[..., None] - radius + iota                 # [B, Q, n(y)]
+    iy0 = _window_starts(coords, radius, level)
+    zero = torch.zeros((), dtype=torch.float32, device=f1.device)
+    for b in range(B):
+        for s in range(0, Q, chunk):
+            rows = (0, H2 - 1) if p_select == "all" else _chunk_rows(
+                iy0[b, s:s + chunk], n, H2)
+            if rows is None:
+                continue
+            p0, p1 = rows[0] // pack, rows[1] // pack
+            sl = (b, slice(s, s + chunk))
+            f2r = f2p[b, p0:p1 + 1].reshape(-1, C)
+            corr = (torch.matmul(f1[sl], f2r.t()) * scale).reshape(-1, p1 - p0 + 1, u)
+            prow_ids = torch.arange(p0, p1 + 1, device=f1.device)
+            x_ok0 = ((tx[sl] >= 0) & (tx[sl] < W2))[:, :, None]   # [T, n(x), 1]
+            x_ok1 = ((tx[sl] + 1 >= 0) & (tx[sl] + 1 < W2))[:, :, None]
+            fx3 = fx[sl][:, None, None]
+            for wy, delta in ((1.0 - fy[sl], 0), (fy[sl], 1)):   # the y taps
+                ty = ty0[sl] + delta                                # [T, n(y)]
+                prow = torch.div(ty, pack, rounding_mode="floor")
+                parity = ty - prow * pack                           # in [0, pack)
+                a_y = torch.where(prow_ids == prow[..., None],
+                                  wy[:, None, None], zero)          # [T, n, rows]
+                win_y = torch.matmul(a_y, corr)                     # [T, n(y), u]
+                # tap (x, y) of the packed row; an in-row x keeps it in
+                # [0, u), an out-of-row one is masked (the sub-row guard)
+                u0 = parity[:, None, :] * W2 + tx[sl][:, :, None]  # [T, n(x), n(y)]
+                rows = win_y[:, None].expand(-1, n, -1, -1)
+                g0 = torch.gather(rows, 3, u0.clamp(0, u - 1)[..., None])[..., 0]
+                g1 = torch.gather(rows, 3, (u0 + 1).clamp(0, u - 1)[..., None])[..., 0]
+                out[sl] += (torch.where(x_ok0, (1.0 - fx3) * g0, zero)
+                            + torch.where(x_ok1, fx3 * g1, zero))   # [T, n(x), n(y)]
+    return out.reshape(B, Q, n * n)
+
+
+def lookup_packed_plain(fmap1: torch.Tensor,
+                        f2_levels: Sequence[torch.Tensor],
+                        coords: torch.Tensor, radius: int,
+                        p_select: str = "all",
+                        chunk: int = 512) -> torch.Tensor:
+    """The lookup of ``pallas_pack=True``, shapes and values as
+    :func:`lookup_blockwise_onehot`: the narrow levels (from
+    :func:`packed_levels_from` on) in the row-packed formulation, the wider
+    ones as :func:`lookup_blockwise_onehot` (p_select='all') or
+    :func:`lookup_window_plain` ('window')."""
+    if p_select not in ("all", "window"):
+        raise ValueError(f"p_select must be 'all' or 'window', got {p_select!r}")
+    B, H, W, C = fmap1.shape
+    f1 = fmap1.reshape(B, H * W, C).float()
+    flat = coords.reshape(B, H * W, 2)
+    first = packed_levels_from([f2.shape[2] for f2 in f2_levels])
+    wide = _level_window if p_select == "window" else _level_blockwise
+    outs = []
     for lvl, f2 in enumerate(f2_levels):
-        _, H2, W2, _ = f2.shape
-        iy0 = (torch.floor(flat[..., 1] / (2.0 ** lvl)) - radius).nan_to_num(
-            1e8).clamp(-1e8, 1e8)
-        for b in range(B):
-            for s in range(0, Q, chunk):
-                lo = int(iy0[b, s:s + chunk].min())
-                hi = int(iy0[b, s:s + chunk].max()) + n    # last row, inclusive
-                if H2 == 0 or W2 == 0 or hi < 0 or lo >= H2:
-                    continue
-                r0, r1 = max(lo, 0), min(hi, H2 - 1)
-                f1c, cc = f1[b:b + 1, s:s + chunk], flat[b:b + 1, s:s + chunk]
-                rows = f2[b:b + 1, r0:r1 + 1].reshape(1, -1, C)
-                corr = torch.matmul(f1c, rows.transpose(1, 2)) * scale
-                out[b:b + 1, s:s + chunk, lvl] = lookup_partial_onehot(
-                    corr.reshape(1, f1c.shape[1], r1 - r0 + 1, W2), cc,
-                    radius, lvl, row_offset=r0)
-    return out.reshape(B, H, W, -1)
+        if lvl < first:
+            outs.append(wide(f1, f2.float(), flat, radius, lvl, chunk))
+        else:
+            outs.append(_level_packed(f1, f2.float(), flat, radius, lvl,
+                                      p_select, chunk))
+    return torch.cat(outs, dim=-1).reshape(B, H, W, -1)
 
 
 def lookup_ragged_plain(fmap1: torch.Tensor,

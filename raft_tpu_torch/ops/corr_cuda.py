@@ -1,28 +1,46 @@
 """Correlation window lookups: the CUDA kernels and their dispatch.
 
-Three entries, each with a plain PyTorch version in ``ops/corr.py`` and a
+Four kernels, each with a plain PyTorch version in ``ops/corr.py`` and a
 launch counter:
 
 * :func:`corr_lookup_cuda` (``csrc/corr_lookup.cu``) replaces the Pallas
   kernel ``_lookup_level`` with p_select='all' (``_level_kernel`` +
   ``_window_body``, ``raft_tpu/ops/corr_pallas.py:349``), reached through
   :func:`make_fused_lookup`;
-* :func:`corr_window_cuda` (``csrc/corr_window.cu``, ``corr_window_f32``)
+* :func:`corr_window_cuda` (``csrc/corr_window.cu``, ``corr_window_*``)
   replaces ``_lookup_level`` with p_select='window' (``_window_kernel`` and
   ``_window_schedule``, ``corr_pallas.py:342``), reached through
   :func:`make_window_lookup`;
-* :func:`corr_ragged_cuda` (``corr_window.cu``, ``corr_ragged_f32``)
+* :func:`corr_ragged_cuda` (``corr_window.cu``, ``corr_ragged_*``)
   replaces ``_ragged_lookup_level`` (``_ragged_window_kernel`` and
   ``_ragged_schedule``, ``corr_pallas.py:604``), reached through
-  :func:`make_ragged_fused_lookup`.
+  :func:`make_ragged_fused_lookup`;
+* :func:`corr_packed_cuda` (``corr_window.cu``, ``corr_packed_*``)
+  replaces ``_packed_body`` (``corr_pallas.py:125``), the body both
+  ``pallas_call`` of ``_lookup_level`` run under ``pallas_pack=True`` for
+  the narrow levels (``W_l <= 64``,
+  :func:`~raft_tpu_torch.ops.corr.packed_levels_from`), reached through
+  ``make_fused_lookup(pack=True)`` and ``make_window_lookup(pack=True)``.
+  A packed lookup is one launch over every level: the narrow levels
+  (levels 1-3 at 432x1024, every level at 384x512 and below) staged in
+  whole rows, the wide ones as :func:`corr_window_cuda` stages them.
+
+Each kernel has a float32 and a bfloat16 entry, picked by the dtype of
+``fmap1`` (the f2 levels must share it): bfloat16 operands are what
+``corr_precision='default'`` gives (``ops/corr.py::lookup_operands``);
+arithmetic and output stay float32.
 
 Bound on an H100: at the main-path shape (B=1, a 54x128 query grid,
 C=256, 4 levels, radius 4) a call reads about 16.5 MB (f1 7.1, the fmap2
 pyramid 9.4) and writes 9.0 MB, and computes at most
 6912 * 4 * 100 * 256 * 2 = 1.42 GFLOP of FP32 FMA (fewer where windows
 leave the map), so operations bound it: about 21 us at the 67 TFLOP/s
-FP32 rate.  The same holds for the other two entries; the ragged one
-counts only the live queries' in-crop positions.
+FP32 rate.  The same holds for the other float32 entries; the ragged one
+counts only the live queries' in-crop positions.  With bfloat16 operands
+the f1 and f2 bytes halve and the FLOPs stay the same, but the channel dot
+products are then products of bfloat16 values, which the card's tensor
+cores run at 989 TFLOP/s (these kernels do not use them: FP32 FMA), so the
+bytes bound them: about 5 us at 3.35 TB/s.
 
 Why the designs differ from the TPU kernels: the TPU kernels computed full
 ``[T, P]`` correlation tiles of a query block against fmap2 row blocks (all
@@ -38,7 +56,11 @@ the tile's overlapping windows share each read; for a ragged item the box
 is clipped to its live crop and dead queries are written as zeros without
 reading f2.  Where a tile's windows are incoherent (flows of hundreds of
 pixels in all directions) the box would be mostly waste, and that CTA
-computes its windows as ``corr_lookup.cu`` does.
+computes its windows as ``corr_lookup.cu`` does.  The TPU packs the rows
+of a narrow level side by side to fill its 128 lanes; the H100 has no
+lanes to fill, so the packed entry packs nothing: a CTA of 4x32 queries
+stages whole rows of the (small, L2-resident) narrow level, every row
+under 'all' and the rows its windows touch under 'window'.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises, never another kernel or the plain version.
@@ -47,13 +69,14 @@ launches its kernel or raises, never another kernel or the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
 
-from .corr import (corr_scale, fmap2_pyramid, lookup_blockwise_onehot,
-                   lookup_ragged_plain, lookup_window_plain, mask_ragged_rows,
-                   ragged_pyramid)
+from .corr import (lookup_blockwise_onehot, lookup_operands,
+                   lookup_packed_plain, lookup_ragged_plain,
+                   lookup_window_plain, corr_scale, packed_levels_from)
 
 SOURCE = "corr_lookup.cu"
 WINDOW_SOURCE = "corr_window.cu"
@@ -61,6 +84,7 @@ MAX_LEVELS = 8
 MAX_RADIUS = 15
 MAX_WINDOW_RADIUS = 7
 MAX_CHANNELS = 512
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LOOKUP_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)]
@@ -73,6 +97,14 @@ def _fn(source: str, name: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _entry(stem: str, t: torch.Tensor) -> str:
+    """The C entry of ``stem`` for the operand dtype of ``t``."""
+    if t.dtype not in _SUFFIX:
+        raise ValueError(f"{stem} takes float32 or bfloat16 operands, got "
+                         f"{t.dtype}")
+    return f"{stem}_{_SUFFIX[t.dtype]}"
 
 
 def _check(name: str, t: torch.Tensor, device: torch.device, ndim: int,
@@ -90,12 +122,14 @@ def _check(name: str, t: torch.Tensor, device: torch.device, ndim: int,
 def _check_lookup(entry: str, fmap1: torch.Tensor,
                   f2_levels: Sequence[torch.Tensor], coords: torch.Tensor,
                   radius: int, max_radius: int) -> List[int]:
-    """Validate the arguments every lookup entry shares; returns the
+    """Validate the arguments every lookup entry shares: fmap1 and the f2
+    levels float32 or bfloat16 (one dtype), coords float32; returns the
     levels' (h, w) pairs, flattened."""
     dev = fmap1.device
     if dev.type != "cuda":
         raise ValueError(f"{entry} needs CUDA tensors, got {dev}")
-    _check("fmap1", fmap1, dev, 4)
+    _entry(entry, fmap1)
+    _check("fmap1", fmap1, dev, 4, fmap1.dtype)
     _check("coords", coords, dev, 4)
     B, H, W, C = fmap1.shape
     if tuple(coords.shape) != (B, H, W, 2):
@@ -109,7 +143,7 @@ def _check_lookup(entry: str, fmap1: torch.Tensor,
         raise ValueError(f"C must be in 1..{MAX_CHANNELS}, got {C}")
     hw = []
     for i, f2 in enumerate(f2_levels):
-        _check(f"f2_levels[{i}]", f2, dev, 4)
+        _check(f"f2_levels[{i}]", f2, dev, 4, fmap1.dtype)
         if f2.shape[0] != B or f2.shape[3] != C:
             raise ValueError(f"f2_levels[{i}] shape {tuple(f2.shape)} does "
                              f"not match fmap1 {tuple(fmap1.shape)}")
@@ -117,10 +151,37 @@ def _check_lookup(entry: str, fmap1: torch.Tensor,
     return hw
 
 
+def _check_staged(entry: str, fmap1, f2_levels, coords, radius) -> List[int]:
+    """As :func:`_check_lookup`; the staging kernels also copy 16-byte
+    vectors of channels, so C is a multiple of 4 (float32) or 8 (bfloat16)
+    and the feature maps are 16-byte aligned."""
+    hw = _check_lookup(entry, fmap1, f2_levels, coords, radius,
+                       MAX_WINDOW_RADIUS)
+    vec = 16 // fmap1.element_size()
+    if fmap1.shape[3] % vec:
+        raise ValueError(f"{entry} needs C a multiple of {vec} for "
+                         f"{fmap1.dtype}, got {fmap1.shape[3]}")
+    for t in (fmap1, *f2_levels):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{entry} needs 16-byte aligned feature maps")
+    return hw
+
+
+def _output(fmap1: torch.Tensor, L: int, radius: int) -> torch.Tensor:
+    """The [B, H, W, L*(2r+1)^2] float32 output."""
+    B, H, W, _ = fmap1.shape
+    return torch.empty((B, H, W, L * (2 * radius + 1) ** 2),
+                       dtype=torch.float32, device=fmap1.device)
+
+
 def _level_args(f2_levels: Sequence[torch.Tensor], hw: List[int]) -> Tuple:
     L = len(f2_levels)
     return ((ctypes.c_void_p * L)(*[f2.data_ptr() for f2 in f2_levels]),
             (ctypes.c_int * (2 * L))(*hw))
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -130,25 +191,26 @@ def _raise_on(err: int, name: str) -> None:
 
 def corr_lookup_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                      coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """Launch the CUDA lookup: fmap1 [B,H,W,C], f2_levels [B,H_l,W_l,C],
-    coords [B,H,W,2], all float32 contiguous on one CUDA device ->
-    [B,H,W,L*(2r+1)^2]."""
-    hw = _check_lookup("corr_lookup_cuda", fmap1, f2_levels, coords, radius,
+    """Launch the CUDA lookup (``corr_lookup_f32`` / ``_bf16``): fmap1
+    [B,H,W,C] and f2_levels [B,H_l,W_l,C] float32 or bfloat16, coords
+    [B,H,W,2] float32, all contiguous on one CUDA device ->
+    [B,H,W,L*(2r+1)^2] float32."""
+    hw = _check_lookup("corr_lookup", fmap1, f2_levels, coords, radius,
                        MAX_RADIUS)
     B, H, W, C = fmap1.shape
-    L, n, dev = len(f2_levels), 2 * radius + 1, fmap1.device
-    out = torch.empty((B, H, W, L * n * n), dtype=torch.float32, device=dev)
+    L = len(f2_levels)
+    out = _output(fmap1, L, radius)
     if B * H * W == 0:
         return out
-    fn = _fn(SOURCE, "corr_lookup_f32", _LOOKUP_ARGS + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    name = _entry("corr_lookup", fmap1)
+    fn = _fn(SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p])
     ptrs, dims = _level_args(f2_levels, hw)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(fmap1.device):
         err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
-                 dims, L, B, H * W, C, radius, corr_scale(C), stream)
-    _raise_on(err, "corr_lookup_f32")
+                 dims, L, B, H * W, C, radius, corr_scale(C),
+                 _stream(fmap1.device))
+    _raise_on(err, name)
     corr_lookup_cuda.launches += 1
     return out
 
@@ -156,40 +218,26 @@ def corr_lookup_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
 corr_lookup_cuda.launches = 0      # kernel launches; callers that count reset it
 
 
-def _check_window(entry: str, fmap1, f2_levels, coords, radius) -> List[int]:
-    """As :func:`_check_lookup`; the kernel also copies 16-byte vectors of
-    channels, so C is a multiple of 4 and the feature maps 16-byte
-    aligned."""
-    hw = _check_lookup(entry, fmap1, f2_levels, coords, radius,
-                       MAX_WINDOW_RADIUS)
-    if fmap1.shape[3] % 4:
-        raise ValueError(f"{entry} needs C a multiple of 4, got {fmap1.shape[3]}")
-    for t in (fmap1, *f2_levels):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{entry} needs 16-byte aligned feature maps")
-    return hw
-
-
 def corr_window_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                      coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """Launch the window-scheduled CUDA lookup (``corr_window_f32``).
-    Shapes and values as :func:`corr_lookup_cuda`; C a multiple of 4,
-    radius at most 7."""
-    hw = _check_window("corr_window_cuda", fmap1, f2_levels, coords, radius)
+    """Launch the window-scheduled CUDA lookup (``corr_window_f32`` /
+    ``_bf16``).  Arguments and values as :func:`corr_lookup_cuda`; C a
+    multiple of 4 (float32) or 8 (bfloat16), radius at most 7."""
+    hw = _check_staged("corr_window", fmap1, f2_levels, coords, radius)
     B, H, W, C = fmap1.shape
-    L, n, dev = len(f2_levels), 2 * radius + 1, fmap1.device
-    out = torch.empty((B, H, W, L * n * n), dtype=torch.float32, device=dev)
+    L = len(f2_levels)
+    out = _output(fmap1, L, radius)
     if B * H * W == 0:
         return out
-    fn = _fn(WINDOW_SOURCE, "corr_window_f32", _LOOKUP_ARGS + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    name = _entry("corr_window", fmap1)
+    fn = _fn(WINDOW_SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_void_p])
     ptrs, dims = _level_args(f2_levels, hw)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(fmap1.device):
         err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
-                 dims, L, B, H, W, C, radius, corr_scale(C), stream)
-    _raise_on(err, "corr_window_f32")
+                 dims, L, B, H, W, C, radius, corr_scale(C),
+                 _stream(fmap1.device))
+    _raise_on(err, name)
     corr_window_cuda.launches += 1
     return out
 
@@ -200,37 +248,70 @@ corr_window_cuda.launches = 0
 def corr_ragged_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                      coords: torch.Tensor, sizes8: torch.Tensor,
                      radius: int) -> torch.Tensor:
-    """Launch the ragged CUDA lookup (``corr_ragged_f32``): fmap1
-    [B,H,W,C] masked by ``mask_ragged_rows`` and f2_levels by
+    """Launch the ragged CUDA lookup (``corr_ragged_f32`` / ``_bf16``):
+    fmap1 [B,H,W,C] masked by ``mask_ragged_rows`` and f2_levels by
     ``ragged_pyramid`` at ``sizes8`` [B,2] int32 (each item's live (h, w)
     on the query grid, on the same device), coords [B,H,W,2] ->
-    [B,H,W,L*(2r+1)^2], dead queries exact zeros.  C a multiple of 4,
-    radius at most 7."""
-    hw = _check_window("corr_ragged_cuda", fmap1, f2_levels, coords, radius)
+    [B,H,W,L*(2r+1)^2] float32, dead queries exact zeros.  Operands as
+    :func:`corr_window_cuda`."""
+    hw = _check_staged("corr_ragged", fmap1, f2_levels, coords, radius)
     B, H, W, C = fmap1.shape
     _check("sizes8", sizes8, fmap1.device, 2, torch.int32)
     if tuple(sizes8.shape) != (B, 2):
         raise ValueError(f"sizes8 shape {tuple(sizes8.shape)} != {(B, 2)}")
-    L, n, dev = len(f2_levels), 2 * radius + 1, fmap1.device
-    out = torch.empty((B, H, W, L * n * n), dtype=torch.float32, device=dev)
+    L = len(f2_levels)
+    out = _output(fmap1, L, radius)
     if B * H * W == 0:
         return out
-    fn = _fn(WINDOW_SOURCE, "corr_ragged_f32", _LOOKUP_ARGS + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p])
+    name = _entry("corr_ragged", fmap1)
+    fn = _fn(WINDOW_SOURCE, name, _LOOKUP_ARGS + [
+        ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                 ctypes.c_void_p])
     ptrs, dims = _level_args(f2_levels, hw)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(fmap1.device):
         err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
                  dims, sizes8.data_ptr(), L, B, H, W, C, radius,
-                 corr_scale(C), stream)
-    _raise_on(err, "corr_ragged_f32")
+                 corr_scale(C), _stream(fmap1.device))
+    _raise_on(err, name)
     corr_ragged_cuda.launches += 1
     return out
 
 
 corr_ragged_cuda.launches = 0
+
+
+def corr_packed_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
+                     coords: torch.Tensor, radius: int,
+                     p_select: str = "all") -> torch.Tensor:
+    """Launch the lookup of ``pallas_pack=True`` (``corr_packed_f32`` /
+    ``_bf16``), one launch over every level: the levels ``pallas_pack``
+    packs (from ``packed_levels_from`` on) staged in whole rows — every row
+    under ``p_select='all'``, the rows a tile's windows touch under
+    'window' — and the wider ones as :func:`corr_window_cuda` stages them.
+    The values are those of :func:`corr_lookup_cuda` whatever the
+    p_select.  Arguments otherwise as :func:`corr_window_cuda`."""
+    if p_select not in ("all", "window"):
+        raise ValueError(f"p_select must be 'all' or 'window', got {p_select!r}")
+    hw = _check_staged("corr_packed", fmap1, f2_levels, coords, radius)
+    B, H, W, C = fmap1.shape
+    L = len(f2_levels)
+    out = _output(fmap1, L, radius)
+    if B * H * W == 0:
+        return out
+    name = _entry("corr_packed", fmap1)
+    fn = _fn(WINDOW_SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    ptrs, dims = _level_args(f2_levels, hw)
+    with torch.cuda.device(fmap1.device):
+        err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
+                 dims, L, packed_levels_from(hw[1::2]), B, H, W, C, radius,
+                 corr_scale(C), int(p_select == "all"), _stream(fmap1.device))
+    _raise_on(err, name)
+    corr_packed_cuda.launches += 1
+    return out
+
+
+corr_packed_cuda.launches = 0
 
 
 class _Lookup(torch.autograd.Function):
@@ -275,6 +356,18 @@ def window_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                          fmap1, coords, None, *f2_levels)
 
 
+def packed_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
+                  coords: torch.Tensor, radius: int,
+                  p_select: str = "all") -> torch.Tensor:
+    """The lookup of ``pallas_pack=True``: :func:`corr_packed_cuda` on
+    CUDA tensors, :func:`lookup_packed_plain` on CPU tensors."""
+    _supported(fmap1)
+    return _Lookup.apply(
+        functools.partial(lookup_packed_plain, p_select=p_select),
+        functools.partial(corr_packed_cuda, p_select=p_select), radius,
+        fmap1, coords, None, *f2_levels)
+
+
 def ragged_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                   coords: torch.Tensor, sizes8: torch.Tensor,
                   radius: int) -> torch.Tensor:
@@ -286,28 +379,35 @@ def ragged_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
 
 
 def make_fused_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                      num_levels: int, radius: int):
-    """Pool the fmap2 pyramid once and return the per-iteration closure
-    ``lookup(coords) -> [B, H, W, L*(2r+1)^2]`` (NHWC float32 inputs)."""
-    f1 = fmap1.float().contiguous()
-    levels = [lv.contiguous() for lv in fmap2_pyramid(fmap2.float(), num_levels)]
+                      num_levels: int, radius: int, pack: bool = False,
+                      corr_precision: str = "highest"):
+    """Pool the fmap2 pyramid once (``lookup_operands``: bfloat16 operands
+    under ``corr_precision='default'``) and return the per-iteration
+    closure ``lookup(coords) -> [B, H, W, L*(2r+1)^2]`` float32 (NHWC
+    inputs); ``pack=True`` is ``pallas_pack=True``."""
+    f1, levels = lookup_operands(fmap1, fmap2, num_levels, corr_precision)
 
     def lookup(coords: torch.Tensor) -> torch.Tensor:
+        if pack:
+            return packed_lookup(f1, levels, coords.contiguous(), radius, "all")
         return fused_lookup(f1, levels, coords.contiguous(), radius)
 
     return lookup
 
 
 def make_window_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                       num_levels: int, radius: int):
+                       num_levels: int, radius: int, pack: bool = False,
+                       corr_precision: str = "highest"):
     """As :func:`make_fused_lookup`, each iteration running the
     window-scheduled lookup.  The TPU tiling knobs ``pallas_q_blk`` and
     ``pallas_p_blk`` set the Pallas kernel's query and row blocks; the CUDA
-    kernel has its own fixed tiling, so they change no value here."""
-    f1 = fmap1.float().contiguous()
-    levels = [lv.contiguous() for lv in fmap2_pyramid(fmap2.float(), num_levels)]
+    kernels have their own fixed tiling, so they change no value here."""
+    f1, levels = lookup_operands(fmap1, fmap2, num_levels, corr_precision)
 
     def lookup(coords: torch.Tensor) -> torch.Tensor:
+        if pack:
+            return packed_lookup(f1, levels, coords.contiguous(), radius,
+                                 "window")
         return window_lookup(f1, levels, coords.contiguous(), radius)
 
     return lookup
@@ -315,16 +415,16 @@ def make_window_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 def make_ragged_fused_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
                              sizes8: torch.Tensor, num_levels: int,
-                             radius: int):
+                             radius: int, corr_precision: str = "highest"):
     """Ragged twin of :func:`make_fused_lookup` for items sharing one max
     box: masks fmap1 and builds the masked pyramid once (``sizes8`` [B, 2]
     live (h, w) per item on the query grid), then each iteration runs the
     ragged lookup.  As in :func:`make_window_lookup`, the TPU tiling knobs
-    change no value."""
+    change no value; ``pallas_pack`` does not apply (as in the JAX
+    package, row packing does not compose with per-item pages)."""
     sizes8 = sizes8.to(device=fmap1.device, dtype=torch.int32).contiguous()
-    f1 = mask_ragged_rows(fmap1.float(), sizes8).contiguous()
-    levels = [lv.contiguous()
-              for lv in ragged_pyramid(fmap2.float(), sizes8, num_levels)]
+    f1, levels = lookup_operands(fmap1, fmap2, num_levels, corr_precision,
+                                 sizes8)
 
     def lookup(coords: torch.Tensor) -> torch.Tensor:
         return ragged_lookup(f1, levels, coords.contiguous(), sizes8, radius)

@@ -17,6 +17,14 @@ is an implicit GEMM (pixels x output channels x 5 taps * input channels)
 tiled through shared memory, with the gate nonlinearities and the blend as
 its epilogue; the two passes are four launches, so no halo is recomputed.
 
+I/O in the activations' dtype, as the TPU kernel's: float32
+(``sep_conv_gru_f32``) or, under ``compute_dtype='bfloat16'``, bfloat16
+(``sep_conv_gru_bf16``: bfloat16 h, motion and context terms in, bfloat16
+h out); the weights are float32 copies of the (bfloat16-rounded)
+parameters, the compute and the scratch (z, r*h, and h1 between the two
+passes) float32, so only the final h is rounded.  With bfloat16 I/O the
+activation bytes halve; the bound stays the operations'.
+
 On a CPU tensor the wrapper runs the plain version
 (:func:`sep_conv_gru_plain`); on a CUDA tensor it launches the kernel or
 raises.  ``sep_conv_gru_cuda.launches`` counts kernel launches (four per
@@ -78,7 +86,9 @@ def sep_conv_gru_plain(fw: Dict[str, torch.Tensor], h: torch.Tensor,
     """The kernel's computation in plain PyTorch (the JAX package's
     ``sep_conv_gru_xla``): h [B,H,W,hidden], motion [B,H,W,M], ctx the two
     hoisted context terms [B,H,W,3*hidden] (z | r | q, biases included) of
-    the 1x5 and the 5x1 pass.  Float32 compute; output in h's dtype."""
+    the 1x5 and the 5x1 pass.  The inputs are upcast once, everything is
+    computed in float32 (h1 between the passes too), and only the result is
+    cast to h's dtype."""
     hidden = h.shape[-1]
     hf = to_nchw(h.float())
     mot = to_nchw(motion.float())
@@ -100,10 +110,12 @@ def sep_conv_gru_plain(fw: Dict[str, torch.Tensor], h: torch.Tensor,
     return to_nhwc(hf).contiguous().to(h.dtype)
 
 
-def _lib():
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _lib(name: str):
     from .. import _build
-    lib = _build.load(SOURCE)
-    fn = lib.sep_conv_gru_f32
+    fn = getattr(_build.load(SOURCE), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -113,12 +125,16 @@ def _lib():
 def sep_conv_gru_cuda(fw: Dict[str, torch.Tensor], h: torch.Tensor,
                       motion: torch.Tensor,
                       ctx: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """Launch the CUDA kernel (four launches).  Every tensor float32,
-    contiguous, 16-byte aligned, on h's CUDA device; hidden a multiple of
-    64 and motion a multiple of 16."""
+    """Launch the CUDA kernel (four launches).  h, motion and the context
+    terms float32 or bfloat16 (one dtype, the output's), the weights
+    float32; every tensor contiguous, 16-byte aligned, on h's CUDA device;
+    hidden a multiple of 64 and motion a multiple of 16."""
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"sep_conv_gru_cuda needs CUDA tensors, got {dev}")
+    if h.dtype not in _SUFFIX:
+        raise ValueError(f"sep_conv_gru_cuda takes float32 or bfloat16 "
+                         f"activations, got {h.dtype}")
     B, H, W, hid = h.shape
     mot = motion.shape[-1]
     if hid % 64 or mot % 16 or hid == 0 or mot == 0:
@@ -134,8 +150,9 @@ def sep_conv_gru_cuda(fw: Dict[str, torch.Tensor], h: torch.Tensor,
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        want_dtype = torch.float32 if name in _WEIGHTS else h.dtype
+        if t.dtype != want_dtype:
+            raise ValueError(f"{name} must be {want_dtype}, got {t.dtype}")
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} shape {tuple(t.shape)} != {want[name]}")
         if not t.is_contiguous():
@@ -144,7 +161,8 @@ def sep_conv_gru_cuda(fw: Dict[str, torch.Tensor], h: torch.Tensor,
             raise ValueError(f"{name} must be 16-byte aligned")
     scratch = torch.empty((3, B, H, W, hid), dtype=torch.float32, device=dev)
     out = torch.empty_like(h)
-    fn = _lib()
+    name = f"sep_conv_gru_{_SUFFIX[h.dtype]}"
+    fn = _lib(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(h.data_ptr(), motion.data_ptr(), ctx[0].data_ptr(),
@@ -153,7 +171,7 @@ def sep_conv_gru_cuda(fw: Dict[str, torch.Tensor], h: torch.Tensor,
                  scratch[2].data_ptr(), out.data_ptr(), B, H, W, hid, mot,
                  stream)
     if err != 0:
-        raise RuntimeError(f"sep_conv_gru_f32 launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     sep_conv_gru_cuda.launches += LAUNCHES_PER_CALL
     return out
 

@@ -2,8 +2,12 @@
 
 ``instance_norm`` is affine-free with the biased variance; ``batch_norm``
 uses the running statistics.  Both use eps 1e-5 and the JAX package's
-formula ``(x - mean) * rsqrt(var + eps)``.  Training-mode batch norm waits
-for ROADMAP Queue A item 7.
+formula ``(x - mean) * rsqrt(var + eps)``.  On bfloat16 tensors both run in
+bfloat16 as the JAX package's do: instance-norm statistics are accumulated
+in float32 and rounded to bfloat16 (as ``jnp.mean`` / ``jnp.var`` return
+them), then applied in bfloat16; batch norm takes the module's (bfloat16)
+running statistics.  Training-mode batch norm waits for ROADMAP Queue A
+item 7.
 """
 
 from __future__ import annotations
@@ -15,10 +19,12 @@ EPS = 1e-5
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """Per-sample, per-channel normalization over H, W of NCHW ``x``."""
-    mean = x.mean(dim=(2, 3), keepdim=True)
-    var = x.var(dim=(2, 3), unbiased=False, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps)
+    """Per-sample, per-channel normalization over H, W of NCHW ``x``; the
+    statistics in float32, rounded to ``x``'s dtype before they apply."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    var = xf.var(dim=(2, 3), unbiased=False, keepdim=True)
+    return (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
 
 
 def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,

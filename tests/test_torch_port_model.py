@@ -92,10 +92,10 @@ def test_npz_checkpoint_round_trip_loads_strict(tmp_path):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(compute_dtype="bfloat16"),
-    dict(corr_precision="default"),
+    dict(quant="bf16w"),
+    dict(quant="int8+bf16w"),
     dict(iters_policy="converge:0.5"),
-    dict(pallas_pack=True),
+    dict(small=True, gru_impl="xla"),
     dict(quant="int8"),
     dict(corr_impl="dense"),
     dict(corr_impl="blockwise", corr_lookup="gather"),
@@ -108,6 +108,42 @@ def test_unported_values_raise_not_implemented(overrides):
         rt.check_port_support(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt.make_inference_fn(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(pallas_pack=True),
+    dict(pallas_pack=True, pallas_p_select="window"),
+    dict(compute_dtype="bfloat16", corr_precision="default",
+         pallas_pack=True, pallas_p_select="window", pallas_p_blk=1024),
+    dict(compute_dtype="bfloat16", corr_precision="default"),
+], ids=["P32_all", "P32_window", "BF", "bf16corr_ctx_gru"])
+def test_slice_configurations_are_accepted(overrides):
+    cfg = rt.RAFTConfig.full(**{"corr_impl": "pallas", "gru_impl": "pallas",
+                                **overrides})
+    rt.check_port_support(cfg)
+    rt.make_inference_fn(cfg, device="cpu")
+
+
+def test_ragged_with_pack_runs_the_ragged_lookup(monkeypatch):
+    """pallas_pack=True does not apply to a ragged batch (as in JAX): the
+    ragged lookup (B4's path) runs, the packed one never, and the flow is
+    bitwise that of pallas_pack=False."""
+    from raft_tpu_torch.ops import corr_cuda
+    calls = {"ragged": 0, "packed": 0}
+    for name, key in (("ragged_lookup", "ragged"), ("packed_lookup", "packed")):
+        def spy(*a, _f=getattr(corr_cuda, name), _k=key, **k):
+            calls[_k] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(corr_cuda, name, spy)
+    model = rt.init_raft_torch(rt.RAFTConfig.full(), device="cpu")
+    rng = np.random.RandomState(9)
+    im = rng.rand(2, 2, 24, 32, 3).astype(np.float32)
+    sizes = np.array([[24, 32], [17, 21]], np.int32)
+    flows = [rt.make_ragged_inference_fn(rt.RAFTConfig.full(
+        corr_impl="pallas", gru_impl="pallas", pallas_pack=pack, iters=2),
+        device="cpu")(model, im[0], im[1], sizes) for pack in (True, False)]
+    assert calls == {"ragged": 4, "packed": 0}
+    torch.testing.assert_close(flows[0], flows[1], rtol=0, atol=0)
 
 
 def test_small_sizes_and_bad_knobs_raise():
