@@ -19,8 +19,8 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    lookup's output) and on windows scattered over the whole map; the
    ragged lookup on a [3, 55, 156, 256] max box with live sizes8
    [[54, 128], [46, 155], [48, 64]], on both kinds of coords (live queries
-   held, dead ones exactly 0); the SepConvGRU at 54x128 and at 2x37x45 (no tile
-   divides it).  The packed lookup (pallas_pack=True, one launch over
+   held, dead ones exactly 0); the SepConvGRU at 54x128, 2x37x45 and
+   2x23x70 (no tile divides the last two).  The packed lookup (pallas_pack=True, one launch over
    every level, the narrow ones staged in whole rows) under 'all' and
    'window' on the [1, 54, 128, 256] maps (levels 1-3 narrow) with both
    kinds of coords and on a FlyingChairs-width [1, 48, 64, 256] map (every
@@ -30,7 +30,12 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    plain versions on the same bfloat16 operands at 1e-5, and the
    bfloat16-I/O GRU against its plain version within 1 bf16 ulp of max|h|
    (both compute in float32 and round once: a sum that lands at a rounding
-   boundary may round the other way).
+   boundary may round the other way), at all three GRU shapes.  The first
+   lookup, both entries, also on scattered windows, on a quarter of the
+   queries scattered among coherent ones, with the left half of the grid
+   wholly off the map, at radius 15 and at C = 100; each case held with
+   its tiles sent by their window boxes, all on the MMA path and all on
+   the gather (the share of tiles on each path printed).
 4. main path: raft-things (full width and depth, seeded random weights) on
    4 seeded frame pairs at 432x1024, batch 1, 12 iterations, through
    make_inference_fn with corr_impl='pallas', gru_impl='pallas'.  The flows
@@ -70,16 +75,21 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
 7. times (CUDA events, after warm-up): each kernel per call beside its
    plain version and its bound — the packed lookup beside the first and
    the window lookups on the same inputs, each bfloat16
-   instantiation beside its float32 kernel; median request latency and
+   instantiation beside its float32 kernel; the first lookup's two paths
+   and its MMA_RATIO threshold on phase 3's noisy and scattered coords and
+   on the main path's own at its first iteration, after 3 and after 12; median request latency and
    pairs/s of the main, window, P32 and BF paths; the ragged batch's median
    and pairs/s beside the three pairs run one by one (printed, not held).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
-bytes over the memory rate and the operations over the peak rate of their
-type: a product of two bfloat16 values at the tensor cores' bfloat16 rate
-(which these FP32-FMA kernels do not use), any other at the FP32 rate.
+bytes over the memory rate and the operations over the card's rate for
+them, each product priced at the fastest route the card offers at its
+accuracy (RATES): bfloat16 x bfloat16 one BF16 MMA (989 TFLOP/s),
+bfloat16 x float32 three BF16 MMAs of bfloat16 pieces (989/3), float32 x
+float32 3xTF32 (495/3), elementwise and bilinear arithmetic the FP32 rate
+(67), whatever route a kernel takes.
 cuDNN's benchmark mode is on from phase 1, before the first float32 or
 bfloat16 call of any shape.
 """
@@ -94,8 +104,12 @@ import sys
 import numpy as np
 import torch
 
-PEAK_FP32_FLOPS = 67e12      # H100 SXM, FP32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
+# H100 SXM peaks (NVIDIA's data sheet, dense).  A product is priced at the
+# card's fastest route at that product's accuracy:
+RATES = {"bf16": 989e12,              # bf16 x bf16: one BF16 MMA, f32 sums
+         "bf16xf32": 989e12 / 3,      # f32 operand in three bf16 pieces
+         "f32xf32": 495e12 / 3,       # 3xTF32: hi*hi' + hi*lo' + lo*hi'
+         "fp32": 67e12}               # elementwise, bilinear: FP32 cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 H_IMG, W_IMG, ITERS, N_PAIRS = 432, 1024, 12, 4
 N_WINDOW = 2                 # phase 5, 6b and 6c requests
@@ -167,12 +181,12 @@ def _corr_positions(coords: torch.Tensor, sizes, radius: int) -> int:
 
 
 def _gru_flops(B: int, H: int, W: int, hid: int, mot: int, bf16_io: bool):
-    """(FP32 FLOPs, bf16 FLOPs) of one SepConvGRU call: each in-image tap
-    of the 1x5 and the 5x1 pass multiplies [h, motion] by the z|r weights
-    and [r*h, motion] by the q weights, plus ~20 elementwise FLOPs per
-    output of each pass.  With bfloat16 I/O the weights are bf16-rounded,
-    so a product of them with h (pass 1) or motion is one of two bfloat16
-    values; r*h and h1, the pass-2 input, are float32."""
+    """The operations of one SepConvGRU call by RATES kind: each in-image
+    tap of the 1x5 and the 5x1 pass multiplies [h, motion] by the z|r
+    weights and [r*h, motion] by the q weights, plus ~20 elementwise FLOPs
+    per output of each pass.  With bfloat16 I/O the weights are
+    bf16-rounded, so a product of them with h (pass 1) or motion is one of
+    two bfloat16 values; r*h and h1, the pass-2 input, are float32."""
     def per_axis(n):
         return sum(1 for x in range(n) for d in range(5) if 0 <= x + d - 2 < n)
     t1, t2 = B * per_axis(W) * H, B * per_axis(H) * W
@@ -180,15 +194,18 @@ def _gru_flops(B: int, H: int, W: int, hid: int, mot: int, bf16_io: bool):
     q_h, q_m = hid * hid, mot * hid
     elementwise = 20 * B * H * W * hid * 2
     if not bf16_io:
-        return 2 * (t1 + t2) * (zr_h + zr_m + q_h + q_m) + elementwise, 0
-    bf16 = 2 * (t1 * (zr_h + zr_m + q_m) + t2 * (zr_m + q_m))
-    fp32 = 2 * (t1 * q_h + t2 * (zr_h + q_h)) + elementwise
-    return fp32, bf16
+        return {"f32xf32": 2 * (t1 + t2) * (zr_h + zr_m + q_h + q_m),
+                "fp32": elementwise}
+    return {"bf16": 2 * (t1 * (zr_h + zr_m + q_m) + t2 * (zr_m + q_m)),
+            "bf16xf32": 2 * (t1 * q_h + t2 * (zr_h + q_h)),
+            "fp32": elementwise}
 
 
-def _bound_ms(nbytes: int, fp32_flops: float, bf16_flops: float = 0.0):
+def _bound_ms(nbytes: int, ops: dict):
+    """(ms, by): the larger of the bytes over the memory rate and the
+    operations over their RATES."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = fp32_flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    t_ops = sum(n / RATES[kind] for kind, n in ops.items())
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -213,9 +230,9 @@ def _corr_bound(f1, levels, coords, radius, positions=None, n_out=None,
     """(bound ms, by) of a lookup on these inputs: f1, the levels and
     coords read once (and ``extra_bytes``), the output written once;
     2 FLOPs per channel of each in-map window position (``positions``,
-    counted from ``coords`` when None), products of bfloat16 values when
-    the operands are bfloat16, and 7 FP32 FLOPs per bilinear output
-    (``n_out``, every query's when None)."""
+    counted from ``coords`` when None), float32 x float32 products or, for
+    bfloat16 operands, bfloat16 x bfloat16 ones, and 7 FP32 FLOPs per
+    bilinear output (``n_out``, every query's when None)."""
     out_numel = coords.numel() // 2 * len(levels) * (2 * radius + 1) ** 2
     n_out = out_numel if n_out is None else n_out
     if positions is None:
@@ -224,9 +241,8 @@ def _corr_bound(f1, levels, coords, radius, positions=None, n_out=None,
     nbytes = (f1.element_size() * (f1.numel() + sum(x.numel() for x in levels))
               + 4 * (coords.numel() + out_numel) + extra_bytes)
     dots = 2 * f1.shape[-1] * positions
-    if f1.dtype == torch.bfloat16:
-        return _bound_ms(nbytes, 7 * n_out, dots)
-    return _bound_ms(nbytes, dots + 7 * n_out)
+    kind = "bf16" if f1.dtype == torch.bfloat16 else "f32xf32"
+    return _bound_ms(nbytes, {kind: dots, "fp32": 7 * n_out})
 
 
 def gru_inputs(rng, dev, B: int, H: int, W: int):
@@ -380,13 +396,30 @@ def main() -> int:
     cfg_k = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")
     model = init_raft_torch(cfg_k, generator=gen, device=dev)
     fw = gru_cuda.fuse_gru_weights(model.update_block.gru, 128, 128)
+    kw = gru_cuda.prepare_gru_weights(fw, torch.float32)
+    # the bfloat16 entry: bf16 copies of the bf16-rounded weights
+    fw_bf = {k: v.bfloat16().float() for k, v in fw.items()}
+    kw_bf = gru_cuda.prepare_gru_weights(fw_bf, torch.bfloat16)
+    # cases added after the runs above draw from a seed of their own, so
+    # that the frames below stay those of the runs before them
+    rng6 = np.random.RandomState(6)
 
-    gru_err = 0.0
-    for B, H, W in ((1, h8, w8), (2, 37, 45)):
-        h, mot, ctx = k_in["gru"] if B == 1 else gru_inputs(rng, dev, B, H, W)
-        got = gru_cuda.sep_conv_gru_cuda(fw, h, mot, ctx)
+    # the GRU at the main path's grid, at 2x37x45 and at 2x23x70 (no tile
+    # divides either); the bfloat16-I/O entry on the last two here, at the
+    # main path's grid below
+    gru_err, gru_bf_err = 0.0, 0.0
+    for B, H, W in ((1, h8, w8), (2, 37, 45), (2, 23, 70)):
+        h, mot, ctx = (k_in["gru"] if B == 1 else
+                       gru_inputs(rng if H == 37 else rng6, dev, B, H, W))
+        got = gru_cuda.sep_conv_gru_cuda(kw, h, mot, ctx)
         want = gru_cuda.sep_conv_gru_plain(fw, h, mot, ctx)
         gru_err = max(gru_err, _compare(f"sep_conv_gru [{B},{H},{W},128]", got, want))
+        if B == 2:
+            h_b, m_b, c_b = h.bfloat16(), mot.bfloat16(), tuple(c.bfloat16() for c in ctx)
+            gru_bf_err = max(gru_bf_err, _compare_ulp(
+                f"sep_conv_gru bf16 I/O [{B},{H},{W},128]",
+                gru_cuda.sep_conv_gru_cuda(kw_bf, h_b, m_b, c_b),
+                gru_cuda.sep_conv_gru_plain(fw_bf, h_b, m_b, c_b)))
 
     # the narrow-level (row-packed) lookup and the bfloat16 instantiations,
     # drawn from their own seed so that the frames below stay those of the
@@ -455,15 +488,58 @@ def main() -> int:
         "corr_ragged bf16 [3,55,156,256] live queries",
         corr_cuda.corr_ragged_cuda(rbf1, rblevels, rcoords, sizes8, r)[live8],
         lookup_ragged_plain(rbf1, rblevels, rcoords, sizes8, r)[live8])
-    # the GRU with bfloat16 I/O: float32 copies of the bf16-rounded weights
-    fw_bf = {k: v.bfloat16().float() for k, v in fw.items()}
+    # the GRU with bfloat16 I/O
     gh = dev_t(np.tanh(rng5.randn(1, h8, w8, 128))).bfloat16()
     gmot = dev_t(np.maximum(rng5.randn(1, h8, w8, 128), 0.0)).bfloat16()
     gctx = tuple(dev_t(0.5 * rng5.randn(1, h8, w8, 384)).bfloat16() for _ in range(2))
-    bf_err["sep_conv_gru"] = _compare_ulp(
+    bf_err["sep_conv_gru"] = max(gru_bf_err, _compare_ulp(
         "sep_conv_gru bf16 I/O [1,54,128,128]",
-        gru_cuda.sep_conv_gru_cuda(fw_bf, gh, gmot, gctx),
-        gru_cuda.sep_conv_gru_plain(fw_bf, gh, gmot, gctx))
+        gru_cuda.sep_conv_gru_cuda(kw_bf, gh, gmot, gctx),
+        gru_cuda.sep_conv_gru_plain(fw_bf, gh, gmot, gctx)))
+
+    # the first lookup beyond phase 3's coords, both entries, each case
+    # held with the tiles as their boxes send them, all on the MMA path and
+    # all on the gather: windows scattered over the map; a quarter of the
+    # queries scattered among coherent ones; the left half of the grid
+    # wholly outside the map; radius 15 (the gather only); C = 100 (not a
+    # multiple of 16: the MMA path pads K with zeros; the bfloat16 entry,
+    # C not a multiple of its 8-channel vectors, gathers by channel)
+    def b1_held(label, f1_, lvs, cc, rr):
+        want_ = lookup_blockwise_onehot(f1_, lvs, cc, rr)
+        worst_ = 0.0
+        for how, ratio in (("by box", None), ("MMA", float("inf")), ("gather", 0.0)):
+            st = torch.zeros(2, dtype=torch.int32, device=dev)
+            got_ = corr_cuda.corr_lookup_cuda(f1_, lvs, cc, rr, mma_ratio=ratio, stats=st)
+            worst_ = max(worst_, _compare(
+                f"corr_lookup {label}, tiles {how} (MMA/gather {st.tolist()})",
+                got_, want_))
+        return worst_
+
+    sel = torch.from_numpy(rng6.rand(1, h8, w8, 1) < 0.25).to(dev)
+    mixed = torch.where(sel, wild, coords).contiguous()
+    half_off = coords.clone()
+    half_off[:, :, : w8 // 2] += 5000.0          # whole 8x8 tiles off the map
+    f1_27, f2_27 = (dev_t(rng6.randn(1, 27, 64, 256)) for _ in range(2))
+    cc_r15 = (coords_grid(1, 27, 64, device=dev)
+              + dev_t(rng6.uniform(-18, 18, (1, 27, 64, 2)))).contiguous()
+    f1_100, f2_100 = (dev_t(rng6.randn(1, 27, 64, 100)) for _ in range(2))
+    cc_100 = (coords_grid(1, 27, 64, device=dev)
+              + dev_t(rng6.uniform(-(r + 3), r + 3, (1, 27, 64, 2)))).contiguous()
+    b1_cases = (
+        ("[1,54,128,256] noisy", fmap1, levels, coords, r),
+        ("[1,54,128,256] scattered", fmap1, levels, wild, r),
+        ("[1,54,128,256] a quarter scattered", fmap1, levels, mixed, r),
+        ("[1,54,128,256] left half off the map", fmap1, levels, half_off, r),
+        ("[1,27,64,256] L=2 r=15", f1_27, fmap2_pyramid(f2_27, 2), cc_r15, 15),
+        ("[1,27,64,100] L=4 r=4", f1_100, fmap2_pyramid(f2_100, L), cc_100, r))
+    for dt in (torch.float32, torch.bfloat16):
+        for label, f1_, lvs, cc, rr in b1_cases:
+            e = b1_held(("bf16 " if dt == torch.bfloat16 else "") + label, f1_.to(dt),
+                        [x.to(dt).contiguous() for x in lvs], cc, rr)
+            if dt == torch.float32:
+                corr_err = max(corr_err, e)
+            else:
+                bf_err["corr_lookup"] = max(bf_err["corr_lookup"], e)
 
     # -- 4. main path: a few requests ------------------------------------
     def frame_pair(H, W, i):
@@ -802,15 +878,15 @@ def main() -> int:
     rag_bound_ms, rag_by = rag_bound(rf1, rlevels)
 
     h, mot, ctx = gru_inputs(rng, dev, 1, h8, w8)
-    gru_ms = _time_ms(lambda: gru_cuda.sep_conv_gru_cuda(fw, h, mot, ctx), 3, 50)
+    gru_ms = _time_ms(lambda: gru_cuda.sep_conv_gru_cuda(kw, h, mot, ctx), 3, 50)
     gru_plain_ms = _time_ms(lambda: gru_cuda.sep_conv_gru_plain(fw, h, mot, ctx), 2, 10)
 
     def gru_bound(hh, mm, cc, w):                # activations in, h out, weights
         nbytes = (hh.element_size() * (2 * hh.numel() + mm.numel() + cc[0].numel()
                                        + cc[1].numel())
-                  + 4 * sum(v.numel() for v in w.values()))
-        return _bound_ms(nbytes, *_gru_flops(1, h8, w8, 128, 128,
-                                             hh.dtype == torch.bfloat16))
+                  + hh.element_size() * sum(v.numel() for v in w.values()))
+        return _bound_ms(nbytes, _gru_flops(1, h8, w8, 128, 128,
+                                            hh.dtype == torch.bfloat16))
 
     gru_bound_ms, gru_by = gru_bound(h, mot, ctx, fw)
     print(f"corr_lookup: {corr_ms:.4f} ms/call (plain {corr_plain_ms:.4f}), bound "
@@ -849,7 +925,7 @@ def main() -> int:
         "corr_ragged": (_time_ms(lambda: corr_cuda.corr_ragged_cuda(rbf1, rblevels, rcoords, sizes8, r), 3, 50),
                         _time_ms(lambda: lookup_ragged_plain(rbf1, rblevels, rcoords, sizes8, r), 1, 5),
                         rag_bound(rbf1, rblevels), rag_ms),
-        "sep_conv_gru": (_time_ms(lambda: gru_cuda.sep_conv_gru_cuda(fw_bf, gh, gmot, gctx), 3, 50),
+        "sep_conv_gru": (_time_ms(lambda: gru_cuda.sep_conv_gru_cuda(kw_bf, gh, gmot, gctx), 3, 50),
                          _time_ms(lambda: gru_cuda.sep_conv_gru_plain(fw_bf, gh, gmot, gctx), 2, 10),
                          gru_bound(gh, gmot, gctx, fw_bf), gru_ms)}
     for name, (ms, plain_ms, (bound, by), f32_ms) in bf_ms.items():
@@ -922,8 +998,10 @@ def main() -> int:
         loop = prepare_loop(model, fm1, fm2, inp, cfg_k)
         e2 = ev()
         c1 = loop.coords0
-        for _ in range(ITERS):
+        for it in range(ITERS):
             net, c1, mk = gru_step(model, cfg_k, loop, net, c1)
+            if it == 2:
+                c3 = c1                    # the coords after 3 iterations
         e3 = ev()
         convex_upsample_flow(c1 - loop.coords0, mk)
         e4 = ev()
@@ -949,18 +1027,41 @@ def main() -> int:
     print("BF stages ms/request: " + ", ".join(
         f"{k} {be[i].elapsed_time(be[i + 1]):.3f}" for i, k in enumerate(
             ("encoders", "loop_setup", "iterations", "upsample"))))
-    # the two lookups on this request's own coordinates: at the first
-    # iteration (flow 0, coherent windows) and after the last (the random
-    # weights' flow of hundreds of pixels, incoherent windows)
+    # the first lookup's two paths and its threshold on three kinds of
+    # coords: phase 3's noisy ones, the scattered ones, and this request's
+    # own (flow 0 at the first iteration, coherent; after 3 and after 12
+    # the random weights' flows of hundreds of pixels), each in float32 and
+    # bfloat16: per call with the tiles sent by their boxes at MMA_RATIO
+    # (and the share of tiles that took the MMA path), every tile on the
+    # MMA path, every tile on the gather, and by box at other ratios; the
+    # window lookup beside it in float32
     mf1 = fm1.permute(0, 2, 3, 1).contiguous()
     mlev = [lv.contiguous() for lv in fmap2_pyramid(fm2.permute(0, 2, 3, 1).contiguous(), L)]
-    for label, cc in (("first iteration", loop.coords0), ("after the last", c1.contiguous())):
-        print(f"main-path coords, {label} (max|flow| "
-              f"{float((cc - loop.coords0).abs().max()):.1f}): corr_window "
-              f"{_time_ms(lambda: corr_cuda.corr_window_cuda(mf1, mlev, cc, r), 3, 30):.4f}"
-              f" ms/call, corr_lookup "
-              f"{_time_ms(lambda: corr_cuda.corr_lookup_cuda(mf1, mlev, cc, r), 3, 30):.4f}"
-              f" ms/call")
+    ratios = (0.0625, 0.125, 0.25, 0.5, 1.0)
+    for dt in (torch.float32, torch.bfloat16):
+        for label, f1_, lvs, cc in (
+                ("phase 3 noisy", fmap1, levels, coords),
+                ("phase 3 scattered", fmap1, levels, wild),
+                ("main path, first iteration", mf1, mlev, loop.coords0),
+                ("main path, after 3 iterations", mf1, mlev, c3.contiguous()),
+                ("main path, after 12 iterations", mf1, mlev, c1.contiguous())):
+            a_, l_ = f1_.to(dt), [x.to(dt) for x in lvs]
+            st = torch.zeros(2, dtype=torch.int32, device=dev)
+            corr_cuda.corr_lookup_cuda(a_, l_, cc, r, stats=st)
+            share = st[0].item() / max(st.sum().item(), 1)
+            t = {x: _time_ms(lambda: corr_cuda.corr_lookup_cuda(a_, l_, cc, r, mma_ratio=x), 3, 20)
+                 for x in (None, float("inf"), 0.0) + ratios}
+            bound, by = _corr_bound(a_, l_, cc, r)
+            extra = ""
+            if dt == torch.float32:
+                extra = (f"; corr_window {_time_ms(lambda: corr_cuda.corr_window_cuda(a_, l_, cc, r), 3, 20):.4f}")
+            print(f"corr_lookup{' bf16' if dt == torch.bfloat16 else ''} on {label} "
+                  f"(max|flow| {float((cc - coords_grid(*cc.shape[:3], device=dev)).abs().max()):.1f}): "
+                  f"{t[None]:.4f} ms/call by box at ratio {corr_cuda.MMA_RATIO[dt]} (MMA-path "
+                  f"share of tiles {share:.3f}); every tile MMA {t[float('inf')]:.4f}, "
+                  f"every tile gather {t[0.0]:.4f}; by box at ratio "
+                  + ", ".join(f"{x:g}: {t[x]:.4f}" for x in ratios)
+                  + f"; bound {bound:.4f} ms by {by}{extra}")
     from torch.profiler import ProfilerActivity, profile
 
     def profiled(label, plural, n, run):

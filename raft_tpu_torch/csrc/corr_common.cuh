@@ -1,10 +1,9 @@
 // Pieces shared by the correlation lookup kernels (corr_lookup.cu,
 // corr_window.cu): the level table, the operand types
 // (float32, or bfloat16 under corr_precision='default') read as floats, and
-// the cp.async helpers.  Arithmetic is FP32 whatever the operand type: a
-// product of two bfloat16 values is exact in FP32, so a bfloat16 lookup
-// differs from the float32 lookup of the same rounded operands only by the
-// order of its FP32 sums.
+// the cp.async helpers (from tensor_core.cuh).  A product of two bfloat16
+// values is exact in FP32, so a bfloat16 lookup differs from the float32
+// lookup of the same rounded operands only by the order of its sums.
 
 #pragma once
 
@@ -12,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace raft_corr {
 
@@ -126,19 +127,9 @@ __device__ __forceinline__ float bilinear(float v00, float v01, float v10,
        + fx * ((1.0f - fy) * v01 + fy * v11);
 }
 
-// 16-byte global -> shared copy; src_bytes 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp16(void* dst, const void* src,
-                                     int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+// the cp.async helpers of tensor_core.cuh
+using raft_tc::cp16;
+using raft_tc::cp_commit;
+using raft_tc::cp_wait;
 
 }  // namespace raft_corr

@@ -48,7 +48,7 @@ from ..ops.corr import (lookup_blockwise_onehot, lookup_operands,
                         lookup_ragged_plain, mask_ragged_rows)
 from ..ops.corr_cuda import (make_fused_lookup, make_ragged_fused_lookup,
                              make_window_lookup)
-from ..ops.gru_cuda import fuse_gru_weights
+from ..ops.gru_cuda import fuse_gru_weights, prepare_gru_weights
 from ..ops.upsample import convex_upsample_flow
 from .encoders import BasicEncoder
 from .update import BasicUpdateBlock, precompute_gru_ctx
@@ -190,10 +190,12 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
 
 class LoopState(NamedTuple):
     """What every GRU iteration reads: the lookup closure, the hoisted
-    context terms, the fused GRU weights and the base coordinates."""
+    context terms, the fused GRU weights, the GRU kernel's weights (CUDA
+    and ``gru_impl='pallas'`` only, else None) and the base coordinates."""
     lookup: object
     gru_ctx: tuple
     gru_weights: dict
+    gru_kernel_weights: Optional[dict]
     coords0: torch.Tensor
 
 
@@ -228,10 +230,14 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
             return lookup_blockwise_onehot(f1p, levels, coords, r)
 
     gru = model.update_block.gru
+    fw = fuse_gru_weights(gru, config.hidden_dim, config.context_dim)
+    kw = None
+    if config.gru_impl == "pallas" and f1.device.type == "cuda":
+        kw = prepare_gru_weights(fw, compute_dtype(config))
     return LoopState(
         lookup=lookup,
         gru_ctx=precompute_gru_ctx(gru, inp, config.hidden_dim),
-        gru_weights=fuse_gru_weights(gru, config.hidden_dim, config.context_dim),
+        gru_weights=fw, gru_kernel_weights=kw,
         coords0=coords_grid(B, h, w, device=f1.device))
 
 
@@ -248,7 +254,7 @@ def gru_step(model: RAFT, config: RAFTConfig, loop: LoopState,
     flow = (coords1 - loop.coords0).to(cdt)
     net, mask, delta_flow = model.update_block(
         net, to_nchw(corr), to_nchw(flow), loop.gru_ctx, loop.gru_weights,
-        gru_impl=config.gru_impl)
+        gru_impl=config.gru_impl, gru_kernel_weights=loop.gru_kernel_weights)
     return net, coords1 + to_nhwc(delta_flow).float(), to_nhwc(mask)
 
 

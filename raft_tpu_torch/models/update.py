@@ -5,7 +5,7 @@ heads (NCHW, ``channels_last``).  Module names mirror the JAX tree
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -80,13 +80,19 @@ class BasicUpdateBlock(nn.Module):
 
     def forward(self, net: torch.Tensor, corr: torch.Tensor,
                 flow: torch.Tensor, gru_ctx, gru_weights: Dict[str, torch.Tensor],
-                gru_impl: str = "pallas"
+                gru_impl: str = "pallas",
+                gru_kernel_weights: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """net [B, H, W, hidden] NHWC; corr, flow NCHW.  Returns the new
-        net (NHWC), the mask logits and the flow update (NCHW)."""
+        net (NHWC), the mask logits and the flow update (NCHW).
+        ``gru_kernel_weights``: the GRU kernel's weights
+        (``prepare_gru_weights``), needed on CUDA under ``gru_impl='pallas'``."""
         motion = to_nhwc(self.encoder(flow, corr))
-        gru = sep_conv_gru if gru_impl == "pallas" else sep_conv_gru_plain
-        net = gru(gru_weights, net, motion, gru_ctx)
+        if gru_impl == "pallas":
+            net = sep_conv_gru(gru_weights, net, motion, gru_ctx,
+                               gru_kernel_weights)
+        else:
+            net = sep_conv_gru_plain(gru_weights, net, motion, gru_ctx)
         # flow head conv1 and mask head [0] read `net` with 3x3 kernels:
         # one fused conv, then each branch's own tail
         heads = (self.flow_head.conv1, self.mask[0])

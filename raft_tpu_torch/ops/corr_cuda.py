@@ -32,31 +32,34 @@ arithmetic and output stay float32.
 
 Bound on an H100: at the main-path shape (B=1, a 54x128 query grid,
 C=256, 4 levels, radius 4) a call reads about 16.5 MB (f1 7.1, the fmap2
-pyramid 9.4) and writes 9.0 MB, and computes at most
-6912 * 4 * 100 * 256 * 2 = 1.42 GFLOP of FP32 FMA (fewer where windows
-leave the map), so operations bound it: about 21 us at the 67 TFLOP/s
-FP32 rate.  The same holds for the other float32 entries; the ragged one
-counts only the live queries' in-crop positions.  With bfloat16 operands
-the f1 and f2 bytes halve and the FLOPs stay the same, but the channel dot
-products are then products of bfloat16 values, which the card's tensor
-cores run at 989 TFLOP/s (these kernels do not use them: FP32 FMA), so the
-bytes bound them: about 5 us at 3.35 TB/s.
+pyramid 9.4) and writes 9.0 MB, and its dot products are at most
+6912 * 4 * 100 * 256 * 2 = 1.42 GFLOP (fewer where windows leave the map).
+A product is priced at the card's fastest rate for its accuracy: float32 x
+float32 as 3xTF32 on the tensor cores (165 TFLOP/s), bfloat16 x bfloat16
+as one BF16 MMA (989); so the bytes bound every entry, about 7.6 us in
+float32 and 5 us in bfloat16 (the ragged entry counts its live queries'
+in-crop positions only).
 
 Why the designs differ from the TPU kernels: the TPU kernels computed full
 ``[T, P]`` correlation tiles of a query block against fmap2 row blocks (all
 of them, or those its schedule names) so that the matrix unit did the
-work and no gather was needed.  On Hopper a gather is cheap.
-``corr_lookup.cu`` computes the correlation only at the ``(2r+2)^2``
-integer positions around each window: one warp per (query, level), the
-query's features in registers, a shuffle reduction per position, f2 read
-from global memory per query.  ``corr_window.cu`` gives an 8x8 tile of
+work and no gather was needed.  ``corr_lookup.cu`` keeps that tile where
+it pays and gathers where it does not: an 8x8 tile of neighbouring
+queries per CTA computes the box its windows cover; a coherent tile (box
+at most :data:`MMA_RATIO` times its queries' in-map window positions) forms
+``F1_tile . F2_box^T`` on the tensor cores (``mma.sync``; 3xTF32 for
+float32 operands, one BF16 MMA for bfloat16, so every product keeps
+float32 accuracy) and keeps each query's window entries; an incoherent
+one (random-weight flows of hundreds of pixels) gathers each query's
+window, lanes reading 16-byte vectors of channels and reducing a group of
+positions at once.  ``corr_window.cu`` gives an 8x8 tile of
 neighbouring queries one CTA, computes the tile's window box (the
 schedule) on the device and stages that f2 box through shared memory, so
-the tile's overlapping windows share each read; for a ragged item the box
-is clipped to its live crop and dead queries are written as zeros without
-reading f2.  Where a tile's windows are incoherent (flows of hundreds of
-pixels in all directions) the box would be mostly waste, and that CTA
-computes its windows as ``corr_lookup.cu`` does.  The TPU packs the rows
+the tile's overlapping windows share each read, with FP32 FMA; for a
+ragged item the box is clipped to its live crop and dead queries are
+written as zeros without reading f2.  Where a tile's windows are
+incoherent the box would be mostly waste, and that CTA computes its
+windows one warp per query, lanes over channels.  The TPU packs the rows
 of a narrow level side by side to fill its 128 lanes; the H100 has no
 lanes to fill, so the packed entry packs nothing: a CTA of 4x32 queries
 stages whole rows of the (small, L2-resident) narrow level, every row
@@ -70,7 +73,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -84,6 +87,10 @@ MAX_LEVELS = 8
 MAX_RADIUS = 15
 MAX_WINDOW_RADIUS = 7
 MAX_CHANNELS = 512
+# corr_lookup_cuda: a tile takes the MMA path when its window box holds at
+# most this many times its queries' in-map window positions, by operand
+# dtype (set by measurement: chip_smoke.py phase 7, PERF.md)
+MMA_RATIO = {torch.float32: 0.0625, torch.bfloat16: 0.25}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LOOKUP_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -190,25 +197,41 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def corr_lookup_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
-                     coords: torch.Tensor, radius: int) -> torch.Tensor:
+                     coords: torch.Tensor, radius: int,
+                     mma_ratio: Optional[float] = None,
+                     stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA lookup (``corr_lookup_f32`` / ``_bf16``): fmap1
     [B,H,W,C] and f2_levels [B,H_l,W_l,C] float32 or bfloat16, coords
     [B,H,W,2] float32, all contiguous on one CUDA device ->
-    [B,H,W,L*(2r+1)^2] float32."""
+    [B,H,W,L*(2r+1)^2] float32.  A tile takes the MMA path when its window
+    box holds at most ``mma_ratio`` (None: :data:`MMA_RATIO` of the
+    operands' dtype) times its queries' in-map window positions:
+    ``float('inf')`` sends every tile the MMA path can take there, 0 every
+    tile to the gather (for measurement; the values are the same).  ``stats``: None, or an int32 CUDA tensor of 2 to
+    which each launch adds its tiles of the MMA path and of the gather."""
     hw = _check_lookup("corr_lookup", fmap1, f2_levels, coords, radius,
                        MAX_RADIUS)
+    ratio = MMA_RATIO[fmap1.dtype] if mma_ratio is None else float(mma_ratio)
+    if not ratio >= 0:
+        raise ValueError(f"mma_ratio must be >= 0, got {mma_ratio}")
+    if stats is not None:
+        _check("stats", stats, fmap1.device, 1, torch.int32)
+        if stats.numel() != 2:
+            raise ValueError(f"stats must hold 2 counts, got {stats.numel()}")
     B, H, W, C = fmap1.shape
     L = len(f2_levels)
     out = _output(fmap1, L, radius)
     if B * H * W == 0:
         return out
     name = _entry("corr_lookup", fmap1)
-    fn = _fn(SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p])
+    fn = _fn(SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     ptrs, dims = _level_args(f2_levels, hw)
     with torch.cuda.device(fmap1.device):
         err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
-                 dims, L, B, H * W, C, radius, corr_scale(C),
+                 dims, L, B, H, W, C, radius, corr_scale(C),
+                 min(ratio, 3e38),
+                 None if stats is None else stats.data_ptr(),
                  _stream(fmap1.device))
     _raise_on(err, name)
     corr_lookup_cuda.launches += 1

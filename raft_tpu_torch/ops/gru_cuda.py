@@ -5,25 +5,34 @@ kernel ``_pallas_gru`` / ``_gru_kernel``).  Kernel source:
 ``csrc/sep_conv_gru.cu``.
 
 Bound on an H100: at the main-path shape (B=1, a 54x128 grid, hidden,
-motion and context 128) a call computes 1.97 MFLOP per pixel, about
-13.6 GFLOP of FP32, and moves about 36 MB (h, motion and the six context
-terms in, h out, the weights), so operations bound it: about 0.20 ms at
-the 67 TFLOP/s FP32 rate.
+motion and context 128) a call computes 1.97 MFLOP of products per pixel,
+about 13.6 GFLOP, and moves about 36 MB (h, motion and the six context
+terms in, h out, the weights), so the products bound it, priced at the
+card's rate for their accuracy: float32 x float32 as 3xTF32 on the tensor
+cores (165 TFLOP/s), about 0.083 ms; with bfloat16 I/O two thirds of the
+products take two bfloat16 operands (989 TFLOP/s) and the rest a float32
+activation (r*h, h1) and a bfloat16 weight (three bfloat16 pieces, 330),
+about 0.023 ms.
 
-Why the design differs from the TPU kernel: the TPU kernel held a row
-block plus a 4-row recompute halo in VMEM and ran both passes in one
-program, each tap a matmul on the matrix unit.  On Hopper each gate conv
-is an implicit GEMM (pixels x output channels x 5 taps * input channels)
-tiled through shared memory, with the gate nonlinearities and the blend as
-its epilogue; the two passes are four launches, so no halo is recomputed.
+Design: each gate conv is an implicit GEMM (pixels x output channels x 5
+taps * input channels) on the tensor cores (``mma.sync``), fed through a
+3-stage ``cp.async`` ring; a CTA stages its pixels plus a 2-pixel halo
+along the pass's axis once per slab of channels and runs the 5 taps from
+it; the gate nonlinearities and the blend are the epilogues; four launches
+per iteration.  The TPU kernel held a row block plus a 4-row recompute halo
+in VMEM and ran both passes in one program; here the passes are separate
+launches, so no halo is recomputed.  Every product keeps float32 accuracy
+(``csrc/tensor_core.cuh``): the float32 entry splits activations and
+weights into tf32 hi + lo (3 MMAs per product), the bfloat16 entry runs a
+bfloat16 activation in one BF16 MMA and a float32 one in three bfloat16
+pieces.  The kernel reads its weights as :func:`prepare_gru_weights` lays
+them out, once per forward (``models/raft.py::prepare_loop``).
 
 I/O in the activations' dtype, as the TPU kernel's: float32
 (``sep_conv_gru_f32``) or, under ``compute_dtype='bfloat16'``, bfloat16
 (``sep_conv_gru_bf16``: bfloat16 h, motion and context terms in, bfloat16
-h out); the weights are float32 copies of the (bfloat16-rounded)
-parameters, the compute and the scratch (z, r*h, and h1 between the two
-passes) float32, so only the final h is rounded.  With bfloat16 I/O the
-activation bytes halve; the bound stays the operations'.
+h out, bfloat16 weights); the accumulation and the scratch (z, r*h, and
+h1 between the two passes) are float32, so only the final h is rounded.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`sep_conv_gru_plain`); on a CUDA tensor it launches the kernel or
@@ -34,7 +43,7 @@ call).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -45,6 +54,7 @@ from .conv import to_nchw, to_nhwc
 SOURCE = "sep_conv_gru.cu"
 LAUNCHES_PER_CALL = 4
 _WEIGHTS = ("wzr1", "wqh1", "wqm1", "wzr2", "wqh2", "wqm2")
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def fuse_gru_weights(gru: nn.Module, hidden: int, ctx_dim: int
@@ -80,6 +90,50 @@ def fuse_gru_weights(gru: nn.Module, hidden: int, ctx_dim: int
     return {k: v.detach().float().contiguous() for k, v in out.items()}
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to tf32: to nearest, ties away from zero, on
+    the bits, as the kernels round their activations."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def prepare_gru_weights(fw: Dict[str, torch.Tensor], dtype: torch.dtype
+                        ) -> Dict[str, torch.Tensor]:
+    """The fused weights of :func:`fuse_gru_weights` as the kernel's entry
+    for activations of ``dtype`` reads them; once per forward.  Each
+    ``[5, Cin, N]`` weight is cut into slabs of channels (one MMA k-step per
+    tap) and laid out ``[5, slab, N, quad thread t, 4]`` in the order of the
+    MMA fragments:
+
+    * float32: slabs of 8 channels; (hi[2t], hi[2t+1], lo[2t], lo[2t+1]),
+      hi = tf32(w) and lo = tf32(w - hi) (the 3xTF32 split), float32;
+    * bfloat16: slabs of 16 channels; channels 4t..4t+3, bfloat16 — exact,
+      since the weights are bfloat16-rounded parameters (raises otherwise).
+    """
+    if dtype not in _SUFFIX:
+        raise ValueError(f"the kernel takes float32 or bfloat16 activations, "
+                         f"got {dtype}")
+    out = {}
+    for k in _WEIGHTS:
+        w = fw[k].detach().float()
+        taps, cin, n = w.shape
+        if dtype == torch.float32:
+            hi = _tf32(w)
+            lo = _tf32(w - hi)
+
+            def slabs(x):                                 # [5, S, N, t, 2]
+                return x.reshape(taps, cin // 8, 4, 2, n).permute(0, 1, 4, 2, 3)
+            out[k] = torch.cat([slabs(hi), slabs(lo)], dim=-1).contiguous()
+        else:
+            wb = w.to(torch.bfloat16)
+            if not torch.equal(wb.float(), w):
+                raise ValueError(f"{k}: the bfloat16 entry needs bfloat16-"
+                                 f"exact weights")
+            out[k] = wb.reshape(taps, cin // 16, 4, 4, n).permute(
+                0, 1, 4, 2, 3).contiguous()
+    return out
+
+
 def sep_conv_gru_plain(fw: Dict[str, torch.Tensor], h: torch.Tensor,
                        motion: torch.Tensor,
                        ctx: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -110,8 +164,6 @@ def sep_conv_gru_plain(fw: Dict[str, torch.Tensor], h: torch.Tensor,
     return to_nhwc(hf).contiguous().to(h.dtype)
 
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
 
 def _lib(name: str):
     from .. import _build
@@ -122,13 +174,14 @@ def _lib(name: str):
     return fn
 
 
-def sep_conv_gru_cuda(fw: Dict[str, torch.Tensor], h: torch.Tensor,
+def sep_conv_gru_cuda(kw: Dict[str, torch.Tensor], h: torch.Tensor,
                       motion: torch.Tensor,
                       ctx: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """Launch the CUDA kernel (four launches).  h, motion and the context
-    terms float32 or bfloat16 (one dtype, the output's), the weights
-    float32; every tensor contiguous, 16-byte aligned, on h's CUDA device;
-    hidden a multiple of 64 and motion a multiple of 16."""
+    terms float32 or bfloat16 (one dtype, the output's); ``kw`` the
+    weights as :func:`prepare_gru_weights` gives them for that dtype; every
+    tensor contiguous, 16-byte aligned, on h's CUDA device; hidden a
+    multiple of 64 and motion a multiple of 16."""
     dev = h.device
     if dev.type != "cuda":
         raise ValueError(f"sep_conv_gru_cuda needs CUDA tensors, got {dev}")
@@ -140,21 +193,27 @@ def sep_conv_gru_cuda(fw: Dict[str, torch.Tensor], h: torch.Tensor,
     if hid % 64 or mot % 16 or hid == 0 or mot == 0:
         raise ValueError(f"the kernel needs hidden % 64 == 0 and motion % 16 "
                          f"== 0, got hidden={hid}, motion={mot}")
+    cs = 8 if h.dtype == torch.float32 else 16      # channels per slab
+
+    def prepared(cin, n):
+        return (5, cin // cs, n, 4, 4)
     want = {"h": (B, H, W, hid), "motion": (B, H, W, mot),
             "ctx1": (B, H, W, 3 * hid), "ctx2": (B, H, W, 3 * hid),
-            "wzr1": (5, hid + mot, 2 * hid), "wzr2": (5, hid + mot, 2 * hid),
-            "wqh1": (5, hid, hid), "wqh2": (5, hid, hid),
-            "wqm1": (5, mot, hid), "wqm2": (5, mot, hid)}
+            "wzr1": prepared(hid + mot, 2 * hid),
+            "wzr2": prepared(hid + mot, 2 * hid),
+            "wqh1": prepared(hid, hid), "wqh2": prepared(hid, hid),
+            "wqm1": prepared(mot, hid), "wqm2": prepared(mot, hid)}
     tensors = {"h": h, "motion": motion, "ctx1": ctx[0], "ctx2": ctx[1],
-               **{k: fw[k] for k in _WEIGHTS}}
+               **{k: kw[k] for k in _WEIGHTS}}
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        want_dtype = torch.float32 if name in _WEIGHTS else h.dtype
-        if t.dtype != want_dtype:
-            raise ValueError(f"{name} must be {want_dtype}, got {t.dtype}")
+        if t.dtype != h.dtype:
+            raise ValueError(f"{name} must be {h.dtype}, got {t.dtype}")
         if tuple(t.shape) != want[name]:
-            raise ValueError(f"{name} shape {tuple(t.shape)} != {want[name]}")
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {want[name]}"
+                             + (" (weights must come from prepare_gru_weights"
+                                " for this dtype)" if name in _WEIGHTS else ""))
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
@@ -166,7 +225,7 @@ def sep_conv_gru_cuda(fw: Dict[str, torch.Tensor], h: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(h.data_ptr(), motion.data_ptr(), ctx[0].data_ptr(),
-                 ctx[1].data_ptr(), *[fw[k].data_ptr() for k in _WEIGHTS],
+                 ctx[1].data_ptr(), *[kw[k].data_ptr() for k in _WEIGHTS],
                  scratch[0].data_ptr(), scratch[1].data_ptr(),
                  scratch[2].data_ptr(), out.data_ptr(), B, H, W, hid, mot,
                  stream)
@@ -181,11 +240,14 @@ sep_conv_gru_cuda.launches = 0      # kernel launches; callers that count reset 
 
 class _SepConvGRU(torch.autograd.Function):
     @staticmethod
-    def forward(ctx_, h, motion, c1, c2, *weights):
-        fw = dict(zip(_WEIGHTS, weights))
+    def forward(ctx_, kw, h, motion, c1, c2, *weights):
         if h.device.type == "cpu":
-            return sep_conv_gru_plain(fw, h, motion, (c1, c2))
-        return sep_conv_gru_cuda(fw, h, motion, (c1, c2))
+            return sep_conv_gru_plain(dict(zip(_WEIGHTS, weights)), h, motion,
+                                      (c1, c2))
+        if kw is None:
+            raise ValueError("sep_conv_gru on CUDA tensors needs the kernel's "
+                             "weights: pass kw=prepare_gru_weights(fw, dtype)")
+        return sep_conv_gru_cuda(kw, h, motion, (c1, c2))
 
     @staticmethod
     def backward(ctx_, grad):
@@ -196,11 +258,13 @@ class _SepConvGRU(torch.autograd.Function):
 
 def sep_conv_gru(fw: Dict[str, torch.Tensor], h: torch.Tensor,
                  motion: torch.Tensor,
-                 ctx: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+                 ctx: Tuple[torch.Tensor, torch.Tensor],
+                 kw: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """One SepConvGRU iteration of ``gru_impl='pallas'``: the CUDA kernel
-    on CUDA tensors, the plain version on CPU tensors.  Arguments as
+    on CUDA tensors (weights ``kw`` from :func:`prepare_gru_weights`), the
+    plain version on CPU tensors (weights ``fw``).  Other arguments as
     :func:`sep_conv_gru_plain`."""
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {h.device}")
-    return _SepConvGRU.apply(h, motion, ctx[0], ctx[1],
+    return _SepConvGRU.apply(kw, h, motion, ctx[0], ctx[1],
                              *[fw[k] for k in _WEIGHTS])

@@ -45,6 +45,38 @@ def test_fuse_gru_weights_matches_jax():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
+def test_prepare_gru_weights_lays_out_the_kernels_operands():
+    """The kernel's weights (prepare_gru_weights) read back to the fused
+    ones: float32 as tf32 hi + lo (within 2^-22), bfloat16 exactly, each in
+    its slab / fragment order; anything else raises."""
+    p, gru, *_ = _case(4, 1, 2, 2, 64, 16, 8)
+    fw = gru_cuda.fuse_gru_weights(gru, 64, 8)
+    kw = gru_cuda.prepare_gru_weights(fw, torch.float32)
+    for k, w in fw.items():
+        taps, cin, n = w.shape
+        x = kw[k]
+        assert x.shape == (5, cin // 8, n, 4, 4) and x.dtype == torch.float32
+
+        def read(part):                  # [5, slab, N, t, 2] -> [5, Cin, N]
+            return part.permute(0, 1, 3, 4, 2).reshape(taps, cin, n)
+        hi, lo = read(x[..., :2]), read(x[..., 2:])
+        for t in (hi, lo):
+            assert bool(((t.contiguous().view(torch.int32) & 0x1FFF) == 0).all())
+        err = ((hi.double() + lo.double()) - w.double()).abs()
+        assert bool((err <= 2.0 ** -22 * w.double().abs()).all())
+    fw_bf = {k: v.bfloat16().float() for k, v in fw.items()}
+    kw_bf = gru_cuda.prepare_gru_weights(fw_bf, torch.bfloat16)
+    for k, w in fw_bf.items():
+        taps, cin, n = w.shape
+        x = kw_bf[k]
+        assert x.shape == (5, cin // 16, n, 4, 4) and x.dtype == torch.bfloat16
+        assert torch.equal(x.permute(0, 1, 3, 4, 2).reshape(taps, cin, n).float(), w)
+    with pytest.raises(ValueError, match="bfloat16-exact"):
+        gru_cuda.prepare_gru_weights(fw, torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gru_cuda.prepare_gru_weights(fw, torch.float16)
+
+
 # (B, H, W, hidden, motion, ctx, block_rows of the JAX kernel)
 @pytest.mark.parametrize("B,H,W,hid,mdim,ctxd,T", [
     (1, 12, 16, 128, 128, 128, 8),   # full-model channel plan, 2 row blocks

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's float32 kernels of two checkouts on one GPU.
+"""Time the PyTorch/CUDA port's kernels of two checkouts on one GPU.
 
     python3 tools/port_kernel_ab.py PARENT_ROOT CHANGE_ROOT [--rounds N]
 
@@ -9,13 +9,16 @@ The kernels of one checkout run in a process of their own, the checkouts in
 turns (parent, change, change, parent, ...), each process building its
 kernels from its own sources and timing them on the inputs of this
 checkout's ``chip_smoke.kernel_inputs`` (same seed): the correlation
-lookup, the window lookup and the SepConvGRU on the 54x128 query grid of a
-432x1024 pair, the ragged lookup on the 3-item 440x1248 box.  Prints the
-card's name and power limit, then one line per process: ms per call on the
-device (CUDA events, 200 calls after 5 of warm-up) and, in brackets, the
-host's ms to issue a call (a device time close to it is the host's, not the
-kernel's).  Cards differ between machines, so only times of one run are
-compared.
+lookup (float32 and bfloat16 operands, on phase 3's noisy coords and on
+windows scattered over the map), the window lookup and the SepConvGRU
+(float32 and bfloat16 I/O) on the 54x128 query grid of a 432x1024 pair,
+the ragged lookup on the 3-item 440x1248 box.  A checkout whose GRU kernel
+reads prepared weights (``prepare_gru_weights``) gets them; an older one
+its fused float32 weights.  Prints the card's name and power limit, then
+one line per process: ms per call on the device (CUDA events, 200 calls
+after 5 of warm-up) and, in brackets, the host's ms to issue a call (a
+device time close to it is the host's, not the kernel's).  Cards differ
+between machines, so only times of one run are compared.
 """
 
 from __future__ import annotations
@@ -48,11 +51,20 @@ def _time_one(root: str, tag: str) -> None:
     dev = torch.device("cuda")
     r = 4
     x = smoke.kernel_inputs(np.random.RandomState(0), dev, r=r)
-    f1, levels, coords = x["fmap1"], x["levels"], x["coords"]
+    f1, levels, coords, wild = x["fmap1"], x["levels"], x["coords"], x["wild"]
     rf1, rlevels, rcoords, sizes8 = x["rf1"], x["rlevels"], x["rcoords"], x["sizes8"]
     h, mot, ctx = x["gru"]
-    model = rt.init_raft_torch(rt.RAFTConfig.full(), device=dev)
+    bf1, blevels = f1.bfloat16(), [lv.bfloat16() for lv in levels]
+    hb, mb, cb = h.bfloat16(), mot.bfloat16(), tuple(c.bfloat16() for c in ctx)
+    model = rt.init_raft_torch(rt.RAFTConfig.full(), device=dev,
+                               generator=torch.Generator().manual_seed(0))
     fw = gru_cuda.fuse_gru_weights(model.update_block.gru, 128, 128)
+    fw_bf = {k: v.bfloat16().float() for k, v in fw.items()}
+    if hasattr(gru_cuda, "prepare_gru_weights"):
+        kw = gru_cuda.prepare_gru_weights(fw, torch.float32)
+        kw_bf = gru_cuda.prepare_gru_weights(fw_bf, torch.bfloat16)
+    else:                                  # float32 copies of the weights
+        kw, kw_bf = fw, fw_bf
 
     def ms(fn, reps=200):
         """(device ms, host ms) per call: CUDA events around ``reps``
@@ -71,12 +83,17 @@ def _time_one(root: str, tag: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, host
 
+    lookup = corr_cuda.corr_lookup_cuda
     times = {
-        "corr_lookup": ms(lambda: corr_cuda.corr_lookup_cuda(f1, levels, coords, r)),
+        "corr_lookup": ms(lambda: lookup(f1, levels, coords, r)),
+        "corr_lookup_scattered": ms(lambda: lookup(f1, levels, wild, r)),
+        "corr_lookup_bf16": ms(lambda: lookup(bf1, blevels, coords, r)),
+        "corr_lookup_bf16_scattered": ms(lambda: lookup(bf1, blevels, wild, r)),
         "corr_window": ms(lambda: corr_cuda.corr_window_cuda(f1, levels, coords, r)),
         "corr_ragged": ms(lambda: corr_cuda.corr_ragged_cuda(
             rf1, rlevels, rcoords, sizes8, r)),
-        "sep_conv_gru": ms(lambda: gru_cuda.sep_conv_gru_cuda(fw, h, mot, ctx))}
+        "sep_conv_gru": ms(lambda: gru_cuda.sep_conv_gru_cuda(kw, h, mot, ctx)),
+        "sep_conv_gru_bf16": ms(lambda: gru_cuda.sep_conv_gru_cuda(kw_bf, hb, mb, cb))}
     print(f"{tag}: " + " ".join(f"{k} {d:.4f} (host {h:.4f})"
                                  for k, (d, h) in times.items()), flush=True)
 
