@@ -19,23 +19,27 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    lookup's output) and on windows scattered over the whole map; the
    ragged lookup on a [3, 55, 156, 256] max box with live sizes8
    [[54, 128], [46, 155], [48, 64]], on both kinds of coords (live queries
-   held, dead ones exactly 0); the SepConvGRU at 54x128, 2x37x45 and
-   2x23x70 (no tile divides the last two).  The packed lookup (pallas_pack=True, one launch over
-   every level, the narrow ones staged in whole rows) under 'all' and
-   'window' on the [1, 54, 128, 256] maps (levels 1-3 narrow) with both
-   kinds of coords and on a FlyingChairs-width [1, 48, 64, 256] map (every
-   level narrow), each against its plain version and against the first
-   lookup's output; a 0x0 level gives exact zeros.  The bfloat16 instantiations
-   (corr_precision='default' operands) of the four lookups against their
-   plain versions on the same bfloat16 operands at 1e-5, and the
-   bfloat16-I/O GRU against its plain version within 1 bf16 ulp of max|h|
-   (both compute in float32 and round once: a sum that lands at a rounding
-   boundary may round the other way), at all three GRU shapes.  The first
-   lookup, both entries, also on scattered windows, on a quarter of the
-   queries scattered among coherent ones, with the left half of the grid
-   wholly off the map, at radius 15 and at C = 100; each case held with
-   its tiles sent by their window boxes, all on the MMA path and all on
-   the gather (the share of tiles on each path printed).
+   held, dead ones exactly 0), and with a fourth item live [3, 5] whose
+   levels 2-3 hold no live row (exact zeros; NaN outside every crop leaves
+   the output bitwise equal: nothing outside a crop is read); the
+   SepConvGRU at 54x128, 2x37x45 and 2x23x70 (no tile divides the last
+   two).  The packed lookup (pallas_pack=True, one launch over every level)
+   under 'all' and 'window' on the [1, 54, 128, 256] maps (levels 1-3
+   narrow) with both kinds of coords and on a FlyingChairs-width
+   [1, 48, 64, 256] map (every level narrow), each against its plain
+   version and against the first lookup's output; a 0x0 level gives exact
+   zeros.  The bfloat16 instantiations (corr_precision='default' operands)
+   of the four lookups against their plain versions on the same bfloat16
+   operands at 1e-5, and the bfloat16-I/O GRU against its plain version
+   within 1 bf16 ulp of max|h| (both compute in float32 and round once: a
+   sum that lands at a rounding boundary may round the other way), at all
+   three GRU shapes.  The first lookup, both entries, also on scattered
+   windows, on a quarter of the queries scattered among coherent ones,
+   with the left half of the grid wholly off the map, at radius 15 and at
+   C = 100.  Every case of the three lookups that share corr_lookup.cu's
+   tile body (first, ragged, packed) is held with its tiles sent by their
+   window boxes, all on the MMA path and all on the gather (the tiles on
+   each path printed).
 4. main path: raft-things (full width and depth, seeded random weights) on
    4 seeded frame pairs at 432x1024, batch 1, 12 iterations, through
    make_inference_fn with corr_impl='pallas', gru_impl='pallas'.  The flows
@@ -75,11 +79,15 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
 7. times (CUDA events, after warm-up): each kernel per call beside its
    plain version and its bound — the packed lookup beside the first and
    the window lookups on the same inputs, each bfloat16
-   instantiation beside its float32 kernel; the first lookup's two paths
-   and its MMA_RATIO threshold on phase 3's noisy and scattered coords and
-   on the main path's own at its first iteration, after 3 and after 12; median request latency and
-   pairs/s of the main, window, P32 and BF paths; the ragged batch's median
-   and pairs/s beside the three pairs run one by one (printed, not held).
+   instantiation beside its float32 kernel; the two paths and the
+   MMA_RATIO threshold of the first and the packed lookups on phase 3's
+   noisy and scattered coords and on the main path's own at its first
+   iteration, after 3 and after 12 (the packed lookup's narrow levels also
+   each alone), and of the ragged lookup
+   on phase 3's box and on the ragged batch's own coords (the first lookup
+   beside it); median request latency and pairs/s of the main, window,
+   P32 and BF paths; the ragged batch's median and pairs/s, in float32 and
+   in bfloat16, beside the three pairs run one by one (printed, not held).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
@@ -226,20 +234,22 @@ def _within(name: str, fk: torch.Tensor, fp: torch.Tensor, crops=None):
 
 
 def _corr_bound(f1, levels, coords, radius, positions=None, n_out=None,
-                extra_bytes=0):
-    """(bound ms, by) of a lookup on these inputs: f1, the levels and
-    coords read once (and ``extra_bytes``), the output written once;
-    2 FLOPs per channel of each in-map window position (``positions``,
-    counted from ``coords`` when None), float32 x float32 products or, for
-    bfloat16 operands, bfloat16 x bfloat16 ones, and 7 FP32 FLOPs per
-    bilinear output (``n_out``, every query's when None)."""
+                reads=None):
+    """(bound ms, by) of a lookup on these inputs: ``reads`` bytes read
+    once (None: f1, the levels and coords in full), the output written
+    once; 2 FLOPs per channel of each in-map window position
+    (``positions``, counted from ``coords`` when None), float32 x float32
+    products or, for bfloat16 operands, bfloat16 x bfloat16 ones, and 7
+    FP32 FLOPs per bilinear output (``n_out``, every query's when None)."""
     out_numel = coords.numel() // 2 * len(levels) * (2 * radius + 1) ** 2
     n_out = out_numel if n_out is None else n_out
     if positions is None:
         positions = _corr_positions(
             coords, [(x.shape[1], x.shape[2]) for x in levels], radius)
-    nbytes = (f1.element_size() * (f1.numel() + sum(x.numel() for x in levels))
-              + 4 * (coords.numel() + out_numel) + extra_bytes)
+    if reads is None:
+        reads = (f1.element_size() * (f1.numel() + sum(x.numel() for x in levels))
+                 + 4 * coords.numel())
+    nbytes = reads + 4 * out_numel
     dots = 2 * f1.shape[-1] * positions
     kind = "bf16" if f1.dtype == torch.bfloat16 else "f32xf32"
     return _bound_ms(nbytes, {kind: dots, "fp32": 7 * n_out})
@@ -322,10 +332,10 @@ def main() -> int:
     from raft_tpu_torch.ops.coords import coords_grid
     from raft_tpu_torch.ops.corr import (fmap2_pyramid, live_mask,
                                          lookup_blockwise_onehot,
-                                         lookup_packed_plain,
+                                         lookup_operands, lookup_packed_plain,
                                          lookup_ragged_plain,
                                          lookup_window_plain, mask_ragged_rows,
-                                         packed_levels_from)
+                                         packed_levels_from, ragged_pyramid)
     from raft_tpu_torch.ops.upsample import convex_upsample_flow
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -360,6 +370,7 @@ def main() -> int:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
     k_in = kernel_inputs(rng, dev, C, L, r)
+    nn_ = (2 * r + 1) ** 2
     fmap1, levels, coords, wild = (k_in[k] for k in ("fmap1", "levels", "coords", "wild"))
     corr_k = corr_cuda.corr_lookup_cuda(fmap1, levels, coords, r)
     corr_p = lookup_blockwise_onehot(fmap1, levels, coords, r)
@@ -375,22 +386,85 @@ def main() -> int:
         corr_cuda.corr_window_cuda(fmap1, levels, wild, r),
         lookup_window_plain(fmap1, levels, wild, r)))
 
+    def three_ways(label, run, want_, nlev, sel=None):
+        """``run(mma_ratio, stats)`` over ``nlev`` levels held to ``want_``
+        (on ``sel`` only, when given) with its tiles sent by their window
+        boxes, all on the MMA path and all on the gather; prints the tiles
+        of each path."""
+        worst_ = 0.0
+        for how, ratio in (("by box", None), ("MMA", float("inf")), ("gather", 0.0)):
+            st = torch.zeros(2 * nlev, dtype=torch.int32, device=dev)
+            got_ = run(ratio, st)
+            if sel is not None:
+                got_, w_ = got_[sel], want_[sel]
+            else:
+                w_ = want_
+            worst_ = max(worst_, _compare(
+                f"{label}, tiles {how} (MMA/gather "
+                f"{st.view(nlev, 2).sum(0).tolist()})", got_, w_))
+        return worst_
+
     hb, wb = BOX[0] // 8, BOX[1] // 8
     sizes8, rf1, rlevels, rcoords, rwild = (
         k_in[k] for k in ("sizes8", "rf1", "rlevels", "rcoords", "rwild"))
-    rag_k = corr_cuda.corr_ragged_cuda(rf1, rlevels, rcoords, sizes8, r)
-    rag_p = lookup_ragged_plain(rf1, rlevels, rcoords, sizes8, r)
     live8 = live_mask(sizes8, hb, wb)
-    rag_err = _compare(f"corr_ragged [3,{hb},{wb},256] sizes8 "
-                       f"{sizes8.tolist()} live queries", rag_k[live8], rag_p[live8])
-    rag_err = max(rag_err, _compare(
-        "corr_ragged, windows scattered over the map, live queries",
-        corr_cuda.corr_ragged_cuda(rf1, rlevels, rwild, sizes8, r)[live8],
-        lookup_ragged_plain(rf1, rlevels, rwild, sizes8, r)[live8]))
-    dead_max = float(rag_k[~live8].abs().max())
-    print(f"corr_ragged dead queries: {int((~live8).sum())}, max|out| {dead_max}")
-    if dead_max != 0.0:
-        raise AssertionError("corr_ragged: dead queries are not exact zeros")
+
+    def ragged_held(label, f1_, lvs, cc, s8, live):
+        """The ragged lookup three ways on its live queries; its dead
+        queries exact zeros every time."""
+        def run(ratio, st):
+            got_ = corr_cuda.corr_ragged_cuda(f1_, lvs, cc, s8, r, mma_ratio=ratio,
+                                              stats=st)
+            if float(got_[~live].abs().max()) != 0.0:
+                raise AssertionError(f"{label}: dead queries are not exact zeros")
+            return got_
+        return three_ways(f"{label}, live queries", run,
+                          lookup_ragged_plain(f1_, lvs, cc, s8, r), len(lvs), live)
+
+    rag_err = max(ragged_held(
+        f"corr_ragged [3,{hb},{wb},256] sizes8 {sizes8.tolist()}, {label} coords",
+        rf1, rlevels, cc, sizes8, live8)
+        for label, cc in (("noisy", rcoords), ("scattered", rwild)))
+    print(f"corr_ragged dead queries: {int((~live8).sum())}, exact zeros in "
+          f"every case above")
+
+    # a fourth item so small (live [3, 5]) that levels 2 and 3 hold no live
+    # row of it: they give exact zeros.  The kernel reads nothing outside an
+    # item's crop: with NaN in every dead position of f1 and of each level,
+    # its output stays bitwise the same (drawn from a seed of its own).
+    rng7 = np.random.RandomState(7)
+    s4 = torch.tensor(sizes8.tolist() + [[3, 5]], dtype=torch.int32, device=dev)
+    live4 = live_mask(s4, hb, wb)
+    f1_4 = mask_ragged_rows(dev_t(rng7.randn(4, hb, wb, C)), s4).contiguous()
+    lv_4 = [lv.contiguous() for lv in
+            ragged_pyramid(dev_t(rng7.randn(4, hb, wb, C)), s4, L)]
+    noise4 = rng7.uniform(-(r + 3), r + 3, (4, hb, wb, 2))
+    noise4[rng7.rand(4, hb, wb) < 0.125] += np.array([-300.0, 700.0])
+    c4 = (coords_grid(4, hb, wb, device=dev) + dev_t(noise4)).contiguous()
+    nan = float("nan")
+    p1_4 = torch.where(live4[..., None], f1_4, nan).contiguous()
+    plv_4 = [torch.where(live_mask(torch.div(s4, 2 ** i, rounding_mode="floor"),
+                                   lv.shape[1], lv.shape[2])[..., None], lv,
+                         nan).contiguous() for i, lv in enumerate(lv_4)]
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "bf16 " if dt == torch.bfloat16 else ""
+        a4, l4 = f1_4.to(dt), [x.to(dt) for x in lv_4]
+        e = ragged_held(f"corr_ragged {tag}[4,{hb},{wb},256], a 4th item live [3, 5]",
+                        a4, l4, c4, s4, live4)
+        if dt == torch.float32:
+            rag_err = max(rag_err, e)
+        for ratio in (None, float("inf"), 0.0):
+            clean = corr_cuda.corr_ragged_cuda(a4, l4, c4, s4, r, mma_ratio=ratio)
+            poisoned = corr_cuda.corr_ragged_cuda(
+                p1_4.to(dt), [x.to(dt) for x in plv_4], c4, s4, r, mma_ratio=ratio)
+            torch.cuda.synchronize()
+            coarse = float(clean[3, :, :, 2 * nn_:].abs().max())
+            same = bool(torch.equal(clean, poisoned))
+            print(f"corr_ragged {tag}4 items, mma_ratio {ratio}: item 3's levels "
+                  f"2-3 max|out| {coarse}; NaN outside every crop changes "
+                  f"nothing: {same}")
+            if coarse != 0.0 or not same:
+                raise AssertionError("corr_ragged read outside a live crop")
 
     gen = torch.Generator().manual_seed(0)
     cfg_k = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")
@@ -431,16 +505,19 @@ def main() -> int:
         noise[rng5.rand(B, H, W) < 0.125] += np.array([-300.0, 700.0])
         return (coords_grid(B, H, W, device=dev) + dev_t(noise)).contiguous()
 
-    nn_ = (2 * r + 1) ** 2
     first = packed_levels_from([lv.shape[2] for lv in levels])   # 1 at 54x128
+
+    def packed_held(label, f1_, lvs, cc, ps):
+        return three_ways(label, lambda ratio, st: corr_cuda.corr_packed_cuda(
+            f1_, lvs, cc, r, ps, mma_ratio=ratio, stats=st),
+            lookup_packed_plain(f1_, lvs, cc, r, ps), len(lvs))
+
     pack_err = 0.0
     for ps in ("all", "window"):
         for label, cc in (("noisy", coords), ("scattered", wild)):
-            pack_err = max(pack_err, _compare(
+            pack_err = max(pack_err, packed_held(
                 f"corr_packed {ps} [1,54,128,256] levels {first}-{L - 1} "
-                f"narrow, {label} coords",
-                corr_cuda.corr_packed_cuda(fmap1, levels, cc, r, ps),
-                lookup_packed_plain(fmap1, levels, cc, r, ps)))
+                f"narrow, {label} coords", fmap1, levels, cc, ps))
         _compare(f"corr_packed {ps} against corr_lookup's output",
                  corr_cuda.corr_packed_cuda(fmap1, levels, coords, r, ps), corr_k)
     hc, wc = 384 // 8, 512 // 8                  # FlyingChairs: W_0 = 64 packs
@@ -450,12 +527,12 @@ def main() -> int:
     if packed_levels_from([lv.shape[2] for lv in clevels]) != 0:
         raise AssertionError("the FlyingChairs-width map should pack at level 0")
     for ps in ("all", "window"):
-        got = corr_cuda.corr_packed_cuda(cf1, clevels, ccoords, r, ps)
-        pack_err = max(pack_err, _compare(
-            f"corr_packed {ps} [1,{hc},{wc},256] every level narrow", got,
-            lookup_packed_plain(cf1, clevels, ccoords, r, ps)))
+        pack_err = max(pack_err, packed_held(
+            f"corr_packed {ps} [1,{hc},{wc},256] every level narrow", cf1,
+            clevels, ccoords, ps))
         _compare(f"corr_packed {ps} [1,{hc},{wc},256] against corr_lookup's output",
-                 got, corr_cuda.corr_lookup_cuda(cf1, clevels, ccoords, r))
+                 corr_cuda.corr_packed_cuda(cf1, clevels, ccoords, r, ps),
+                 corr_cuda.corr_lookup_cuda(cf1, clevels, ccoords, r))
 
     # a level pooled away to nothing (0x0) gives zeros and reads nothing
     zlevels = levels + [torch.empty((1, 0, 0, C), device=dev)]
@@ -478,16 +555,15 @@ def main() -> int:
             "corr_window bf16 [1,54,128,256]",
             corr_cuda.corr_window_cuda(bf1, blevels, coords, r),
             lookup_window_plain(bf1, blevels, coords, r)),
-        "corr_packed": max(_compare(
-            f"corr_packed {ps} bf16 [1,54,128,256]",
-            corr_cuda.corr_packed_cuda(bf1, blevels, coords, r, ps),
-            lookup_packed_plain(bf1, blevels, coords, r, ps))
-            for ps in ("all", "window"))}
+        "corr_packed": max(
+            packed_held(f"corr_packed {ps} bf16 [1,54,128,256], {label} coords",
+                        bf1, blevels, cc, ps)
+            for ps in ("all", "window") for label, cc in (("noisy", coords),
+                                                          ("scattered", wild)))}
     rbf1, rblevels = rf1.bfloat16(), [lv.bfloat16() for lv in rlevels]
-    bf_err["corr_ragged"] = _compare(
-        "corr_ragged bf16 [3,55,156,256] live queries",
-        corr_cuda.corr_ragged_cuda(rbf1, rblevels, rcoords, sizes8, r)[live8],
-        lookup_ragged_plain(rbf1, rblevels, rcoords, sizes8, r)[live8])
+    bf_err["corr_ragged"] = max(ragged_held(
+        f"corr_ragged bf16 [3,55,156,256], {label} coords", rbf1, rblevels, cc,
+        sizes8, live8) for label, cc in (("noisy", rcoords), ("scattered", rwild)))
     # the GRU with bfloat16 I/O
     gh = dev_t(np.tanh(rng5.randn(1, h8, w8, 128))).bfloat16()
     gmot = dev_t(np.maximum(rng5.randn(1, h8, w8, 128), 0.0)).bfloat16()
@@ -505,15 +581,10 @@ def main() -> int:
     # multiple of 16: the MMA path pads K with zeros; the bfloat16 entry,
     # C not a multiple of its 8-channel vectors, gathers by channel)
     def b1_held(label, f1_, lvs, cc, rr):
-        want_ = lookup_blockwise_onehot(f1_, lvs, cc, rr)
-        worst_ = 0.0
-        for how, ratio in (("by box", None), ("MMA", float("inf")), ("gather", 0.0)):
-            st = torch.zeros(2, dtype=torch.int32, device=dev)
-            got_ = corr_cuda.corr_lookup_cuda(f1_, lvs, cc, rr, mma_ratio=ratio, stats=st)
-            worst_ = max(worst_, _compare(
-                f"corr_lookup {label}, tiles {how} (MMA/gather {st.tolist()})",
-                got_, want_))
-        return worst_
+        return three_ways(f"corr_lookup {label}", lambda ratio, st:
+                          corr_cuda.corr_lookup_cuda(f1_, lvs, cc, rr, mma_ratio=ratio,
+                                                     stats=st),
+                          lookup_blockwise_onehot(f1_, lvs, cc, rr), len(lvs))
 
     sel = torch.from_numpy(rng6.rand(1, h8, w8, 1) < 0.25).to(dev)
     mixed = torch.where(sel, wild, coords).contiguous()
@@ -865,15 +936,20 @@ def main() -> int:
 
     rag_ms = _time_ms(lambda: corr_cuda.corr_ragged_cuda(rf1, rlevels, rcoords, sizes8, r), 3, 50)
     rag_plain_ms = _time_ms(lambda: lookup_ragged_plain(rf1, rlevels, rcoords, sizes8, r), 1, 5)
-    rag_pos = 0
-    for b, (h, w) in enumerate(sizes8.tolist()):
-        clip = [(min(lv.shape[1], h >> i), min(lv.shape[2], w >> i))
-                for i, lv in enumerate(rlevels)]
-        rag_pos += _corr_positions(rcoords[b][live8[b]], clip, r)
-
-    def rag_bound(f1, lvs):                      # live queries' in-crop work
-        return _corr_bound(f1, lvs, rcoords, r, rag_pos,
-                           int(live8.sum()) * L * nn_, 4 * sizes8.numel())
+    def rag_bound(f1, lvs, cc=rcoords):
+        """The ragged lookup reads the live queries' f1 rows and coords, each
+        level within each item's live crop there, and sizes8; it writes
+        every query's output (dead ones zeros); its products are the live
+        queries' in-crop window positions."""
+        pos, live_rows = 0, int(live8.sum())
+        for b, (h, w) in enumerate(sizes8.tolist()):
+            clip = [(min(lv.shape[1], h >> i), min(lv.shape[2], w >> i))
+                    for i, lv in enumerate(lvs)]
+            pos += _corr_positions(cc[b][live8[b]], clip, r)
+            live_rows += sum(ch * cw for ch, cw in clip)
+        reads = (f1.element_size() * f1.shape[-1] * live_rows
+                 + 4 * (2 * int(live8.sum()) + sizes8.numel()))
+        return _corr_bound(f1, lvs, cc, r, pos, int(live8.sum()) * L * nn_, reads)
 
     rag_bound_ms, rag_by = rag_bound(rf1, rlevels)
 
@@ -969,6 +1045,9 @@ def main() -> int:
     call_ms(infer_r, rim1, rim2, sizes)
     lat_r = [call_ms(infer_r, rim1, rim2, sizes) for _ in range(6)]
     med_r = statistics.median(lat_r)
+    call_ms(infer_rbf, rim1, rim2, sizes, mdl=model_bf)
+    med_rbf = statistics.median(
+        [call_ms(infer_rbf, rim1, rim2, sizes, mdl=model_bf) for _ in range(6)])
     live_share = sum(h * w for h, w in CROPS) / (len(CROPS) * BOX[0] * BOX[1])
     seq = []
     for (a, b), (h, w) in zip(crops, CROPS):
@@ -982,6 +1061,9 @@ def main() -> int:
           f"make_inference_fn at their sizes padded to multiples of 8: "
           f"{' + '.join(f'{x:.2f}' for x in seq)} = {sum(seq):.2f} ms "
           f"({3e3 / sum(seq):.2f} pairs/s)")
+    print(f"ragged batch of 3 in {BOX[0]}x{BOX[1]}, {ITERS} iters, bfloat16 "
+          f"compute and 'default' corr: median {med_rbf:.2f} ms/batch "
+          f"({3e3 / med_rbf:.2f} pairs/s) against the float32 batch's {med_r:.2f}")
 
     # where a request's time goes: stages by CUDA events, kernels and the
     # device's idle share by torch.profiler
@@ -1027,18 +1109,54 @@ def main() -> int:
     print("BF stages ms/request: " + ", ".join(
         f"{k} {be[i].elapsed_time(be[i + 1]):.3f}" for i, k in enumerate(
             ("encoders", "loop_setup", "iterations", "upsample"))))
-    # the first lookup's two paths and its threshold on three kinds of
-    # coords: phase 3's noisy ones, the scattered ones, and this request's
-    # own (flow 0 at the first iteration, coherent; after 3 and after 12
-    # the random weights' flows of hundreds of pixels), each in float32 and
-    # bfloat16: per call with the tiles sent by their boxes at MMA_RATIO
-    # (and the share of tiles that took the MMA path), every tile on the
-    # MMA path, every tile on the gather, and by box at other ratios; the
-    # window lookup beside it in float32
+    # the two paths of the tile-body lookups and their MMA_RATIO threshold:
+    # per call with the tiles sent by their boxes at MMA_RATIO (and the
+    # share of tiles that took the MMA path, per level), every tile on the
+    # MMA path, every tile on the gather, and by box at other ratios.  The
+    # first and the packed lookups on the same inputs (the window lookup
+    # beside them in float32), on three kinds of coords: phase 3's noisy
+    # ones, the scattered ones, and this request's own (flow 0 at the first
+    # iteration, coherent; after 3 and after 12 the random weights' flows
+    # of hundreds of pixels).  The ragged lookup likewise on phase 3's box and
+    # on the ragged batch's own coords, the first lookup beside it on the
+    # same inputs.  Each in float32 and bfloat16.
+    ratios = (0.0625, 0.125, 0.25, 0.5, 1.0)
+
+    def paths(label, call, nlev, bound, extra=""):
+        st = torch.zeros(2 * nlev, dtype=torch.int32, device=dev)
+        call(None, st)
+        per = st.view(nlev, 2).tolist()
+        share = sum(m for m, _ in per) / max(sum(m + g for m, g in per), 1)
+        t = {x: _time_ms(lambda: call(x, None), 3, 20)
+             for x in (None, float("inf"), 0.0) + ratios}
+        print(f"{label}: {t[None]:.4f} ms/call by box (MMA-path share of tiles "
+              f"{share:.3f}; MMA/all tiles by level "
+              + " ".join(f"{m}/{m + g}" for m, g in per)
+              + f"); every tile MMA {t[float('inf')]:.4f}, every tile gather "
+              f"{t[0.0]:.4f}; by box at ratio "
+              + ", ".join(f"{x:g}: {t[x]:.4f}" for x in ratios)
+              + f"; bound {bound[0]:.4f} ms by {bound[1]}{extra}")
+
+    def max_flow(cc):
+        return float((cc - coords_grid(*cc.shape[:3], device=dev)).abs().max())
+
+    with torch.no_grad():                        # the ragged batch's own coords
+        rsz = torch.from_numpy(sizes).to(dev)
+        rt1, rt2 = (mask_ragged_rows(torch.from_numpy(x).to(dev), rsz)
+                    for x in (rim1, rim2))
+        rfm1, rfm2, rnet, rinp = encode_pair(model, rt1, rt2, cfg_k)
+        rloop = prepare_loop(model, rfm1, rfm2, rinp, cfg_k, rsz // 8)
+        rc, rcs = rloop.coords0, [rloop.coords0]
+        for it in range(ITERS):
+            rnet, rc, _ = gru_step(model, cfg_k, rloop, rnet, rc)
+            if it in (2, ITERS - 1):
+                rcs.append(rc.contiguous())
+    rmf1, rmlev = lookup_operands(rfm1.permute(0, 2, 3, 1), rfm2.permute(0, 2, 3, 1),
+                                  L, "highest", rsz // 8)
     mf1 = fm1.permute(0, 2, 3, 1).contiguous()
     mlev = [lv.contiguous() for lv in fmap2_pyramid(fm2.permute(0, 2, 3, 1).contiguous(), L)]
-    ratios = (0.0625, 0.125, 0.25, 0.5, 1.0)
     for dt in (torch.float32, torch.bfloat16):
+        tag = " bf16" if dt == torch.bfloat16 else ""
         for label, f1_, lvs, cc in (
                 ("phase 3 noisy", fmap1, levels, coords),
                 ("phase 3 scattered", fmap1, levels, wild),
@@ -1046,22 +1164,41 @@ def main() -> int:
                 ("main path, after 3 iterations", mf1, mlev, c3.contiguous()),
                 ("main path, after 12 iterations", mf1, mlev, c1.contiguous())):
             a_, l_ = f1_.to(dt), [x.to(dt) for x in lvs]
-            st = torch.zeros(2, dtype=torch.int32, device=dev)
-            corr_cuda.corr_lookup_cuda(a_, l_, cc, r, stats=st)
-            share = st[0].item() / max(st.sum().item(), 1)
-            t = {x: _time_ms(lambda: corr_cuda.corr_lookup_cuda(a_, l_, cc, r, mma_ratio=x), 3, 20)
-                 for x in (None, float("inf"), 0.0) + ratios}
-            bound, by = _corr_bound(a_, l_, cc, r)
+            bound = _corr_bound(a_, l_, cc, r)
             extra = ""
             if dt == torch.float32:
                 extra = (f"; corr_window {_time_ms(lambda: corr_cuda.corr_window_cuda(a_, l_, cc, r), 3, 20):.4f}")
-            print(f"corr_lookup{' bf16' if dt == torch.bfloat16 else ''} on {label} "
-                  f"(max|flow| {float((cc - coords_grid(*cc.shape[:3], device=dev)).abs().max()):.1f}): "
-                  f"{t[None]:.4f} ms/call by box at ratio {corr_cuda.MMA_RATIO[dt]} (MMA-path "
-                  f"share of tiles {share:.3f}); every tile MMA {t[float('inf')]:.4f}, "
-                  f"every tile gather {t[0.0]:.4f}; by box at ratio "
-                  + ", ".join(f"{x:g}: {t[x]:.4f}" for x in ratios)
-                  + f"; bound {bound:.4f} ms by {by}{extra}")
+            paths(f"corr_lookup{tag} on {label} (max|flow| {max_flow(cc):.1f})",
+                  lambda x, st: corr_cuda.corr_lookup_cuda(a_, l_, cc, r, mma_ratio=x,
+                                                           stats=st), L, bound, extra)
+            paths(f"corr_packed{tag} on {label}, levels {first}-{L - 1} narrow",
+                  lambda x, st: corr_cuda.corr_packed_cuda(a_, l_, cc, r, "all",
+                                                           mma_ratio=x, stats=st),
+                  L, bound)
+            # each narrow level alone: level l's windows are those of level
+            # 0 at coords / 2^l (a power of 2: the same floors and fractions)
+            alone = []
+            for lvl in range(first, L):
+                cl = (cc / 2 ** lvl).contiguous()
+                t = [_time_ms(lambda: corr_cuda.corr_lookup_cuda(
+                    a_, [l_[lvl]], cl, r, mma_ratio=x), 3, 20)
+                    for x in (None, float("inf"), 0.0)]
+                alone.append(f"level {lvl} " + "/".join(f"{v:.4f}" for v in t))
+            print(f"  its narrow levels alone, ms by box / every tile MMA / "
+                  f"every tile gather: {', '.join(alone)}")
+        for label, f1_, lvs, cc in (
+                ("phase 3 noisy", rf1, rlevels, rcoords),
+                ("phase 3 scattered", rf1, rlevels, rwild),
+                ("ragged batch, first iteration", rmf1, rmlev, rcs[0]),
+                ("ragged batch, after 3 iterations", rmf1, rmlev, rcs[1]),
+                ("ragged batch, after 12 iterations", rmf1, rmlev, rcs[2])):
+            a_, l_ = f1_.to(dt), [x.to(dt) for x in lvs]
+            b1_ms = _time_ms(lambda: corr_cuda.corr_lookup_cuda(a_, l_, cc, r), 3, 20)
+            paths(f"corr_ragged{tag} [3,{hb},{wb},256] on {label} (max|flow| "
+                  f"{max_flow(cc):.1f})",
+                  lambda x, st: corr_cuda.corr_ragged_cuda(a_, l_, cc, sizes8, r,
+                                                           mma_ratio=x, stats=st),
+                  L, rag_bound(a_, l_, cc), f"; corr_lookup on the same inputs {b1_ms:.4f}")
     from torch.profiler import ProfilerActivity, profile
 
     def profiled(label, plural, n, run):
@@ -1116,6 +1253,7 @@ def main() -> int:
                               "ragged_batch_ms_median": med_r,
                               "ragged_pairs_per_s": 3e3 / med_r,
                               "ragged_batch_ms_all": lat_r,
+                              "ragged_bf16_batch_ms_median": med_rbf,
                               "ragged_live_pixel_share": live_share,
                               "one_by_one_ms": seq}}))
 
@@ -1136,10 +1274,10 @@ def main() -> int:
         entry("corr_window", "raft_tpu_torch/csrc/corr_window.cu",
               "raft_tpu/ops/corr_pallas.py:342", launches_w["corr_window"],
               win_err, win_ms, win_plain_ms, corr_bound, corr_by),
-        entry("corr_ragged", "raft_tpu_torch/csrc/corr_window.cu",
+        entry("corr_ragged", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:604", launches_r["corr_ragged"],
               rag_err, rag_ms, rag_plain_ms, rag_bound_ms, rag_by),
-        entry("corr_packed", "raft_tpu_torch/csrc/corr_window.cu",
+        entry("corr_packed", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:125",
               launches_p32["all"]["corr_packed"] + launches_p32["window"]["corr_packed"],
               pack_err, pk["all"], pk["all_plain"], corr_bound, corr_by),
@@ -1150,9 +1288,9 @@ def main() -> int:
               launches_bfc["corr_lookup"]),
              ("corr_window", "corr_window.cu", "raft_tpu/ops/corr_pallas.py:342",
               launches_bfw["corr_window"]),
-             ("corr_packed", "corr_window.cu", "raft_tpu/ops/corr_pallas.py:125",
+             ("corr_packed", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:125",
               launches_bf["corr_packed"]),
-             ("corr_ragged", "corr_window.cu", "raft_tpu/ops/corr_pallas.py:604",
+             ("corr_ragged", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:604",
               launches_rbf["corr_ragged"]),
              ("sep_conv_gru", "sep_conv_gru.cu", "raft_tpu/ops/gru_pallas.py:242",
               launches_bf["sep_conv_gru"] + launches_bfc["sep_conv_gru"]

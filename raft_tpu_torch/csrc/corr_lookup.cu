@@ -1,11 +1,24 @@
-// Correlation window lookup for RAFT on Hopper (sm_90a).
+// Correlation window lookups for RAFT on Hopper (sm_90a): one tile body,
+// three kernels of the TPU package.
 //
-// Replaces raft_tpu/ops/corr_pallas.py::_lookup_level (p_select='all',
-// _level_kernel + _window_body), reached through fused_lookup and
-// make_fused_lookup.  Same values: for each (batch, query, level) the
-// correlation <f1[q], f2_l[p]> / sqrt(C) is sampled bilinearly on a
-// (2r+1)^2 window centred at coords / 2^l, zeros outside the map, written
-// x-offset-major at out[b, q, l*(2r+1)^2 + ix*(2r+1) + iy].
+// Replaces three Pallas kernels of raft_tpu/ops/corr_pallas.py:
+//  * corr_lookup_{f32,bf16} — _lookup_level with p_select='all'
+//    (_level_kernel + _window_body, :349), reached through fused_lookup and
+//    make_fused_lookup;
+//  * corr_ragged_{f32,bf16} — _ragged_lookup_level (_ragged_window_kernel,
+//    schedule _ragged_schedule, :604), reached through
+//    make_ragged_fused_lookup: items are corner-anchored crops of one
+//    shared max box, f1 and the f2 pyramid masked to zero outside them;
+//  * corr_packed_{f32,bf16} — _packed_body (:125), the body both
+//    pallas_calls of _lookup_level (:342, :349) run under pallas_pack=True
+//    for the levels whose width leaves at least half of the TPU's 128 lanes
+//    empty (W_l <= 64), reached through make_fused_lookup and
+//    make_window_lookup with pack=True.
+// Same values for all: for each (item, query, level) the correlation
+// <f1[q], f2_l[p]> / sqrt(C) is sampled bilinearly on a (2r+1)^2 window
+// centred at coords / 2^l, zeros outside the map, written x-offset-major
+// at out[b, q, l*(2r+1)^2 + ix*(2r+1) + iy].  The ragged entry writes exact
+// zeros for dead queries (outside the item's live sizes8 extent).
 //
 // What bounds it: a call reads f1 and the pyramid once and writes the
 // output (about 25 MB in float32 at 432x1024), and its dot products are
@@ -15,22 +28,28 @@
 // on coherent flow, so re-reading f2 per query (what a gather does) costs
 // many times the bytes; on incoherent flow nothing is shared.
 //
-// Design.  A CTA takes an 8x8 tile of neighbouring queries at one level
-// (grid: query tiles, level, batch) and first computes, on the device, the
-// bounding box of the tile's in-map windows.  Then, uniform over the CTA:
-//  * Coherent tile (the box holds at most mma_ratio times the in-map
-//    window positions of the tile's queries): the TPU kernel's [T, P] tile, on the
-//    tensor cores.  The box is walked in chunks of 128 positions; for each,
-//    S = F1_tile . F2_chunk^T (64 x 128) is formed by mma.sync over slabs of
-//    128 bytes of channels staged through shared memory (cp.async, two
-//    buffers: the next slab loads while this one is multiplied; channels
-//    past C zero-filled): 3xTF32 for float32 operands, one BF16 MMA for
-//    bfloat16 (tensor_core.cuh).  Each slab's products go to a fresh
-//    accumulator added to an FP32 register sum.  Each accumulator element
-//    whose position lies in its query's (2r+2)^2 window is written, scaled,
-//    to that query's window buffer; the rest is discarded.
-//  * Incoherent tile: a gather.  One warp per query, over the in-map part
-//    of its window only; each lane owns whole
+// Design.  A CTA takes a tile of neighbouring queries (8x8) at one level
+// of one item (grid: query tiles, level, item) and first computes, on the
+// device, the bounding box of the tile's windows within the region they
+// may read: the map or, for a ragged item, its live crop at that level
+// (min(H_l, live_h >> l) x min(W_l, live_w >> l), the extents
+// ragged_pyramid keeps).  Dead queries and windows that miss the region
+// are written as exact zeros and read nothing.  Then, uniform over the CTA:
+//  * Coherent tile (the box holds at most mma_ratio times the in-region
+//    window positions of the tile's queries): the TPU kernel's [T, P] tile,
+//    on the tensor cores.  The box is walked in chunks of 128
+//    positions; for each, S = F1_tile . F2_chunk^T is
+//    formed by mma.sync over slabs of 128 bytes of channels staged through
+//    shared memory (cp.async, two buffers: the next slab loads while this
+//    one is multiplied; channels past C zero-filled): 3xTF32 for float32
+//    operands, one BF16 MMA for bfloat16 (tensor_core.cuh).  Each of the 8
+//    warps computes a 32 x 32 block of the 64 x 128 S.  Each slab's
+//    products go to a fresh accumulator added to an FP32 register sum.
+//    Each accumulator element whose position lies in its query's (2r+2)^2
+//    window is written, scaled, to that query's window buffer; the rest is
+//    discarded.
+//  * Incoherent tile: a gather.  One warp per query, over the in-region
+//    part of its window only; each lane owns whole
 //    16-byte vectors of channels (4 float32 or 8 bfloat16; a warp load is a
 //    512-byte row), a group of 4 or 8 window positions is loaded at once,
 //    and the group's per-lane partial sums are reduced together by a
@@ -42,9 +61,20 @@
 // combine.  Radius above 7 takes the gather only.  The MMA path's first
 // iteration on the main path (flow 0) is perfectly coherent; the seeded
 // random weights' flows of hundreds of pixels make later iterations
-// incoherent.  Operands are float32 (corr_lookup_f32) or bfloat16
-// (corr_lookup_bf16, the corr_precision='default' operands); sums and the
-// output are float32.
+// incoherent.  Operands are float32 (*_f32) or bfloat16 (*_bf16, the
+// corr_precision='default' operands); sums and the output are float32.
+//
+// The narrow levels (corr_packed_*).  The TPU packs `pack` rows of a
+// narrow level side by side so that one 128-lane tile covers pack x more of
+// the map.  The H100 has no lane tile to fill; what packing bought there,
+// a narrow level covered by one matrix tile, is here a box clipped to a
+// small level (13x32 and 6x16 at 432x1024), which the box test sends to
+// the tensor cores where the windows in it are coherent.  So the packed
+// entries run corr_lookup_*'s kernel as it is, every level on the 8x8 tile
+// (wider query tiles on the narrow levels, 8x16 and 16x16, were slower on
+// every kind of coords measured: PERF.md).  p_select='all' and 'window'
+// take the same route: every tile's box is its windows' box (the rows
+// 'window' schedules); 'all' reads more on the TPU for the same values.
 
 #include <limits.h>
 
@@ -54,10 +84,10 @@ namespace {
 
 using raft_corr::Levels;
 
-constexpr int kTileH = 8, kTileW = 8;
-constexpr int kTile = kTileH * kTileW;   // queries per CTA (the MMA's M)
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kTileH = 8, kTileW = 8;
+constexpr int kTile = kTileH * kTileW;   // queries per CTA (the MMA's M)
 constexpr int kChunk = 128;              // box positions per MMA chunk (N)
 constexpr int kRowWords = 40;            // staged row: 128 bytes + 32 of pad
 constexpr int kStageWords = (kTile + kChunk) * kRowWords;
@@ -163,12 +193,14 @@ __device__ __forceinline__ float butterfly(float (&v)[G], int lane) {
 }
 
 // The gather of one query's (2r+2)^2 window into vq (scaled): the window's
-// in-map rectangle only (the rest of vq is zeroed).  VEC: lanes own 16-byte
+// part inside the region [0, Hc) x [0, Wc) only (the rest of vq is zeroed);
+// W2 is the map's row length.  VEC: lanes own 16-byte
 // vectors (NV per lane: C <= 32*NV*kN); else lanes own channels lane + 32k
 // (NV*4 of them: C <= 128*NV).  G positions per group.
 template <typename T, bool VEC, int NV, int G>
 __device__ void gather_query(const T* __restrict__ f1q,
-                             const T* __restrict__ f2b, int H2, int W2, int C,
+                             const T* __restrict__ f2b, int W2, int Hc, int Wc,
+                             int C,
                              int ix0, int iy0, int win, float scale,
                              float* vq, int lane) {
   using V = raft_corr::Vec16<T>;
@@ -188,9 +220,9 @@ __device__ void gather_query(const T* __restrict__ f1q,
     }
   }
   for (int p = lane; p < win * win; p += 32) vq[p] = 0.0f;
-  // the in-map rectangle [y0, y0 + ch) x [x0, x0 + cw) of the window
+  // the in-region rectangle [y0, y0 + ch) x [x0, x0 + cw) of the window
   const int y0 = max(iy0, 0), x0 = max(ix0, 0);
-  const int ch = min(iy0 + win, H2) - y0, cw = min(ix0 + win, W2) - x0;
+  const int ch = min(iy0 + win, Hc) - y0, cw = min(ix0 + win, Wc) - x0;
   const int npos = ch * cw;
   const int pos_shift = G == 8 ? 2 : 3;    // lane >> shift: a group position
   const T* base = f2b + ((size_t)y0 * W2 + x0) * C;
@@ -236,21 +268,27 @@ __device__ void gather_query(const T* __restrict__ f1q,
   }
 }
 
-template <typename T, bool VEC, int NV>
+// One CTA: an 8x8 tile of queries at one level of one item (the design
+// above); grid (query tiles, level, item).  RAGGED: items are crops of the
+// box (sizes8), compiled out of the other entries.  The ragged-only forms
+// (zeros written for dead queries, whose bilinear weights are never set;
+// F1 staged only for the windows kept) stay out of the other entries'
+// code: with them there, B1 measured 3% slower on the H100 (PERF.md).
+template <typename T, bool VEC, int NV, bool RAGGED>
 __global__ void __launch_bounds__(kThreads, 2)
 corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
                    const float* __restrict__ coords,  // [B, H*W, 2] (x, y)
                    float* __restrict__ out,           // [B, H*W, L*(2r+1)^2]
-                   const __grid_constant__ Levels lv, int L, int H, int W,
-                   int C, int r, float scale, int mma_ok, float mma_ratio,
-                   int* __restrict__ stats) {
-  constexpr int G = (VEC ? NV : 4 * NV) >= 4 ? 4 : 8;   // positions per group
+                   const __grid_constant__ Levels lv,
+                   const int* __restrict__ sizes8,    // [B, 2] or null
+                   int L, int H, int W, int C, int r, float scale, int mma_ok,
+                   float mma_ratio, int* __restrict__ stats) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int s_ix0[kTile], s_iy0[kTile], s_state[kTile];
   __shared__ float s_fx[kTile], s_fy[kTile];
   __shared__ int s_box[5];                 // y lo, y hi, x lo, x hi (inclusive),
-                                           // in-map window positions
-
+                                           // in-region window positions
+  constexpr int G = (VEC ? NV : 4 * NV) >= 4 ? 4 : 8;   // positions per group
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -265,6 +303,16 @@ corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
   const int win = 2 * r + 2;
   const int nwin = win * win;
   const int n = 2 * r + 1;
+  // the queries that are live and the region their windows may read: the
+  // whole grid and map, or a ragged item's live crop and its extent at
+  // this level
+  int live_h = H, live_w = W, Hc = H2, Wc = W2;
+  if constexpr (RAGGED) {
+    live_h = max(sizes8[2 * b], 0);
+    live_w = max(sizes8[2 * b + 1], 0);
+    Hc = min(H2, live_h >> l);
+    Wc = min(W2, live_w >> l);
+  }
 
   if (tid == 0) {
     s_box[0] = INT_MAX; s_box[1] = INT_MIN;
@@ -275,29 +323,32 @@ corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
   if (tid < kTile) {
     const int qy = qy0 + tid / kTileW;
     const int qx = qx0 + tid % kTileW;
-    // 0: outside the grid, 1: window off the map, 2: window meets the map
+    // 0: outside the grid (nothing written); 1: exact zeros (a dead query,
+    // or a window that misses the region); 2: the window meets the region
     int state = 0, ix0 = kFar, iy0 = kFar;
     if (qy < H && qx < W) {
-      const size_t qi = (size_t)b * Q + (size_t)qy * W + qx;
-      const float level_scale = 1.0f / (float)(1 << l);   // exact power of 2
-      const float cx = coords[qi * 2] * level_scale;
-      const float cy = coords[qi * 2 + 1] * level_scale;
-      s_fx[tid] = cx - floorf(cx);
-      s_fy[tid] = cy - floorf(cy);
       state = 1;
-      const int x0 = raft_corr::clamped_floor(cx) - r;
-      const int y0 = raft_corr::clamped_floor(cy) - r;
-      if (y0 < H2 && y0 + win > 0 && x0 < W2 && x0 + win > 0) {
-        state = 2;
-        ix0 = x0;
-        iy0 = y0;
-        atomicMin(&s_box[0], y0);
-        atomicMax(&s_box[1], y0 + win - 1);
-        atomicMin(&s_box[2], x0);
-        atomicMax(&s_box[3], x0 + win - 1);
-        // the window's in-map positions: the gather's work
-        atomicAdd(&s_box[4], (min(y0 + win, H2) - max(y0, 0)) *
-                                 (min(x0 + win, W2) - max(x0, 0)));
+      if (!RAGGED || (qy < live_h && qx < live_w)) {
+        const size_t qi = (size_t)b * Q + (size_t)qy * W + qx;
+        const float level_scale = 1.0f / (float)(1 << l);   // exact power of 2
+        const float cx = coords[qi * 2] * level_scale;
+        const float cy = coords[qi * 2 + 1] * level_scale;
+        s_fx[tid] = cx - floorf(cx);
+        s_fy[tid] = cy - floorf(cy);
+        const int x0 = raft_corr::clamped_floor(cx) - r;
+        const int y0 = raft_corr::clamped_floor(cy) - r;
+        if (y0 < Hc && y0 + win > 0 && x0 < Wc && x0 + win > 0) {
+          state = 2;
+          ix0 = x0;
+          iy0 = y0;
+          atomicMin(&s_box[0], y0);
+          atomicMax(&s_box[1], y0 + win - 1);
+          atomicMin(&s_box[2], x0);
+          atomicMax(&s_box[3], x0 + win - 1);
+          // the window's in-region positions: the gather's work
+          atomicAdd(&s_box[4], (min(y0 + win, Hc) - max(y0, 0)) *
+                                   (min(x0 + win, Wc) - max(x0, 0)));
+        }
       }
     }
     s_ix0[tid] = ix0;
@@ -306,13 +357,14 @@ corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
   }
   __syncthreads();
 
-  const int by0 = max(s_box[0], 0), by1 = min(s_box[1], H2 - 1);
-  const int bx0 = max(s_box[2], 0), bx1 = min(s_box[3], W2 - 1);
+  const int by0 = max(s_box[0], 0), by1 = min(s_box[1], Hc - 1);
+  const int bx0 = max(s_box[2], 0), bx1 = min(s_box[3], Wc - 1);
   const int bw = bx1 - bx0 + 1;
   const int box_area = (by0 <= by1 && bx0 <= bx1) ? (by1 - by0 + 1) * bw : 0;
   const bool use_mma = mma_ok && box_area > 0 &&
                        (float)box_area <= mma_ratio * (float)s_box[4];
-  if (stats != nullptr && tid == 0) atomicAdd(&stats[use_mma ? 0 : 1], 1);
+  if (stats != nullptr && tid == 0)
+    atomicAdd(&stats[2 * l + (use_mma ? 0 : 1)], 1);
   const T* f2b = static_cast<const T*>(lv.f2[l]) + (size_t)b * H2 * W2 * C;
   const size_t q_base = (size_t)b * Q;
   const int NN = n * n;
@@ -344,9 +396,9 @@ corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
         const int off = boff + (e & 7) * 16;
         const char* src = reinterpret_cast<const char*>(f1);
         bool ok = off < row_bytes;
-        if (row < kTile) {
+        if (row < kTile) {                 // ragged: only the windows kept
           const int qy = qy0 + row / kTileW, qx = qx0 + row % kTileW;
-          ok = ok && qy < H && qx < W;
+          ok = ok && (RAGGED ? s_state[row] == 2 : qy < H && qx < W);
           if (ok)
             src = reinterpret_cast<const char*>(
                       f1 + (q_base + (size_t)qy * W + qx) * C) + off;
@@ -432,16 +484,19 @@ corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
     for (int e = tid; e < kTile * NN; e += kThreads) {
       const int qi = e / NN;
       const int t = e - qi * NN;
-      if (s_state[qi] == 0) continue;
+      const int st = s_state[qi];
+      if (st == 0) continue;
       const int qy = qy0 + qi / kTileW;
       const int qx = qx0 + qi % kTileW;
       const int ox = t / n;                // x offset
       const int oy = t - ox * n;           // y offset
       const float* vq = v + qi * nwin;
       out[(q_base + (size_t)qy * W + qx) * (size_t)(L * NN) + (size_t)l * NN + t] =
-          raft_corr::bilinear(vq[oy * win + ox], vq[oy * win + ox + 1],
-                              vq[(oy + 1) * win + ox], vq[(oy + 1) * win + ox + 1],
-                              s_fx[qi], s_fy[qi]);
+          RAGGED && st == 1 ? 0.0f
+                  : raft_corr::bilinear(vq[oy * win + ox], vq[oy * win + ox + 1],
+                                        vq[(oy + 1) * win + ox],
+                                        vq[(oy + 1) * win + ox + 1], s_fx[qi],
+                                        s_fy[qi]);
     }
     return;
   }
@@ -454,14 +509,18 @@ corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
     const int qy = qy0 + qi / kTileW;
     const int qx = qx0 + qi % kTileW;
     const size_t q = q_base + (size_t)qy * W + qx;
+    float* o = out + q * (size_t)(L * NN) + (size_t)l * NN;
+    if (RAGGED && st == 1) {
+      for (int t = lane; t < NN; t += 32) o[t] = 0.0f;
+      continue;
+    }
     if (st == 2) {
-      gather_query<T, VEC, NV, G>(f1 + q * C, f2b, H2, W2, C, s_ix0[qi],
+      gather_query<T, VEC, NV, G>(f1 + q * C, f2b, W2, Hc, Wc, C, s_ix0[qi],
                                   s_iy0[qi], win, scale, vq, lane);
     } else {
       for (int p = lane; p < nwin; p += 32) vq[p] = 0.0f;
     }
     __syncwarp();
-    float* o = out + q * (size_t)(L * NN) + (size_t)l * NN;
     for (int t = lane; t < NN; t += 32) {
       const int ox = t / n;
       const int oy = t - ox * n;
@@ -473,15 +532,23 @@ corr_lookup_kernel(const T* __restrict__ f1,          // [B, H*W, C]
   }
 }
 
-template <typename T, bool VEC, int NV>
-cudaError_t launch(const T* f1, const float* coords, float* out,
-                   const Levels& lv, int L, int B, int H, int W, int C, int r,
-                   float scale, int mma_ok, float mma_ratio, int* stats,
-                   cudaStream_t stream) {
-  const int nwin = (2 * r + 2) * (2 * r + 2);
+struct Args {                              // one launch's arguments
+  const void* f1;
+  const float* coords;
+  float* out;
+  Levels lv;
+  const int* sizes8;
+  int L, B, H, W, C, r;
+  float scale, mma_ratio;
+  int* stats;
+};
+
+template <typename T, bool VEC, int NV, bool RAGGED>
+cudaError_t launch(const Args& a, int mma_ok, cudaStream_t stream) {
+  const int nwin = (2 * a.r + 2) * (2 * a.r + 2);
   const int smem = mma_ok ? kStagingBytes + kTile * nwin * 4 : kWarps * nwin * 4;
   constexpr int kMaxSmem = kStagingBytes + kTile * kMmaMaxWin * kMmaMaxWin * 4;
-  auto kernel = corr_lookup_kernel<T, VEC, NV>;
+  auto kernel = corr_lookup_kernel<T, VEC, NV, RAGGED>;
   // above 48 KB dynamic shared memory needs an opt-in, once per device (the
   // call is too slow for every launch)
   static bool opted_in[kMaxDevices] = {};
@@ -494,66 +561,87 @@ cudaError_t launch(const T* f1, const float* coords, float* out,
     if (err != cudaSuccess) return err;
     if (device >= 0 && device < kMaxDevices) opted_in[device] = true;
   }
-  const int tiles = ((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW);
-  dim3 grid(tiles, L, B);
-  kernel<<<grid, kThreads, smem, stream>>>(f1, coords, out, lv, L, H, W, C, r,
-                                           scale, mma_ok, mma_ratio, stats);
+  const int tiles = ((a.H + kTileH - 1) / kTileH) * ((a.W + kTileW - 1) / kTileW);
+  dim3 grid(tiles, a.L, a.B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(a.f1), a.coords, a.out, a.lv, a.sizes8, a.L, a.H,
+      a.W, a.C, a.r, a.scale, mma_ok, a.mma_ratio, a.stats);
   return cudaGetLastError();
 }
 
-template <typename T>
-int run(const void* f1v, const float* coords, float* out,
-        const void* const* f2_ptrs, const int* level_hw, int num_levels,
-        int B, int H, int W, int C, int radius, float scale, float mma_ratio,
-        int* stats, void* stream) {
+template <typename T, bool RAGGED = false>
+int run(const Args& a, void* stream) {
   constexpr int kN = raft_corr::Vec16<T>::kN;
-  if (num_levels < 1 || num_levels > raft_corr::kMaxLevels || radius < 0 ||
-      2 * radius + 2 > kMaxWin || C < 1 || C > 512 || B < 1 || H < 1 ||
-      W < 1 || B > 65535 || (long long)H * W > INT_MAX / 2)
+  if (a.L < 1 || a.L > raft_corr::kMaxLevels || a.r < 0 ||
+      2 * a.r + 2 > kMaxWin || a.C < 1 || a.C > 512 || a.B < 1 || a.H < 1 ||
+      a.W < 1 || a.B > 65535 || (long long)a.H * a.W > INT_MAX / 2)
     return (int)cudaErrorInvalidValue;
-  const Levels lv = raft_corr::make_levels(f2_ptrs, level_hw, num_levels);
   // 16-byte vectors of channels need C a multiple of the vector and
   // 16-byte aligned maps; the MMA path stages such vectors too
-  bool vec = C % kN == 0 && reinterpret_cast<uintptr_t>(f1v) % 16 == 0;
-  for (int l = 0; l < num_levels; ++l)
-    vec = vec && reinterpret_cast<uintptr_t>(f2_ptrs[l]) % 16 == 0;
-  const int mma_ok = vec && 2 * radius + 2 <= kMmaMaxWin;
-  const T* f1 = static_cast<const T*>(f1v);
+  bool vec = a.C % kN == 0 && reinterpret_cast<uintptr_t>(a.f1) % 16 == 0;
+  for (int l = 0; l < a.L; ++l)
+    vec = vec && reinterpret_cast<uintptr_t>(a.lv.f2[l]) % 16 == 0;
+  const int mma_ok = vec && 2 * a.r + 2 <= kMmaMaxWin;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RAFT_LOOKUP(VEC, NV)                                                  \
-  return (int)launch<T, VEC, NV>(f1, coords, out, lv, num_levels, B, H, W, C, \
-                                 radius, scale, mma_ok, mma_ratio, stats, s)
-  if (!vec) RAFT_LOOKUP(false, 4);       // any C <= 512: 16 channels per lane
-  if (C <= 32 * kN) RAFT_LOOKUP(true, 1);
-  if (C <= 64 * kN) RAFT_LOOKUP(true, 2);
-  if constexpr (kN == 4) RAFT_LOOKUP(true, 4);   // float32, C <= 512
-#undef RAFT_LOOKUP
+  // C not a multiple of the vector gathers by channel: any C <= 512
+  if (!vec) return (int)launch<T, false, 4, RAGGED>(a, mma_ok, s);
+  if (a.C <= 32 * kN) return (int)launch<T, true, 1, RAGGED>(a, mma_ok, s);
+  if (a.C <= 64 * kN) return (int)launch<T, true, 2, RAGGED>(a, mma_ok, s);
+  if constexpr (kN == 4)                   // float32, C <= 512
+    return (int)launch<T, true, 4, RAGGED>(a, mma_ok, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// f2_ptrs / level_hw are HOST arrays: num_levels device pointers and (h, w)
-// pairs; f1 [B, H*W, C], coords [B, H*W, 2].  A tile takes the MMA path
-// when its window box holds at most mma_ratio times its queries' in-map
-// window positions (0: never; the gather then takes every tile).  stats: null, or
-// a DEVICE int[2] that counts the tiles of each path (MMA, gather).
-// Returns a cudaError_t (0 on success); launches on `stream`, never syncs.
-extern "C" int corr_lookup_f32(const void* f1, const float* coords,
+// Every entry: f2_ptrs / level_hw are HOST arrays (num_levels device
+// pointers and (h, w) pairs); f1 [B, H*W, C], coords [B, H*W, 2], all
+// DEVICE.  A tile takes the MMA path when its window box holds at most
+// mma_ratio times its queries' in-region window positions (0: never; the
+// gather then takes every tile).  stats: null, or a DEVICE int array of
+// 2 * num_levels that counts each level's tiles of each path (MMA,
+// gather).  Returns a cudaError_t (0 on success); launches on `stream`,
+// never syncs.
+#define RAFT_ARGS(SIZES8)                                                     \
+  Args{f1, coords, out, raft_corr::make_levels(f2_ptrs, level_hw, num_levels), \
+       SIZES8, num_levels, B, H, W, C, radius, scale, mma_ratio, stats}
+#define RAFT_LOOKUP_ENTRY(NAME, T)                                            \
+  extern "C" int NAME(const void* f1, const float* coords, float* out,        \
+                      const void* const* f2_ptrs, const int* level_hw,        \
+                      int num_levels, int B, int H, int W, int C, int radius, \
+                      float scale, float mma_ratio, int* stats,               \
+                      void* stream) {                                         \
+    return run<T>(RAFT_ARGS(nullptr), stream);                                \
+  }
+
+RAFT_LOOKUP_ENTRY(corr_lookup_f32, float)
+RAFT_LOOKUP_ENTRY(corr_lookup_bf16, __nv_bfloat16)
+// the packed lookup: corr_lookup_*'s kernel as it is (the narrow levels
+// above), an entry of its own so that its launches are its own
+RAFT_LOOKUP_ENTRY(corr_packed_f32, float)
+RAFT_LOOKUP_ENTRY(corr_packed_bf16, __nv_bfloat16)
+
+// sizes8: DEVICE array [B, 2] int32, each item's live (h, w) on the query
+// grid; f1 and the f2 levels are expected masked outside it.
+extern "C" int corr_ragged_f32(const void* f1, const float* coords,
                                float* out, const void* const* f2_ptrs,
-                               const int* level_hw, int num_levels, int B,
-                               int H, int W, int C, int radius, float scale,
-                               float mma_ratio, int* stats, void* stream) {
-  return run<float>(f1, coords, out, f2_ptrs, level_hw, num_levels, B, H, W,
-                    C, radius, scale, mma_ratio, stats, stream);
+                               const int* level_hw, const int* sizes8,
+                               int num_levels, int B, int H, int W, int C,
+                               int radius, float scale, float mma_ratio,
+                               int* stats, void* stream) {
+  if (sizes8 == nullptr) return (int)cudaErrorInvalidValue;
+  return run<float, true>(RAFT_ARGS(sizes8), stream);
 }
 
-extern "C" int corr_lookup_bf16(const void* f1, const float* coords,
+extern "C" int corr_ragged_bf16(const void* f1, const float* coords,
                                 float* out, const void* const* f2_ptrs,
-                                const int* level_hw, int num_levels, int B,
-                                int H, int W, int C, int radius, float scale,
-                                float mma_ratio, int* stats, void* stream) {
-  return run<__nv_bfloat16>(f1, coords, out, f2_ptrs, level_hw, num_levels,
-                            B, H, W, C, radius, scale, mma_ratio, stats,
-                            stream);
+                                const int* level_hw, const int* sizes8,
+                                int num_levels, int B, int H, int W, int C,
+                                int radius, float scale, float mma_ratio,
+                                int* stats, void* stream) {
+  if (sizes8 == nullptr) return (int)cudaErrorInvalidValue;
+  return run<__nv_bfloat16, true>(RAFT_ARGS(sizes8), stream);
 }
+
+#undef RAFT_LOOKUP_ENTRY
+#undef RAFT_ARGS

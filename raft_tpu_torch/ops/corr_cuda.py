@@ -3,27 +3,26 @@
 Four kernels, each with a plain PyTorch version in ``ops/corr.py`` and a
 launch counter:
 
-* :func:`corr_lookup_cuda` (``csrc/corr_lookup.cu``) replaces the Pallas
-  kernel ``_lookup_level`` with p_select='all' (``_level_kernel`` +
-  ``_window_body``, ``raft_tpu/ops/corr_pallas.py:349``), reached through
+* :func:`corr_lookup_cuda` (``csrc/corr_lookup.cu``, ``corr_lookup_*``)
+  replaces the Pallas kernel ``_lookup_level`` with p_select='all'
+  (``_level_kernel`` + ``_window_body``,
+  ``raft_tpu/ops/corr_pallas.py:349``), reached through
   :func:`make_fused_lookup`;
-* :func:`corr_window_cuda` (``csrc/corr_window.cu``, ``corr_window_*``)
-  replaces ``_lookup_level`` with p_select='window' (``_window_kernel`` and
-  ``_window_schedule``, ``corr_pallas.py:342``), reached through
-  :func:`make_window_lookup`;
-* :func:`corr_ragged_cuda` (``corr_window.cu``, ``corr_ragged_*``)
+* :func:`corr_ragged_cuda` (``corr_lookup.cu``, ``corr_ragged_*``)
   replaces ``_ragged_lookup_level`` (``_ragged_window_kernel`` and
   ``_ragged_schedule``, ``corr_pallas.py:604``), reached through
   :func:`make_ragged_fused_lookup`;
-* :func:`corr_packed_cuda` (``corr_window.cu``, ``corr_packed_*``)
+* :func:`corr_packed_cuda` (``corr_lookup.cu``, ``corr_packed_*``)
   replaces ``_packed_body`` (``corr_pallas.py:125``), the body both
   ``pallas_call`` of ``_lookup_level`` run under ``pallas_pack=True`` for
   the narrow levels (``W_l <= 64``,
   :func:`~raft_tpu_torch.ops.corr.packed_levels_from`), reached through
-  ``make_fused_lookup(pack=True)`` and ``make_window_lookup(pack=True)``.
-  A packed lookup is one launch over every level: the narrow levels
-  (levels 1-3 at 432x1024, every level at 384x512 and below) staged in
-  whole rows, the wide ones as :func:`corr_window_cuda` stages them.
+  ``make_fused_lookup(pack=True)`` and ``make_window_lookup(pack=True)``:
+  one launch over every level;
+* :func:`corr_window_cuda` (``csrc/corr_window.cu``, ``corr_window_*``)
+  replaces ``_lookup_level`` with p_select='window' (``_window_kernel`` and
+  ``_window_schedule``, ``corr_pallas.py:342``), reached through
+  :func:`make_window_lookup`.
 
 Each kernel has a float32 and a bfloat16 entry, picked by the dtype of
 ``fmap1`` (the f2 levels must share it): bfloat16 operands are what
@@ -43,27 +42,24 @@ in-crop positions only).
 Why the designs differ from the TPU kernels: the TPU kernels computed full
 ``[T, P]`` correlation tiles of a query block against fmap2 row blocks (all
 of them, or those its schedule names) so that the matrix unit did the
-work and no gather was needed.  ``corr_lookup.cu`` keeps that tile where
-it pays and gathers where it does not: an 8x8 tile of neighbouring
-queries per CTA computes the box its windows cover; a coherent tile (box
-at most :data:`MMA_RATIO` times its queries' in-map window positions) forms
-``F1_tile . F2_box^T`` on the tensor cores (``mma.sync``; 3xTF32 for
-float32 operands, one BF16 MMA for bfloat16, so every product keeps
-float32 accuracy) and keeps each query's window entries; an incoherent
-one (random-weight flows of hundreds of pixels) gathers each query's
-window, lanes reading 16-byte vectors of channels and reducing a group of
-positions at once.  ``corr_window.cu`` gives an 8x8 tile of
-neighbouring queries one CTA, computes the tile's window box (the
-schedule) on the device and stages that f2 box through shared memory, so
-the tile's overlapping windows share each read, with FP32 FMA; for a
-ragged item the box is clipped to its live crop and dead queries are
-written as zeros without reading f2.  Where a tile's windows are
-incoherent the box would be mostly waste, and that CTA computes its
-windows one warp per query, lanes over channels.  The TPU packs the rows
-of a narrow level side by side to fill its 128 lanes; the H100 has no
-lanes to fill, so the packed entry packs nothing: a CTA of 4x32 queries
-stages whole rows of the (small, L2-resident) narrow level, every row
-under 'all' and the rows its windows touch under 'window'.
+work and no gather was needed.  The three kernels of ``corr_lookup.cu``
+share one tile body that keeps that tile where it pays and gathers where
+it does not: an 8x8 tile of neighbouring queries per CTA computes the box
+its windows cover (for a ragged item, clipped to its live crop at the
+level; dead queries are exact zeros and read nothing); a coherent tile
+(box at most :data:`MMA_RATIO` times its queries' in-region window
+positions) forms ``F1_tile . F2_box^T`` on the tensor cores (``mma.sync``;
+3xTF32 for float32 operands, one BF16 MMA for bfloat16, so every product
+keeps float32 accuracy) and keeps each query's window entries; an
+incoherent one (random-weight flows of hundreds of pixels) gathers each
+query's window, lanes reading 16-byte vectors of channels and reducing a
+group of positions at once.  The TPU packs the rows of a narrow level
+side by side to fill its 128 lanes; the H100 has no lanes to fill, and
+what packing bought, one matrix tile over a narrow level, is a small box
+here: the packed entries run the first lookup's kernel as it is, every
+level on the 8x8 tile, and compute its values under either p_select.  ``corr_window.cu`` (B3) gives an 8x8 tile one CTA, stages the
+tile's window box through shared memory and computes with FP32 FMA, or
+one warp per query, lanes over channels, where the windows are incoherent.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises, never another kernel or the plain version.
@@ -79,7 +75,7 @@ import torch
 
 from .corr import (lookup_blockwise_onehot, lookup_operands,
                    lookup_packed_plain, lookup_ragged_plain,
-                   lookup_window_plain, corr_scale, packed_levels_from)
+                   lookup_window_plain, corr_scale)
 
 SOURCE = "corr_lookup.cu"
 WINDOW_SOURCE = "corr_window.cu"
@@ -87,9 +83,9 @@ MAX_LEVELS = 8
 MAX_RADIUS = 15
 MAX_WINDOW_RADIUS = 7
 MAX_CHANNELS = 512
-# corr_lookup_cuda: a tile takes the MMA path when its window box holds at
-# most this many times its queries' in-map window positions, by operand
-# dtype (set by measurement: chip_smoke.py phase 7, PERF.md)
+# corr_lookup.cu's entries: a tile takes the MMA path when its window box
+# holds at most this many times its queries' in-region window positions, by
+# operand dtype (set by measurement: chip_smoke.py phase 7, PERF.md)
 MMA_RATIO = {torch.float32: 0.0625, torch.bfloat16: 0.25}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -196,6 +192,44 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
+def _launch_tiled(wrapper, stem: str, fmap1: torch.Tensor,
+                  f2_levels: Sequence[torch.Tensor], coords: torch.Tensor,
+                  radius: int, mma_ratio: Optional[float],
+                  stats: Optional[torch.Tensor],
+                  lead: Tuple = ()) -> torch.Tensor:
+    """Validate and launch one of ``corr_lookup.cu``'s entries, called as
+    ``(f1, coords, out, f2_ptrs, level_hw, *lead, L, B, H, W, C, radius,
+    scale, mma_ratio, stats, stream)`` (``lead``: pointers), adding one to
+    ``wrapper.launches`` where it launches."""
+    hw = _check_lookup(stem, fmap1, f2_levels, coords, radius, MAX_RADIUS)
+    B, H, W, C = fmap1.shape
+    L = len(f2_levels)
+    ratio = MMA_RATIO[fmap1.dtype] if mma_ratio is None else float(mma_ratio)
+    if not ratio >= 0:
+        raise ValueError(f"mma_ratio must be >= 0, got {mma_ratio}")
+    if stats is not None:
+        _check("stats", stats, fmap1.device, 1, torch.int32)
+        if stats.numel() != 2 * L:
+            raise ValueError(f"stats must hold 2 * {L} counts, got "
+                             f"{stats.numel()}")
+    out = _output(fmap1, L, radius)
+    if B * H * W == 0:
+        return out
+    name = _entry(stem, fmap1)
+    fn = _fn(SOURCE, name, _LOOKUP_ARGS + [ctypes.c_void_p] * len(lead)
+             + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float,
+                                     ctypes.c_void_p, ctypes.c_void_p])
+    ptrs, dims = _level_args(f2_levels, hw)
+    with torch.cuda.device(fmap1.device):
+        err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
+                 dims, *lead, L, B, H, W, C, radius, corr_scale(C),
+                 min(ratio, 3e38), None if stats is None else stats.data_ptr(),
+                 _stream(fmap1.device))
+    _raise_on(err, name)
+    wrapper.launches += 1
+    return out
+
+
 def corr_lookup_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                      coords: torch.Tensor, radius: int,
                      mma_ratio: Optional[float] = None,
@@ -207,35 +241,12 @@ def corr_lookup_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
     box holds at most ``mma_ratio`` (None: :data:`MMA_RATIO` of the
     operands' dtype) times its queries' in-map window positions:
     ``float('inf')`` sends every tile the MMA path can take there, 0 every
-    tile to the gather (for measurement; the values are the same).  ``stats``: None, or an int32 CUDA tensor of 2 to
-    which each launch adds its tiles of the MMA path and of the gather."""
-    hw = _check_lookup("corr_lookup", fmap1, f2_levels, coords, radius,
-                       MAX_RADIUS)
-    ratio = MMA_RATIO[fmap1.dtype] if mma_ratio is None else float(mma_ratio)
-    if not ratio >= 0:
-        raise ValueError(f"mma_ratio must be >= 0, got {mma_ratio}")
-    if stats is not None:
-        _check("stats", stats, fmap1.device, 1, torch.int32)
-        if stats.numel() != 2:
-            raise ValueError(f"stats must hold 2 counts, got {stats.numel()}")
-    B, H, W, C = fmap1.shape
-    L = len(f2_levels)
-    out = _output(fmap1, L, radius)
-    if B * H * W == 0:
-        return out
-    name = _entry("corr_lookup", fmap1)
-    fn = _fn(SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    ptrs, dims = _level_args(f2_levels, hw)
-    with torch.cuda.device(fmap1.device):
-        err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
-                 dims, L, B, H, W, C, radius, corr_scale(C),
-                 min(ratio, 3e38),
-                 None if stats is None else stats.data_ptr(),
-                 _stream(fmap1.device))
-    _raise_on(err, name)
-    corr_lookup_cuda.launches += 1
-    return out
+    tile to the gather (for measurement; the values are the same).
+    ``stats``: None, or an int32 CUDA tensor of 2 per level, (MMA,
+    gather) for each level in turn, to which each launch adds its tiles of
+    each path."""
+    return _launch_tiled(corr_lookup_cuda, "corr_lookup", fmap1, f2_levels,
+                         coords, radius, mma_ratio, stats)
 
 
 corr_lookup_cuda.launches = 0      # kernel launches; callers that count reset it
@@ -270,34 +281,23 @@ corr_window_cuda.launches = 0
 
 def corr_ragged_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                      coords: torch.Tensor, sizes8: torch.Tensor,
-                     radius: int) -> torch.Tensor:
+                     radius: int, mma_ratio: Optional[float] = None,
+                     stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the ragged CUDA lookup (``corr_ragged_f32`` / ``_bf16``):
     fmap1 [B,H,W,C] masked by ``mask_ragged_rows`` and f2_levels by
     ``ragged_pyramid`` at ``sizes8`` [B,2] int32 (each item's live (h, w)
     on the query grid, on the same device), coords [B,H,W,2] ->
-    [B,H,W,L*(2r+1)^2] float32, dead queries exact zeros.  Operands as
-    :func:`corr_window_cuda`."""
-    hw = _check_staged("corr_ragged", fmap1, f2_levels, coords, radius)
-    B, H, W, C = fmap1.shape
+    [B,H,W,L*(2r+1)^2] float32, dead queries exact zeros.  Each window is
+    clipped to its item's live crop at the level (what the masked pyramid
+    holds there); operands, ``mma_ratio`` and ``stats`` as
+    :func:`corr_lookup_cuda`."""
     _check("sizes8", sizes8, fmap1.device, 2, torch.int32)
-    if tuple(sizes8.shape) != (B, 2):
-        raise ValueError(f"sizes8 shape {tuple(sizes8.shape)} != {(B, 2)}")
-    L = len(f2_levels)
-    out = _output(fmap1, L, radius)
-    if B * H * W == 0:
-        return out
-    name = _entry("corr_ragged", fmap1)
-    fn = _fn(WINDOW_SOURCE, name, _LOOKUP_ARGS + [
-        ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                 ctypes.c_void_p])
-    ptrs, dims = _level_args(f2_levels, hw)
-    with torch.cuda.device(fmap1.device):
-        err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
-                 dims, sizes8.data_ptr(), L, B, H, W, C, radius,
-                 corr_scale(C), _stream(fmap1.device))
-    _raise_on(err, name)
-    corr_ragged_cuda.launches += 1
-    return out
+    if tuple(sizes8.shape) != (fmap1.shape[0], 2):
+        raise ValueError(f"sizes8 shape {tuple(sizes8.shape)} != "
+                         f"{(fmap1.shape[0], 2)}")
+    return _launch_tiled(corr_ragged_cuda, "corr_ragged", fmap1, f2_levels,
+                         coords, radius, mma_ratio, stats,
+                         lead=(sizes8.data_ptr(),))
 
 
 corr_ragged_cuda.launches = 0
@@ -305,33 +305,20 @@ corr_ragged_cuda.launches = 0
 
 def corr_packed_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                      coords: torch.Tensor, radius: int,
-                     p_select: str = "all") -> torch.Tensor:
+                     p_select: str = "all", mma_ratio: Optional[float] = None,
+                     stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the lookup of ``pallas_pack=True`` (``corr_packed_f32`` /
-    ``_bf16``), one launch over every level: the levels ``pallas_pack``
-    packs (from ``packed_levels_from`` on) staged in whole rows — every row
-    under ``p_select='all'``, the rows a tile's windows touch under
-    'window' — and the wider ones as :func:`corr_window_cuda` stages them.
-    The values are those of :func:`corr_lookup_cuda` whatever the
-    p_select.  Arguments otherwise as :func:`corr_window_cuda`."""
+    ``_bf16``), one launch over every level, the narrow levels that
+    ``pallas_pack`` packs (from ``packed_levels_from`` on) as the others:
+    the kernel of :func:`corr_lookup_cuda`, under a launch counter of its
+    own.  'all' and 'window' take the same route (each tile's box is its
+    windows' box, what 'window' schedules); the values are those of
+    :func:`corr_lookup_cuda` whatever the p_select.  Other arguments as
+    :func:`corr_lookup_cuda`."""
     if p_select not in ("all", "window"):
         raise ValueError(f"p_select must be 'all' or 'window', got {p_select!r}")
-    hw = _check_staged("corr_packed", fmap1, f2_levels, coords, radius)
-    B, H, W, C = fmap1.shape
-    L = len(f2_levels)
-    out = _output(fmap1, L, radius)
-    if B * H * W == 0:
-        return out
-    name = _entry("corr_packed", fmap1)
-    fn = _fn(WINDOW_SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    ptrs, dims = _level_args(f2_levels, hw)
-    with torch.cuda.device(fmap1.device):
-        err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
-                 dims, L, packed_levels_from(hw[1::2]), B, H, W, C, radius,
-                 corr_scale(C), int(p_select == "all"), _stream(fmap1.device))
-    _raise_on(err, name)
-    corr_packed_cuda.launches += 1
-    return out
+    return _launch_tiled(corr_packed_cuda, "corr_packed", fmap1, f2_levels,
+                         coords, radius, mma_ratio, stats)
 
 
 corr_packed_cuda.launches = 0

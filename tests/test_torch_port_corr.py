@@ -89,3 +89,30 @@ def test_kernel_entry_refuses_cpu_tensors_and_backward_raises():
     out = corr_cuda.fused_lookup(f1g, [t(f2)], t(coords), 1)
     with pytest.raises(NotImplementedError, match="item 7"):
         out.sum().backward()
+
+
+@pytest.mark.parametrize("wrapper", ["corr_lookup_cuda", "corr_window_cuda",
+                                     "corr_ragged_cuda", "corr_packed_cuda"])
+def test_empty_query_grid_launches_nothing_and_counts_nothing(monkeypatch,
+                                                             wrapper):
+    """A wrapper adds to its count only where it launches: a query grid with
+    no query launches nothing.  The device check is bypassed so that the
+    CPU can drive the wrapper past it; loading a kernel fails the test."""
+    def no_device_check(entry, fmap1, f2_levels, coords, radius, max_radius):
+        return [d for f2 in f2_levels for d in f2.shape[1:3]]
+
+    def no_kernel(*args):
+        raise AssertionError("a kernel was loaded for an empty query grid")
+
+    monkeypatch.setattr(corr_cuda, "_check_lookup", no_device_check)
+    monkeypatch.setattr(corr_cuda, "_fn", no_kernel)
+    fn = getattr(corr_cuda, wrapper)
+    f1 = torch.zeros(2, 0, 8, 16)
+    levels = [torch.zeros(2, 4, 8, 16), torch.zeros(2, 2, 4, 16)]
+    coords = torch.zeros(2, 0, 8, 2)
+    extra = ((torch.tensor([[0, 8], [0, 4]], dtype=torch.int32),)
+             if wrapper == "corr_ragged_cuda" else ())
+    before = fn.launches
+    out = fn(f1, levels, coords, *extra, 3)
+    assert fn.launches == before
+    assert tuple(out.shape) == (2, 0, 8, 2 * 49)

@@ -47,7 +47,9 @@ def _ragged_case(sizes, Hm, Wm, C, seed=0):
     ([(16, 24), (8, 8), (13, 19)], 16, 24, 32, 3, 4),   # odd extent included
     ([(12, 16), (12, 16)], 12, 16, 16, 3, 3),           # all items at the box
     ([(8, 8)], 10, 14, 8, 2, 2),                        # solo, odd max box
-], ids=["odd_extent", "full_box", "solo_odd_box"])
+    ([(16, 24), (3, 5)], 16, 24, 16, 3, 4),             # item 1: no live row
+                                                        # at level 2
+], ids=["odd_extent", "full_box", "solo_odd_box", "empty_coarse_levels"])
 def test_ragged_plain_matches_jax_ragged_kernel(sizes, Hm, Wm, C, levels,
                                                 radius):
     f1, f2, coords = _ragged_case(sizes, Hm, Wm, C)
@@ -65,11 +67,17 @@ def test_ragged_plain_matches_jax_ragged_kernel(sizes, Hm, Wm, C, levels,
         t(f1), t(f2), s8, levels, radius)(t(coords)).numpy()
     assert corr_cuda.corr_ragged_cuda.launches == before   # CPU: plain
     np.testing.assert_array_equal(wrapped, plain)
+    nn = (2 * radius + 1) ** 2
     for b, (h, w) in enumerate(sizes):
         np.testing.assert_allclose(plain[b, :h, :w], want[b, :h, :w], **TOL)
         dead = plain[b].copy()
         dead[:h, :w] = 0
         assert np.abs(dead).max() == 0.0, f"item {b}: dead query nonzero"
+        for lvl in range(levels):       # a level with no live row or column
+            if (h >> lvl) == 0 or (w >> lvl) == 0:
+                block = (slice(None), slice(None), slice(lvl * nn, (lvl + 1) * nn))
+                assert np.abs(want[b][block]).max() == 0.0
+                assert np.abs(plain[b][block]).max() == 0.0
 
 
 def test_ragged_pyramid_equals_each_crops_own_pyramid():

@@ -12,19 +12,29 @@ checkout's ``chip_smoke.kernel_inputs`` (same seed): the correlation
 lookup (float32 and bfloat16 operands, on phase 3's noisy coords and on
 windows scattered over the map), the window lookup and the SepConvGRU
 (float32 and bfloat16 I/O) on the 54x128 query grid of a 432x1024 pair,
-the ragged lookup on the 3-item 440x1248 box.  A checkout whose GRU kernel
+the ragged lookup (float32, also on scattered windows, and bfloat16) on
+the 3-item 440x1248 box, the packed lookup (float32 under 'all', also on
+scattered windows, and 'window'; bfloat16 under 'window') on the 54x128
+grid.  A checkout whose GRU kernel
 reads prepared weights (``prepare_gru_weights``) gets them; an older one
-its fused float32 weights.  Prints the card's name and power limit, then
-one line per process: ms per call on the device (CUDA events, 200 calls
-after 5 of warm-up) and, in brackets, the host's ms to issue a call (a
-device time close to it is the host's, not the kernel's).  Cards differ
-between machines, so only times of one run are compared.
+its fused float32 weights.  Then whole requests at 432x1024, 12
+iterations, on seeded random weights: the float32 main path, the BF path
+(``chip_smoke.py`` phase 6c: bfloat16 compute, 'default' corr, pack,
+p_select 'window') and pallas-bf16corr-ctx-gru (bfloat16 compute,
+'default' corr, p_select 'all'), and the BF path's loop set-up
+(``prepare_loop``) alone.  Prints the card's name and power limit, then
+one line per process: ms per call on the device (CUDA events; a kernel
+200 calls after 5 of warm-up, a request or set-up the median of 8 after
+one of warm-up) and, in brackets, the host's ms to issue a call (a device
+time close to it is the host's, not the kernel's).  Cards differ between
+machines, so only times of one run are compared.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import statistics
 import subprocess
 import sys
 import time
@@ -53,8 +63,10 @@ def _time_one(root: str, tag: str) -> None:
     x = smoke.kernel_inputs(np.random.RandomState(0), dev, r=r)
     f1, levels, coords, wild = x["fmap1"], x["levels"], x["coords"], x["wild"]
     rf1, rlevels, rcoords, sizes8 = x["rf1"], x["rlevels"], x["rcoords"], x["sizes8"]
+    rwild = x["rwild"]
     h, mot, ctx = x["gru"]
     bf1, blevels = f1.bfloat16(), [lv.bfloat16() for lv in levels]
+    rbf1, rblevels = rf1.bfloat16(), [lv.bfloat16() for lv in rlevels]
     hb, mb, cb = h.bfloat16(), mot.bfloat16(), tuple(c.bfloat16() for c in ctx)
     model = rt.init_raft_torch(rt.RAFTConfig.full(), device=dev,
                                generator=torch.Generator().manual_seed(0))
@@ -83,6 +95,25 @@ def _time_one(root: str, tag: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, host
 
+    def median_ms(fn, n=8):
+        """(device ms, host ms), the medians of ``n`` calls after one of
+        warm-up, each alone: CUDA events around it and the host's time to
+        issue it."""
+        fn()
+        torch.cuda.synchronize()
+        dev_ms, host_ms = [], []
+        for _ in range(n):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+        return statistics.median(dev_ms), statistics.median(host_ms)
+
     lookup = corr_cuda.corr_lookup_cuda
     times = {
         "corr_lookup": ms(lambda: lookup(f1, levels, coords, r)),
@@ -92,8 +123,44 @@ def _time_one(root: str, tag: str) -> None:
         "corr_window": ms(lambda: corr_cuda.corr_window_cuda(f1, levels, coords, r)),
         "corr_ragged": ms(lambda: corr_cuda.corr_ragged_cuda(
             rf1, rlevels, rcoords, sizes8, r)),
+        "corr_ragged_scattered": ms(lambda: corr_cuda.corr_ragged_cuda(
+            rf1, rlevels, rwild, sizes8, r)),
+        "corr_ragged_bf16": ms(lambda: corr_cuda.corr_ragged_cuda(
+            rbf1, rblevels, rcoords, sizes8, r)),
+        "corr_packed_all": ms(lambda: corr_cuda.corr_packed_cuda(
+            f1, levels, coords, r, "all")),
+        "corr_packed_all_scattered": ms(lambda: corr_cuda.corr_packed_cuda(
+            f1, levels, wild, r, "all")),
+        "corr_packed_window": ms(lambda: corr_cuda.corr_packed_cuda(
+            f1, levels, coords, r, "window")),
+        "corr_packed_bf16_window": ms(lambda: corr_cuda.corr_packed_cuda(
+            bf1, blevels, coords, r, "window")),
         "sep_conv_gru": ms(lambda: gru_cuda.sep_conv_gru_cuda(kw, h, mot, ctx)),
         "sep_conv_gru_bf16": ms(lambda: gru_cuda.sep_conv_gru_cuda(kw_bf, hb, mb, cb))}
+
+    # whole requests, as chip_smoke.py drives them
+    from raft_tpu_torch.models.raft import encode_pair, prepare_loop
+    torch.backends.cudnn.benchmark = True
+    rng = np.random.RandomState(1)
+    im1 = rng.rand(1, smoke.H_IMG, smoke.W_IMG, 3).astype(np.float32)
+    im2 = np.roll(im1, (1, 3), axis=(1, 2))
+    cfg_k = rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")
+    bf = dict(corr_impl="pallas", gru_impl="pallas", compute_dtype="bfloat16",
+              corr_precision="default")
+    cfg_bf = rt.RAFTConfig.full(**bf, pallas_pack=True, pallas_p_select="window",
+                                pallas_p_blk=1024)
+    cfg_bfc = rt.RAFTConfig.full(**bf)
+    model_bf = rt.init_raft_torch(cfg_bf, device=dev,
+                                  generator=torch.Generator().manual_seed(0))
+    for name, cfg, mdl in (("e2e_main", cfg_k, model), ("e2e_bf", cfg_bf, model_bf),
+                           ("e2e_bf16corr_ctx_gru", cfg_bfc, model_bf)):
+        infer = rt.make_inference_fn(cfg, iters=smoke.ITERS)
+        times[name] = median_ms(lambda: infer(mdl, im1, im2))
+    with torch.no_grad():
+        a, b = (torch.from_numpy(x).to(dev) for x in (im1, im2))
+        fm1, fm2, _, inp = encode_pair(model_bf, a, b, cfg_bf)
+        times["bf_loop_setup"] = median_ms(
+            lambda: prepare_loop(model_bf, fm1, fm2, inp, cfg_bf))
     print(f"{tag}: " + " ".join(f"{k} {d:.4f} (host {h:.4f})"
                                  for k, (d, h) in times.items()), flush=True)
 
