@@ -6,17 +6,20 @@
 Phases, each printing a line; any failure raises and the exit code is not 0:
 
 1. device: CUDA must be available; prints the card's name and power limit
-   (nvidia-smi).  TF32 is switched off for matmuls and cuDNN, so every
-   comparison below is float32 end to end; cuDNN runs in benchmark mode.
-2. build: compiles the three kernel sources of raft_tpu_torch/csrc (nvcc,
+   (nvidia-smi).  TF32 is switched off for matmuls and cuDNN in the whole
+   process (the float32 entry points also turn it off themselves: phase
+   6e), so every comparison below is float32 end to end; cuDNN runs in
+   benchmark mode.
+2. build: compiles the two kernel sources of raft_tpu_torch/csrc (nvcc,
    one process each, all started together, into build/raft_tpu_torch/) and
    prints the build time and ptxas's report.
 3. kernels vs plain, at the main paths' shapes, each held to its plain
    PyTorch version at rtol = atol = 1e-5: the correlation lookup on a
    [1, 54, 128, 256] query map and its 4-level pyramid (coords with noise
    of +-(r+3) px and a share of queries wholly outside the map); the
-   window-scheduled lookup on the same inputs (also held to the first
-   lookup's output) and on windows scattered over the whole map; the
+   window-scheduled lookup on the same inputs and on windows scattered over
+   the whole map, in both dtypes (its output bitwise equal to the first
+   lookup's on the same inputs: it runs the first lookup's kernel); the
    ragged lookup on a [3, 55, 156, 256] max box with live sizes8
    [[54, 128], [46, 155], [48, 64]], on both kinds of coords (live queries
    held, dead ones exactly 0), and with a fourth item live [3, 5] whose
@@ -36,10 +39,10 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    three GRU shapes.  The first lookup, both entries, also on scattered
    windows, on a quarter of the queries scattered among coherent ones,
    with the left half of the grid wholly off the map, at radius 15 and at
-   C = 100.  Every case of the three lookups that share corr_lookup.cu's
-   tile body (first, ragged, packed) is held with its tiles sent by their
-   window boxes, all on the MMA path and all on the gather (the tiles on
-   each path printed).
+   C = 100.  Every case of the four lookups that share corr_lookup.cu's
+   tile body (first, window, ragged, packed) is held with its tiles sent by
+   their window boxes, all on the MMA path and all on the gather (the tiles
+   on each path printed).
 4. main path: raft-things (full width and depth, seeded random weights) on
    4 seeded frame pairs at 432x1024, batch 1, 12 iterations, through
    make_inference_fn with corr_impl='pallas', gru_impl='pallas'.  The flows
@@ -76,6 +79,16 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    (p_select 'window') drives the bfloat16 first and window lookups.
    Then the ragged batch of phase 6 under bfloat16 and
    'default', held the same way on each live crop.
+6d. C1 weights: the seeded weights with every conv bias and batch-norm
+   beta drawn from U(-0.25, 0.25), every gamma from U(0.75, 1.25) and the
+   running statistics away from identity; one request each of the float32
+   main path and of BF (launch counts), each held per iteration as in
+   phases 4 and 6c.
+6e. C2: under PyTorch's default switches (cuDNN TF32 on) a 3-iteration
+   float32 request through make_inference_fn gives, within the bound of
+   phase 4, the flow of the same request with TF32 off in the process,
+   and leaves the switches as the caller set them; the same forward with
+   cuDNN TF32 on is printed beside it.
 7. times (CUDA events, after warm-up): each kernel per call beside its
    plain version and its bound — the packed lookup beside the first and
    the window lookups on the same inputs, each bfloat16
@@ -86,7 +99,8 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    each alone), and of the ragged lookup
    on phase 3's box and on the ragged batch's own coords (the first lookup
    beside it); median request latency and pairs/s of the main, window,
-   P32 and BF paths; the ragged batch's median and pairs/s, in float32 and
+   P32 and BF paths, of pallas-bf16corr-ctx-gru and of its -win twin; the
+   ragged batch's median and pairs/s, in float32 and
    in bfloat16, beside the three pairs run one by one (printed, not held).
 
 The line before the last is the kernels' JSON record; the last line is
@@ -375,16 +389,6 @@ def main() -> int:
     corr_k = corr_cuda.corr_lookup_cuda(fmap1, levels, coords, r)
     corr_p = lookup_blockwise_onehot(fmap1, levels, coords, r)
     corr_err = _compare("corr_lookup [1,54,128,256] L=4 r=4", corr_k, corr_p)
-    win_k = corr_cuda.corr_window_cuda(fmap1, levels, coords, r)
-    win_err = _compare("corr_window [1,54,128,256] L=4 r=4", win_k,
-                       lookup_window_plain(fmap1, levels, coords, r))
-    _compare("corr_window against corr_lookup's output", win_k, corr_k)
-    # windows scattered over the whole map, as random-weight flows give:
-    # the kernel reads f2 from global memory instead of staging a box
-    win_err = max(win_err, _compare(
-        "corr_window, windows scattered over the map",
-        corr_cuda.corr_window_cuda(fmap1, levels, wild, r),
-        lookup_window_plain(fmap1, levels, wild, r)))
 
     def three_ways(label, run, want_, nlev, sel=None):
         """``run(mma_ratio, stats)`` over ``nlev`` levels held to ``want_``
@@ -403,6 +407,31 @@ def main() -> int:
                 f"{label}, tiles {how} (MMA/gather "
                 f"{st.view(nlev, 2).sum(0).tolist()})", got_, w_))
         return worst_
+
+    # the window-scheduled lookup (B3) runs the first lookup's kernel under
+    # entries of its own: held three ways to its plain version (the TPU's
+    # schedule), on noisy and on scattered windows, in both dtypes, and
+    # bitwise equal to the first lookup's output on the same inputs
+    win_err, win_bf_err = 0.0, 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "bf16 " if dt == torch.bfloat16 else ""
+        a_, l_ = fmap1.to(dt), [x.to(dt) for x in levels]
+        for label, cc in (("noisy", coords), ("scattered", wild)):
+            e = three_ways(
+                f"corr_window {tag}[1,54,128,256] L=4 r=4, {label} coords",
+                lambda ratio, st: corr_cuda.corr_window_cuda(
+                    a_, l_, cc, r, mma_ratio=ratio, stats=st),
+                lookup_window_plain(a_, l_, cc, r), L)
+            if dt == torch.float32:
+                win_err = max(win_err, e)
+            else:
+                win_bf_err = max(win_bf_err, e)
+            same = torch.equal(corr_cuda.corr_window_cuda(a_, l_, cc, r),
+                               corr_cuda.corr_lookup_cuda(a_, l_, cc, r))
+            print(f"corr_window {tag}{label} coords: bitwise equal to "
+                  f"corr_lookup's output on the same inputs: {same}")
+            if not same:
+                raise AssertionError("corr_window and corr_lookup differ")
 
     hb, wb = BOX[0] // 8, BOX[1] // 8
     sizes8, rf1, rlevels, rcoords, rwild = (
@@ -551,10 +580,7 @@ def main() -> int:
             "corr_lookup bf16 [1,54,128,256]",
             corr_cuda.corr_lookup_cuda(bf1, blevels, coords, r),
             lookup_blockwise_onehot(bf1, blevels, coords, r)),
-        "corr_window": _compare(
-            "corr_window bf16 [1,54,128,256]",
-            corr_cuda.corr_window_cuda(bf1, blevels, coords, r),
-            lookup_window_plain(bf1, blevels, coords, r)),
+        "corr_window": win_bf_err,
         "corr_packed": max(
             packed_held(f"corr_packed {ps} bf16 [1,54,128,256], {label} coords",
                         bf1, blevels, cc, ps)
@@ -648,20 +674,20 @@ def main() -> int:
     # applied (a) to every one of the 12 iterations, each kernel step and
     # plain step taken from the same state, and (b) end to end over 3
     # iterations, the horizon the JAX suite's full-model bound holds at.
-    def step_parity(cfg_k, cfg_p, t1, t2, sizes=None, crops=None):
+    def step_parity(cfg_k, cfg_p, t1, t2, sizes=None, crops=None, mdl=model):
         """Worst (ratio, message) over the iterations, each kernel step and
         plain step taken from the same state."""
         sizes8 = None
         if sizes is not None:
             t1, t2 = mask_ragged_rows(t1, sizes), mask_ragged_rows(t2, sizes)
             sizes8 = sizes // 8
-        fm1, fm2, net, inp = encode_pair(model, t1, t2, cfg_k)
-        loop_k = prepare_loop(model, fm1, fm2, inp, cfg_k, sizes8)
-        loop_p = prepare_loop(model, fm1, fm2, inp, cfg_p, sizes8)
+        fm1, fm2, net, inp = encode_pair(mdl, t1, t2, cfg_k)
+        loop_k = prepare_loop(mdl, fm1, fm2, inp, cfg_k, sizes8)
+        loop_p = prepare_loop(mdl, fm1, fm2, inp, cfg_p, sizes8)
         c0, coords1, worst = loop_k.coords0, loop_k.coords0, (0.0, "")
         for it in range(ITERS):
-            net_k, ck, mk = gru_step(model, cfg_k, loop_k, net, coords1)
-            _, cp, mp = gru_step(model, cfg_p, loop_p, net, coords1)
+            net_k, ck, mk = gru_step(mdl, cfg_k, loop_k, net, coords1)
+            _, cp, mp = gru_step(mdl, cfg_p, loop_p, net, coords1)
             worst = max(worst, _within(
                 f"iteration {it}", convex_upsample_flow(ck - c0, mk),
                 convex_upsample_flow(cp - c0, mp), crops))
@@ -856,35 +882,37 @@ def main() -> int:
     cfg_bfw = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                               compute_dtype="bfloat16", corr_precision="default",
                               pallas_p_select="window", pallas_p_blk=1024)
+    infer_bfw = make_inference_fn(cfg_bfw, iters=ITERS)
     launches_bfw = drive(
         f"pallas-bf16corr-ctx-gru-win: 1 request at {H_IMG}x{W_IMG}, {ITERS} iters",
-        make_inference_fn(cfg_bfw, iters=ITERS), model_bf, pairs[:1],
+        infer_bfw, model_bf, pairs[:1],
         {"corr_window": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
     cfg_pb = RAFTConfig.full(corr_impl="blockwise", corr_lookup="onehot",
                              gru_impl="xla", compute_dtype="bfloat16",
                              corr_precision="default")
 
-    def bf16_step_parity(cfg_k, t1, t2, sizes=None, crops=None):
+    def bf16_step_parity(cfg_k, t1, t2, sizes=None, crops=None,
+                         mdl_bf=model_bf, mdl=model):
         """Worst (ratio, message) over the iterations of |kernel step -
         plain bf16 step| / |plain bf16 step - plain float32 step|, all three
         steps taken from the kernel path's state (the float32 step on the
-        float32 model, the state upcast), on each crop."""
+        float32 model ``mdl``, the state upcast), on each crop."""
         sizes8 = None
         if sizes is not None:
             t1, t2 = mask_ragged_rows(t1, sizes), mask_ragged_rows(t2, sizes)
             sizes8 = sizes // 8
-        fm1, fm2, net, inp = encode_pair(model_bf, t1, t2, cfg_k)
-        loop_k = prepare_loop(model_bf, fm1, fm2, inp, cfg_k, sizes8)
-        loop_b = prepare_loop(model_bf, fm1, fm2, inp, cfg_pb, sizes8)
-        loop_f = prepare_loop(model, fm1.float(), fm2.float(), inp.float(),
+        fm1, fm2, net, inp = encode_pair(mdl_bf, t1, t2, cfg_k)
+        loop_k = prepare_loop(mdl_bf, fm1, fm2, inp, cfg_k, sizes8)
+        loop_b = prepare_loop(mdl_bf, fm1, fm2, inp, cfg_pb, sizes8)
+        loop_f = prepare_loop(mdl, fm1.float(), fm2.float(), inp.float(),
                               cfg_p, sizes8)
         c0, coords1, worst = loop_k.coords0, loop_k.coords0, (0.0, "")
         if crops is None:
             crops = [(t1.shape[1], t1.shape[2])] * t1.shape[0]
         for it in range(ITERS):
-            net_k, ck, mk = gru_step(model_bf, cfg_k, loop_k, net, coords1)
-            _, cb, mb = gru_step(model_bf, cfg_pb, loop_b, net, coords1)
-            _, cf, mf = gru_step(model, cfg_p, loop_f, net.float(), coords1)
+            net_k, ck, mk = gru_step(mdl_bf, cfg_k, loop_k, net, coords1)
+            _, cb, mb = gru_step(mdl_bf, cfg_pb, loop_b, net, coords1)
+            _, cf, mf = gru_step(mdl, cfg_p, loop_f, net.float(), coords1)
             fk, fb, ff = (convex_upsample_flow(c - c0, m.float()) for c, m in
                           ((ck, mk), (cb, mb), (cf, mf)))
             for b, (h, w) in enumerate(crops):
@@ -925,6 +953,70 @@ def main() -> int:
         raise AssertionError("BF ragged batch: the kernel step departs from "
                              "the plain bf16 step further than bf16 does "
                              "from float32")
+
+    # -- 6d. non-zero biases and batch-norm affines -------------------------
+    # the seeded weights of `model` with every conv bias and batch-norm beta
+    # drawn from U(-0.25, 0.25), every gamma from U(0.75, 1.25) and the
+    # running statistics away from identity, with numpy from a seed of their
+    # own: the f32 main path and BF, each step held as in phases 4 and 6c
+    model_c1 = init_raft_torch(cfg_k, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+    rng_c1 = np.random.RandomState(1000)
+    with torch.no_grad():
+        for name, t in model_c1.state_dict().items():
+            leaf = name.rsplit(".", 1)[1]
+            if "norm" in name or "downsample.1" in name:
+                lo, hi = {"weight": (0.75, 1.25), "bias": (-0.25, 0.25),
+                          "running_mean": (-0.05, 0.05),
+                          "running_var": (0.9, 1.1)}[leaf]
+            elif leaf == "bias":
+                lo, hi = -0.25, 0.25
+            else:
+                continue
+            t.copy_(dev_t(rng_c1.uniform(lo, hi, tuple(t.shape))))
+    model_c1_bf = init_raft_torch(cfg_bf, device=dev)
+    model_c1_bf.load_state_dict(model_c1.state_dict())
+    drive("C1 weights, main path: 1 request", infer_k, model_c1, pairs[:1],
+          {"corr_lookup": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
+    drive("C1 weights, BF: 1 request", infer_bf, model_c1_bf, pairs[:1],
+          {"corr_packed": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
+    with torch.no_grad():
+        t1, t2 = (torch.from_numpy(x).to(dev) for x in pairs[0])
+        worst = step_parity(cfg_k, cfg_p, t1, t2, mdl=model_c1)
+        worst_bf = bf16_step_parity(cfg_bf, t1, t2, mdl_bf=model_c1_bf,
+                                    mdl=model_c1)
+    print(f"C1 weights, main path pair 0: every iteration, worst {worst[1]}; "
+          f"BF pair 0: per-iteration steps, worst {worst_bf[1]} (ratio "
+          f"{worst_bf[0]:.3f})")
+    if worst[0] > 1.0 or not worst_bf[0] <= 1.0:
+        raise AssertionError("C1 weights: a kernel path disagrees with its "
+                             "plain path")
+
+    # -- 6e. TF32 under PyTorch's defaults ------------------------------------
+    # the float32 entry points turn TF32 off themselves: under PyTorch's
+    # default switches (cuDNN TF32 on) a 3-iteration request gives the flow
+    # of the same request with TF32 off in the whole process, and the
+    # caller's switches are as they were after it; not held, printed: the
+    # same forward through raft_forward with cuDNN TF32 on
+    cudnn_, matmul_ = torch.backends.cudnn, torch.backends.cuda.matmul
+    infer_3 = make_inference_fn(cfg_k, iters=3)
+    a, b = pairs[0]
+    off = infer_3(model, a, b)
+    cudnn_.allow_tf32, matmul_.allow_tf32 = True, False     # PyTorch's defaults
+    dflt = infer_3(model, a, b)
+    flags_after = (cudnn_.allow_tf32, matmul_.allow_tf32)
+    with torch.no_grad():
+        tf32 = raft_forward(model, torch.from_numpy(a).to(dev),
+                            torch.from_numpy(b).to(dev), cfg_k, iters=3).flow
+    cudnn_.allow_tf32 = matmul_.allow_tf32 = False
+    held = _within("3 iterations under the default switches vs TF32 off",
+                   dflt, off)
+    print(f"C2: {held[1]} (bitwise equal {torch.equal(dflt, off)}); the "
+          f"switches after the call {flags_after} (set (True, False)); not "
+          f"held: {_within('the same forward with cuDNN TF32 on', tf32, off)[1]}")
+    if held[0] > 1.0 or flags_after != (True, False):
+        raise AssertionError("C2: the float32 entry point ran with TF32 or "
+                             "did not restore the caller's switches")
 
     # -- 7. times ----------------------------------------------------------
     corr_ms = _time_ms(lambda: corr_cuda.corr_lookup_cuda(fmap1, levels, coords, r), 3, 50)
@@ -1034,7 +1126,8 @@ def main() -> int:
     for label, fn, mdl in (("P32 all", infer_p32["all"], model),
                            ("P32 window", infer_p32["window"], model),
                            ("BF", infer_bf, model_bf),
-                           ("pallas-bf16corr-ctx-gru", infer_bfc, model_bf)):
+                           ("pallas-bf16corr-ctx-gru", infer_bfc, model_bf),
+                           ("pallas-bf16corr-ctx-gru-win", infer_bfw, model_bf)):
         call_ms(fn, *pairs[0], mdl=mdl)
         med_more[label] = statistics.median(
             [call_ms(fn, *pairs[i % N_PAIRS], mdl=mdl) for i in range(8)])
@@ -1250,6 +1343,8 @@ def main() -> int:
                               "bf_latency_ms_median": med_more["BF"],
                               "bf16corr_ctx_gru_latency_ms_median":
                                   med_more["pallas-bf16corr-ctx-gru"],
+                              "bf16corr_ctx_gru_win_latency_ms_median":
+                                  med_more["pallas-bf16corr-ctx-gru-win"],
                               "ragged_batch_ms_median": med_r,
                               "ragged_pairs_per_s": 3e3 / med_r,
                               "ragged_batch_ms_all": lat_r,
@@ -1271,7 +1366,7 @@ def main() -> int:
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242", launches["sep_conv_gru"],
               gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
-        entry("corr_window", "raft_tpu_torch/csrc/corr_window.cu",
+        entry("corr_window", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:342", launches_w["corr_window"],
               win_err, win_ms, win_plain_ms, corr_bound, corr_by),
         entry("corr_ragged", "raft_tpu_torch/csrc/corr_lookup.cu",
@@ -1286,7 +1381,7 @@ def main() -> int:
          for name, src, replaces, runs in (
              ("corr_lookup", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:349",
               launches_bfc["corr_lookup"]),
-             ("corr_window", "corr_window.cu", "raft_tpu/ops/corr_pallas.py:342",
+             ("corr_window", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:342",
               launches_bfw["corr_window"]),
              ("corr_packed", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:125",
               launches_bf["corr_packed"]),

@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "raft_tpu_torch"
-SOURCES = ("corr_lookup.cu", "corr_window.cu", "sep_conv_gru.cu")
+SOURCES = ("corr_lookup.cu", "sep_conv_gru.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -62,10 +62,10 @@ class RAFTConfig:
     ``pallas_q_blk``, ``pallas_p_blk``, ``pallas_lookup_style`` and
     ``gru_block_rows`` are accepted and validated as in JAX but change no
     value: the CUDA kernels have their own fixed tiling.
-    ``pallas_pack=True`` runs the lookup through its own kernel (the packed
-    entry of ``csrc/corr_window.cu``), which stages the narrow pyramid
-    levels (``W_l <= 64``, the levels the TPU packs row by row) in whole
-    rows; the values are those of the unpacked lookup.
+    ``pallas_pack=True`` runs the lookup through its own entry (the packed
+    entry of ``csrc/corr_lookup.cu``: the first lookup's kernel, the narrow
+    pyramid levels ``W_l <= 64`` that the TPU packs row by row on the same
+    tile as the others); the values are those of the unpacked lookup.
 
     ``compute_dtype='bfloat16'`` is the JAX package's bf16 policy: the
     weights (batch-norm statistics included) and the activations of the
@@ -74,7 +74,13 @@ class RAFTConfig:
     caller's ``model.to(torch.bfloat16)``, not per request — while the
     correlation is computed from float32 feature maps, the GRU computes in
     float32 with bfloat16 I/O, coordinates stay float32 and the upsampling
-    runs in float32.
+    runs in float32.  Under ``compute_dtype='float32'`` the inference
+    functions (``make_inference_fn`` and the ragged ones) turn TF32 off
+    for cuDNN's convolutions and cuBLAS's matmuls for the duration of each
+    call and restore the caller's settings after it, since PyTorch's
+    default lets cuDNN run float32 convolutions in TF32 while the JAX
+    package computes them in float32; there is no knob for TF32 (the JAX
+    configuration has none for its convolutions).
 
     ``corr_precision='default'`` means what one default-precision pass of
     the TPU's matrix unit does with the lookup's float32 operands: the dot

@@ -1,7 +1,7 @@
-// Pieces shared by the correlation lookup kernels (corr_lookup.cu,
-// corr_window.cu): the level table, the operand types
-// (float32, or bfloat16 under corr_precision='default') read as floats, and
-// the cp.async helpers (from tensor_core.cuh).  A product of two bfloat16
+// Pieces of the correlation lookup kernel (corr_lookup.cu): the level
+// table, the operand types (float32, or bfloat16 under
+// corr_precision='default') read as floats, and the cp.async helpers (from
+// tensor_core.cuh).  A product of two bfloat16
 // values is exact in FP32, so a bfloat16 lookup differs from the float32
 // lookup of the same rounded operands only by the order of its sums.
 
@@ -69,49 +69,6 @@ struct Vec16<__nv_bfloat16> {
     }
   }
 };
-
-// Staged rows: 64 bytes of channels (16 float32 or 32 bfloat16) per stage,
-// laid out 80 bytes apart to spread the shared-memory banks.
-constexpr int kStageBytes = 64;
-constexpr int kStageVecs = kStageBytes / 16;
-constexpr int kRowBytes = kStageBytes + 16;
-
-// acc[j][c] += the dot product of one staged f1 row with the staged f2
-// positions rowp[j] + c (c in colmask), over one stage of channels, the
-// channels summed in order (so a split of the positions into sub-boxes
-// leaves every sum's order unchanged).  The f1 row is loaded once; each
-// position's vectors are loaded and summed in turn.
-template <typename T, int WIN>
-__device__ __forceinline__ void stage_dots(const char* arow,
-                                           const char* const (&rowp)[2],
-                                           const bool (&rowok)[2],
-                                           unsigned colmask,
-                                           float (&acc)[2][WIN]) {
-  constexpr int kN = Vec16<T>::kN;
-  uint4 a_raw[kStageVecs];
-#pragma unroll
-  for (int m = 0; m < kStageVecs; ++m)
-    a_raw[m] = *reinterpret_cast<const uint4*>(arow + 16 * m);
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (!rowok[j]) continue;
-#pragma unroll
-    for (int c = 0; c < WIN; ++c) {
-      if (!((colmask >> c) & 1u)) continue;
-      const char* pos = rowp[j] + c * kRowBytes;
-      float t = acc[j][c];
-#pragma unroll
-      for (int m = 0; m < kStageVecs; ++m) {
-        float a[kN], v[kN];
-        Vec16<T>::unpack(a_raw[m], a);
-        Vec16<T>::unpack(*reinterpret_cast<const uint4*>(pos + 16 * m), v);
-#pragma unroll
-        for (int e = 0; e < kN; ++e) t = fmaf(a[e], v[e], t);
-      }
-      acc[j][c] = t;
-    }
-  }
-}
 
 // floor(c) as an int, clamped first: a huge or NaN coordinate lands far
 // outside the map (fminf/fmaxf return the non-NaN operand)

@@ -1,10 +1,14 @@
 // Correlation window lookups for RAFT on Hopper (sm_90a): one tile body,
-// three kernels of the TPU package.
+// four kernels of the TPU package.
 //
-// Replaces three Pallas kernels of raft_tpu/ops/corr_pallas.py:
+// Replaces four Pallas kernels of raft_tpu/ops/corr_pallas.py:
 //  * corr_lookup_{f32,bf16} — _lookup_level with p_select='all'
 //    (_level_kernel + _window_body, :349), reached through fused_lookup and
 //    make_fused_lookup;
+//  * corr_window_{f32,bf16} — _lookup_level with p_select='window'
+//    (_window_kernel, which runs _window_body only on the f2 row blocks
+//    that _window_schedule names, :342), reached through window_lookup and
+//    make_window_lookup;
 //  * corr_ragged_{f32,bf16} — _ragged_lookup_level (_ragged_window_kernel,
 //    schedule _ragged_schedule, :604), reached through
 //    make_ragged_fused_lookup: items are corner-anchored crops of one
@@ -620,6 +624,11 @@ RAFT_LOOKUP_ENTRY(corr_lookup_bf16, __nv_bfloat16)
 // above), an entry of its own so that its launches are its own
 RAFT_LOOKUP_ENTRY(corr_packed_f32, float)
 RAFT_LOOKUP_ENTRY(corr_packed_bf16, __nv_bfloat16)
+// the window-scheduled lookup: corr_lookup_*'s kernel as it is, since each
+// tile's box is the GPU form of the row blocks _window_schedule names; an
+// entry of its own so that its launches are its own
+RAFT_LOOKUP_ENTRY(corr_window_f32, float)
+RAFT_LOOKUP_ENTRY(corr_window_bf16, __nv_bfloat16)
 
 // sizes8: DEVICE array [B, 2] int32, each item's live (h, w) on the query
 // grid; f1 and the f2 levels are expected masked outside it.

@@ -31,11 +31,15 @@ coordinates and the upsampling stay float32.
 
 Entry points (:func:`init_raft_torch`, :func:`make_inference_fn`, the
 ragged ones) run on CUDA unless the caller passes ``device="cpu"``, and
-raise when CUDA is absent and the CPU was not asked for.
+raise when CUDA is absent and the CPU was not asked for.  Under
+``compute_dtype='float32'`` the inference functions run each call with
+TF32 off for cuDNN and cuBLAS (:func:`tf32_off`), as the JAX package's
+float32 convs are computed, and give the caller's settings back after it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -291,12 +295,31 @@ def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
                       iters_used=iters_used)
 
 
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN's convolutions and cuBLAS's matmuls in IEEE float32 (TF32 off)
+    inside the block; the caller's two switches are restored after it,
+    whether it returns or raises.  The switches are the process-wide
+    ``torch.backends.cudnn.allow_tf32`` (PyTorch's default: True) and
+    ``torch.backends.cuda.matmul.allow_tf32``."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
 def _forward_on(config: RAFTConfig, iters: Optional[int], device):
     """``forward(model, image1, image2, sizes=None) -> RAFTOutput`` on
     ``device`` (CUDA unless ``device="cpu"``): images (and sizes) as numpy
-    arrays or tensors, moved to the model's device."""
+    arrays or tensors, moved to the model's device.  A float32 forward
+    runs under :func:`tf32_off`."""
     dev = resolve_device(device)
     check_port_support(config)
+    precision = (tf32_off if compute_dtype(config) == torch.float32
+                 else contextlib.nullcontext)
 
     def forward(model: RAFT, image1, image2, sizes=None) -> RAFTOutput:
         p = next(model.parameters())
@@ -305,7 +328,9 @@ def _forward_on(config: RAFTConfig, iters: Optional[int], device):
                              f"function on {dev}")
         im1 = torch.as_tensor(image1, dtype=torch.float32, device=p.device)
         im2 = torch.as_tensor(image2, dtype=torch.float32, device=p.device)
-        return raft_forward(model, im1, im2, config, iters=iters, sizes=sizes)
+        with precision():
+            return raft_forward(model, im1, im2, config, iters=iters,
+                                sizes=sizes)
 
     return forward
 

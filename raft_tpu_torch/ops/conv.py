@@ -6,6 +6,13 @@ modules of the port hold ``nn.Conv2d`` weights (OIHW) and convolve
 ``channels_last`` NCHW tensors, which are NHWC in memory: the kernels read a
 contiguous channel vector per pixel and the two layouts convert by a
 ``permute`` view, without a copy.
+
+A bfloat16 conv adds its bias as the JAX package's ``conv2d`` does: the
+conv's output is rounded to bfloat16 first, then the bias is added in
+bfloat16 (two roundings).  ``F.conv2d`` with a bias would round once, after
+the add, on the CPU.  On the GPU the bias is a separate add after cuDNN's
+conv either way, so the launches are the same.  Float32 convs keep
+``F.conv2d``'s bias.
 """
 
 from __future__ import annotations
@@ -31,12 +38,30 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def conv_nchw(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+              stride: int = 1) -> torch.Tensor:
+    """``F.conv2d`` of NCHW ``x`` with OIHW ``w`` and symmetric ``k//2``
+    padding; a bfloat16 conv's bias is added after its output is rounded
+    (the module docstring)."""
+    pad = (w.shape[2] // 2, w.shape[3] // 2)
+    if b is None or w.dtype != torch.bfloat16:
+        return F.conv2d(x, w, b, stride=stride, padding=pad)
+    return F.conv2d(x, w, None, stride=stride, padding=pad).add_(b[:, None, None])
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose forward is :func:`conv_nchw`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_nchw(x, self.weight, self.bias, self.stride[0])
+
+
 def make_conv(k: KernelSize, c_in: int, c_out: int, stride: int = 1,
-              bias: bool = True) -> nn.Conv2d:
-    """``nn.Conv2d`` with the JAX package's symmetric ``k//2`` padding."""
+              bias: bool = True) -> Conv2d:
+    """A :class:`Conv2d` with the JAX package's symmetric ``k//2`` padding."""
     kh, kw = (k, k) if isinstance(k, int) else k
-    return nn.Conv2d(c_in, c_out, (kh, kw), stride=stride,
-                     padding=(kh // 2, kw // 2), bias=bias)
+    return Conv2d(c_in, c_out, (kh, kw), stride=stride,
+                  padding=(kh // 2, kw // 2), bias=bias)
 
 
 def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
@@ -56,10 +81,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            stride: int = 1) -> torch.Tensor:
     """x [B, H, W, Cin] NHWC; w [kh, kw, Cin, Cout] HWIO; b [Cout] or None.
     Symmetric ``k//2`` zero padding, as the JAX package's ``conv2d``."""
-    kh, kw = w.shape[0], w.shape[1]
-    out = F.conv2d(to_nchw(x), w.permute(3, 2, 0, 1), b, stride=stride,
-                   padding=(kh // 2, kw // 2))
-    return to_nhwc(out)
+    return to_nhwc(conv_nchw(to_nchw(x), w.permute(3, 2, 0, 1), b, stride))
 
 
 def apply_conv_fused(weights: Sequence[torch.Tensor],
@@ -71,9 +93,8 @@ def apply_conv_fused(weights: Sequence[torch.Tensor],
     back in order."""
     w = torch.cat(list(weights), dim=0)
     fuse_bias = all(b is not None for b in biases)
-    kh, kw = w.shape[2], w.shape[3]
-    out = F.conv2d(x, w, torch.cat(list(biases)) if fuse_bias else None,
-                   stride=stride, padding=(kh // 2, kw // 2))
+    out = conv_nchw(x, w, torch.cat(list(biases)) if fuse_bias else None,
+                    stride)
     pieces, start = [], 0
     for wi, bi in zip(weights, biases):
         piece = out[:, start:start + wi.shape[0]]

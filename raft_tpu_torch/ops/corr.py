@@ -13,12 +13,13 @@ none of which builds the ``(HW)^2`` volume:
 * :func:`lookup_blockwise_onehot` (``corr_lookup.cu``): per query chunk and
   level one ``[T, P]`` correlation tile, then the separable one-hot window
   lookup, as two small matmuls;
-* :func:`lookup_window_plain` (``corr_window.cu``): the same, correlating
-  each chunk only against the rows its windows touch (the window schedule);
-* :func:`lookup_ragged_plain` (``corr_window.cu``, ragged entry):
+* :func:`lookup_window_plain` (``corr_lookup.cu``, window entry): the
+  same, correlating each chunk only against the rows its windows touch
+  (the window schedule);
+* :func:`lookup_ragged_plain` (``corr_lookup.cu``, ragged entry):
   mixed-resolution items in one max box (:func:`mask_ragged_rows`,
   :func:`ragged_pyramid`), dead queries exact zeros;
-* :func:`lookup_packed_plain` (``corr_window.cu``, packed entry,
+* :func:`lookup_packed_plain` (``corr_lookup.cu``, packed entry,
   ``pallas_pack=True``):
   the TPU's row-packed formulation on the narrow levels (the predicate of
   :func:`packed_levels_from`), the others as above.

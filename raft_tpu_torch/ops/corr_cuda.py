@@ -19,7 +19,7 @@ launch counter:
   :func:`~raft_tpu_torch.ops.corr.packed_levels_from`), reached through
   ``make_fused_lookup(pack=True)`` and ``make_window_lookup(pack=True)``:
   one launch over every level;
-* :func:`corr_window_cuda` (``csrc/corr_window.cu``, ``corr_window_*``)
+* :func:`corr_window_cuda` (``corr_lookup.cu``, ``corr_window_*``)
   replaces ``_lookup_level`` with p_select='window' (``_window_kernel`` and
   ``_window_schedule``, ``corr_pallas.py:342``), reached through
   :func:`make_window_lookup`.
@@ -42,7 +42,7 @@ in-crop positions only).
 Why the designs differ from the TPU kernels: the TPU kernels computed full
 ``[T, P]`` correlation tiles of a query block against fmap2 row blocks (all
 of them, or those its schedule names) so that the matrix unit did the
-work and no gather was needed.  The three kernels of ``corr_lookup.cu``
+work and no gather was needed.  The four kernels of ``corr_lookup.cu``
 share one tile body that keeps that tile where it pays and gathers where
 it does not: an 8x8 tile of neighbouring queries per CTA computes the box
 its windows cover (for a ragged item, clipped to its live crop at the
@@ -57,9 +57,10 @@ group of positions at once.  The TPU packs the rows of a narrow level
 side by side to fill its 128 lanes; the H100 has no lanes to fill, and
 what packing bought, one matrix tile over a narrow level, is a small box
 here: the packed entries run the first lookup's kernel as it is, every
-level on the 8x8 tile, and compute its values under either p_select.  ``corr_window.cu`` (B3) gives an 8x8 tile one CTA, stages the
-tile's window box through shared memory and computes with FP32 FMA, or
-one warp per query, lanes over channels, where the windows are incoherent.
+level on the 8x8 tile, and compute its values under either p_select.
+What the TPU's window schedule selects, the f2 row blocks a query block's
+windows touch, is each tile's window box here: the window entries run the
+first lookup's kernel as it is too, and give its values bit for bit.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises, never another kernel or the plain version.
@@ -78,10 +79,8 @@ from .corr import (lookup_blockwise_onehot, lookup_operands,
                    lookup_window_plain, corr_scale)
 
 SOURCE = "corr_lookup.cu"
-WINDOW_SOURCE = "corr_window.cu"
 MAX_LEVELS = 8
 MAX_RADIUS = 15
-MAX_WINDOW_RADIUS = 7
 MAX_CHANNELS = 512
 # corr_lookup.cu's entries: a tile takes the MMA path when its window box
 # holds at most this many times its queries' in-region window positions, by
@@ -124,7 +123,7 @@ def _check(name: str, t: torch.Tensor, device: torch.device, ndim: int,
 
 def _check_lookup(entry: str, fmap1: torch.Tensor,
                   f2_levels: Sequence[torch.Tensor], coords: torch.Tensor,
-                  radius: int, max_radius: int) -> List[int]:
+                  radius: int) -> List[int]:
     """Validate the arguments every lookup entry shares: fmap1 and the f2
     levels float32 or bfloat16 (one dtype), coords float32; returns the
     levels' (h, w) pairs, flattened."""
@@ -140,8 +139,8 @@ def _check_lookup(entry: str, fmap1: torch.Tensor,
     L = len(f2_levels)
     if not 1 <= L <= MAX_LEVELS:
         raise ValueError(f"1..{MAX_LEVELS} levels supported, got {L}")
-    if not 0 <= radius <= max_radius:
-        raise ValueError(f"radius must be in 0..{max_radius}, got {radius}")
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"radius must be in 0..{MAX_RADIUS}, got {radius}")
     if not 1 <= C <= MAX_CHANNELS:
         raise ValueError(f"C must be in 1..{MAX_CHANNELS}, got {C}")
     hw = []
@@ -151,22 +150,6 @@ def _check_lookup(entry: str, fmap1: torch.Tensor,
             raise ValueError(f"f2_levels[{i}] shape {tuple(f2.shape)} does "
                              f"not match fmap1 {tuple(fmap1.shape)}")
         hw += [f2.shape[1], f2.shape[2]]
-    return hw
-
-
-def _check_staged(entry: str, fmap1, f2_levels, coords, radius) -> List[int]:
-    """As :func:`_check_lookup`; the staging kernels also copy 16-byte
-    vectors of channels, so C is a multiple of 4 (float32) or 8 (bfloat16)
-    and the feature maps are 16-byte aligned."""
-    hw = _check_lookup(entry, fmap1, f2_levels, coords, radius,
-                       MAX_WINDOW_RADIUS)
-    vec = 16 // fmap1.element_size()
-    if fmap1.shape[3] % vec:
-        raise ValueError(f"{entry} needs C a multiple of {vec} for "
-                         f"{fmap1.dtype}, got {fmap1.shape[3]}")
-    for t in (fmap1, *f2_levels):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{entry} needs 16-byte aligned feature maps")
     return hw
 
 
@@ -201,7 +184,7 @@ def _launch_tiled(wrapper, stem: str, fmap1: torch.Tensor,
     ``(f1, coords, out, f2_ptrs, level_hw, *lead, L, B, H, W, C, radius,
     scale, mma_ratio, stats, stream)`` (``lead``: pointers), adding one to
     ``wrapper.launches`` where it launches."""
-    hw = _check_lookup(stem, fmap1, f2_levels, coords, radius, MAX_RADIUS)
+    hw = _check_lookup(stem, fmap1, f2_levels, coords, radius)
     B, H, W, C = fmap1.shape
     L = len(f2_levels)
     ratio = MMA_RATIO[fmap1.dtype] if mma_ratio is None else float(mma_ratio)
@@ -253,27 +236,15 @@ corr_lookup_cuda.launches = 0      # kernel launches; callers that count reset i
 
 
 def corr_window_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
-                     coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """Launch the window-scheduled CUDA lookup (``corr_window_f32`` /
-    ``_bf16``).  Arguments and values as :func:`corr_lookup_cuda`; C a
-    multiple of 4 (float32) or 8 (bfloat16), radius at most 7."""
-    hw = _check_staged("corr_window", fmap1, f2_levels, coords, radius)
-    B, H, W, C = fmap1.shape
-    L = len(f2_levels)
-    out = _output(fmap1, L, radius)
-    if B * H * W == 0:
-        return out
-    name = _entry("corr_window", fmap1)
-    fn = _fn(WINDOW_SOURCE, name, _LOOKUP_ARGS + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p])
-    ptrs, dims = _level_args(f2_levels, hw)
-    with torch.cuda.device(fmap1.device):
-        err = fn(fmap1.data_ptr(), coords.data_ptr(), out.data_ptr(), ptrs,
-                 dims, L, B, H, W, C, radius, corr_scale(C),
-                 _stream(fmap1.device))
-    _raise_on(err, name)
-    corr_window_cuda.launches += 1
-    return out
+                     coords: torch.Tensor, radius: int,
+                     mma_ratio: Optional[float] = None,
+                     stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the window-scheduled lookup (``corr_window_f32`` / ``_bf16``):
+    the kernel of :func:`corr_lookup_cuda`, each tile reading only its
+    windows' box (what ``_window_schedule`` selects), under a launch
+    counter of its own.  Arguments and values as :func:`corr_lookup_cuda`."""
+    return _launch_tiled(corr_window_cuda, "corr_window", fmap1, f2_levels,
+                         coords, radius, mma_ratio, stats)
 
 
 corr_window_cuda.launches = 0

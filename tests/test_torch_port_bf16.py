@@ -154,6 +154,47 @@ def test_default_ragged_lookup_matches_jax_on_rounded_operands():
 
 # ---------------------------------------------------- layers in bf16
 
+@pytest.mark.parametrize("form", ["module", "fused", "nhwc"])
+def test_bf16_conv_adds_its_bias_after_rounding_as_jax(form):
+    """JAX rounds a bf16 conv's output to bf16 and then adds the bias in
+    bf16 (``raft_tpu/ops/conv.py::conv2d``); the port's bf16 convs do the
+    same in each of their three forms (a model's conv module,
+    ``apply_conv_fused``, the NHWC ``conv2d``).  Against JAX's bf16 conv on
+    the same bf16 operands only a sum that lands at a rounding boundary may
+    round the other way: under 1% of the outputs differ, each by at most 1
+    bf16 ulp of its own magnitude (adding the bias before the one rounding,
+    as ``F.conv2d`` does on the CPU, changes about 28%)."""
+    from raft_tpu.ops import conv as jconv
+    from raft_tpu_torch.ops import conv
+    rng = np.random.RandomState(12)
+    x = rng.randn(2, 13, 18, 64).astype(np.float32)
+    w = (rng.randn(3, 3, 64, 48) / 24.0).astype(np.float32)
+    b = rng.uniform(-0.25, 0.25, 48).astype(np.float32)
+    want = np.asarray(jconv.conv2d(*(jnp.asarray(a).astype(BF16) for a in (x, w, b)))
+                      .astype(jnp.float32))
+
+    def t(a):
+        return torch.from_numpy(a).bfloat16()
+    with torch.no_grad():
+        if form == "module":
+            m = conv.make_conv(3, 64, 48).bfloat16()
+            m.weight.copy_(t(w).permute(3, 2, 0, 1))
+            m.bias.copy_(t(b))
+            got = to_nhwc(m(to_nchw(t(x))))
+        elif form == "fused":
+            ws = t(w).permute(3, 2, 0, 1)
+            got = to_nhwc(torch.cat(conv.apply_conv_fused(
+                [ws[:20], ws[20:]], [t(b)[:20], t(b)[20:]], to_nchw(t(x))), 1))
+        else:
+            got = conv.conv2d(t(x), t(w), t(b))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    differ = got != want
+    assert differ.mean() < 0.01, differ.mean()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want[differ]))) - 7)
+    assert (np.abs(got - want)[differ] <= ulp).all()
+
+
 def test_gru_bf16_matches_jax_bf16_kernel():
     """The plain GRU (the CUDA kernel's plain version) on bf16 h, motion
     and context terms against the JAX kernel's twin ``sep_conv_gru_xla``
@@ -187,11 +228,13 @@ def test_gru_bf16_matches_jax_bf16_kernel():
     assert np.abs(got.float().numpy() - w).max() <= _ulp(w)
 
 
-@pytest.fixture(scope="module")
-def bf16_pair():
-    """raft-things parameters (JAX init, non-trivial BN statistics), their
-    JAX bf16 cast and the port's bf16 module."""
-    params = seeded_jax_params(JaxConfig.full())
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["zero_bias", "biased"])
+def bf16_pair(request):
+    """raft-things parameters (JAX init, non-trivial BN statistics; zero
+    conv biases and identity BN affines, or both drawn away from them),
+    their JAX bf16 cast and the port's bf16 module."""
+    params = seeded_jax_params(JaxConfig.full(), biased=request.param)
     model = rt.RAFT(rt.RAFTConfig.full())
     model.load_state_dict(rt.from_jax_params(params), strict=True)
     return params, _bf16_params(params), model.to(torch.bfloat16).eval()

@@ -98,7 +98,7 @@ def test_empty_query_grid_launches_nothing_and_counts_nothing(monkeypatch,
     """A wrapper adds to its count only where it launches: a query grid with
     no query launches nothing.  The device check is bypassed so that the
     CPU can drive the wrapper past it; loading a kernel fails the test."""
-    def no_device_check(entry, fmap1, f2_levels, coords, radius, max_radius):
+    def no_device_check(entry, fmap1, f2_levels, coords, radius):
         return [d for f2 in f2_levels for d in f2.shape[1:3]]
 
     def no_kernel(*args):

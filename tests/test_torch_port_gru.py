@@ -97,8 +97,17 @@ def test_plain_gru_matches_jax_kernel(B, H, W, hid, mdim, ctxd, T):
     np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
 
 
-def test_precompute_gru_ctx_matches_jax():
+@pytest.mark.parametrize("biased", [False, True], ids=["zero_bias", "biased"])
+def test_precompute_gru_ctx_matches_jax(biased):
+    """The hoisted context terms carry the gate biases (the init's zeros,
+    or drawn from U(-0.25, 0.25))."""
     p, gru, _, _, inp = _case(2, 1, 7, 9, 32, 16, 24)
+    if biased:
+        rng = np.random.RandomState(20)
+        for name, conv in p.items():
+            conv["b"] = jnp.asarray(rng.uniform(-0.25, 0.25, conv["b"].shape)
+                                    .astype(np.float32))
+        gru.load_state_dict(weights.from_jax_params(p), strict=True)
     want = _jax_ctx_cat(jax_precompute(p, jnp.asarray(inp), 32))
     got = precompute_gru_ctx(gru, torch.from_numpy(inp).permute(0, 3, 1, 2), 32)
     for g, w in zip(got, want):

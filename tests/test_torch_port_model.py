@@ -1,8 +1,10 @@
 """The PyTorch port's full raft-things model against the JAX package:
 same seeded frames, weights converted from JAX ``init_raft`` through
-``from_jax_params``, every iteration's flow held to the full-model bound of
-tests/test_torch_golden.py (``1e-3 + 1e-3 * max|flow|``); the npz weight
-bridge; and the slice boundary (unported values raise)."""
+``from_jax_params`` (its zero conv biases, or biases and batch-norm affines
+drawn away from zero and identity), every iteration's flow held to the
+full-model bound of tests/test_torch_golden.py (``1e-3 + 1e-3 *
+max|flow|``); the npz weight bridge; the float32 entry points' TF32
+switches; and the slice boundary (unported values raise)."""
 
 import dataclasses
 
@@ -19,9 +21,30 @@ from raft_tpu.models.raft import raft_forward as jax_forward
 import raft_tpu_torch as rt
 
 
-def _jax_params(cfg, seed=0):
+BIASED = pytest.mark.parametrize("biased", [False, True],
+                                 ids=["zero_bias", "biased"])
+
+
+def with_biases(params, seed=0):
+    """``params`` with every conv bias and batch-norm ``beta`` drawn from
+    U(-0.25, 0.25) and every batch-norm ``gamma`` from U(0.75, 1.25), with
+    numpy from a seed of their own (the other leaves unchanged), so that
+    the bias and affine paths carry real values."""
+    rng = np.random.RandomState(seed + 1000)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name not in ("b", "gamma", "beta"):
+            return leaf
+        lo, hi = (0.75, 1.25) if name == "gamma" else (-0.25, 0.25)
+        return jnp.asarray(rng.uniform(lo, hi, leaf.shape).astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(fill, params)
+
+
+def _jax_params(cfg, seed=0, biased=False):
     """JAX init with non-trivial batch-norm statistics, so eval-mode
-    normalization is exercised."""
+    normalization is exercised; ``biased``: :func:`with_biases` on top."""
     params = init_raft(jax.random.PRNGKey(seed), cfg)
     rng = np.random.RandomState(seed + 1)
 
@@ -36,15 +59,16 @@ def _jax_params(cfg, seed=0):
                 else:
                     bn(v)
     bn(params)
-    return params
+    return with_biases(params, seed) if biased else params
 
 
-def test_full_model_every_iteration_matches_jax_pallas():
+@BIASED
+def test_full_model_every_iteration_matches_jax_pallas(biased):
     """Full widths at 48x64 (a 6x8 grid, so pyramid level 3 is 0x1), two
     iterations, JAX with corr_impl='pallas' (interpret mode) and
     gru_impl='pallas' against the port with the same configuration."""
     jcfg = JaxConfig.full(corr_impl="pallas", gru_impl="pallas", iters=2)
-    params = _jax_params(jcfg)
+    params = _jax_params(jcfg, biased=biased)
     im = np.random.RandomState(3).rand(2, 1, 48, 64, 3).astype(np.float32)
     out, _ = jax_forward(params, jnp.asarray(im[0]), jnp.asarray(im[1]), jcfg,
                          all_flows=True)
@@ -161,3 +185,43 @@ def test_small_sizes_and_bad_knobs_raise():
     im = torch.zeros(1, 16, 24, 3)
     with pytest.raises(ValueError, match="sizes"):
         rt.raft_forward(model, im, im, cfg, sizes=torch.tensor([[16, 24, 3]]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_float32_entry_points_turn_tf32_off_and_restore_the_flags(
+        monkeypatch, dtype):
+    """Under PyTorch's defaults (cuDNN TF32 on) and with cuBLAS TF32 on too,
+    the three inference functions run a float32 forward with both off and
+    leave both as the caller set them, also when the forward raises; the
+    bf16 policy's forward runs under the caller's flags."""
+    from raft_tpu_torch.models import raft as port_raft
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    seen, real = [], port_raft.raft_forward
+
+    def spy(*args, **kwargs):
+        seen.append((cudnn.allow_tf32, matmul.allow_tf32))
+        if kwargs.get("iters") == 0:
+            raise RuntimeError("forward failed")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_raft, "raft_forward", spy)
+    cfg = rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=1,
+                             compute_dtype=dtype)
+    model = rt.init_raft_torch(cfg, device="cpu")
+    im = np.random.RandomState(11).rand(2, 1, 16, 24, 3).astype(np.float32)
+    sizes = np.array([[16, 24]], np.int32)
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        rt.make_inference_fn(cfg, device="cpu")(model, im[0], im[1])
+        rt.make_ragged_inference_fn(cfg, device="cpu")(model, im[0], im[1], sizes)
+        rt.make_ragged_counted_inference_fn(cfg, device="cpu")(
+            model, im[0], im[1], sizes)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+        with pytest.raises(RuntimeError, match="forward failed"):
+            rt.make_inference_fn(cfg, iters=0, device="cpu")(model, im[0], im[1])
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    inside = (False, False) if dtype == "float32" else (True, True)
+    assert seen == [inside] * 4

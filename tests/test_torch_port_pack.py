@@ -21,6 +21,7 @@ from raft_tpu.ops.corr import fmap2_pyramid as jax_pyramid
 from raft_tpu.ops.corr_pallas import _fused_lookup_impl
 import raft_tpu_torch as rt
 from raft_tpu_torch.ops import corr_cuda
+from test_torch_port_model import BIASED, with_biases
 from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
                                      lookup_packed_plain, pack_factor,
                                      packed_levels_from)
@@ -28,12 +29,13 @@ from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-def seeded_jax_params(cfg, seed=0):
+def seeded_jax_params(cfg, seed=0, biased=False):
     """A JAX parameter tree of ``init_raft``'s structure, drawn with numpy
     (no JAX random ops to run): convs Kaiming fan-out normal with zero
     biases (the JAX init scheme), batch-norm affine identity with
     non-trivial running statistics, so eval-mode normalization is
-    exercised."""
+    exercised; ``biased``: the biases and affines of
+    ``test_torch_port_model.with_biases`` instead."""
     shapes = jax.eval_shape(lambda k: init_raft(k, cfg), jax.random.PRNGKey(0))
     rng = np.random.RandomState(seed)
 
@@ -50,7 +52,8 @@ def seeded_jax_params(cfg, seed=0):
             a = np.full(leaf.shape, 1.0 if name == "gamma" else 0.0)
         return jnp.asarray(a.astype(np.float32))
 
-    return jax.tree_util.tree_map_with_path(fill, shapes)
+    params = jax.tree_util.tree_map_with_path(fill, shapes)
+    return with_biases(params, seed) if biased else params
 
 
 def _packed_case(seed, B, H, W, C, L):
@@ -147,15 +150,16 @@ def test_cpu_dispatch_is_plain_and_counters_stay():
         corr_cuda.corr_packed_cuda(t(f1), fmap2_pyramid(t(f2), 3), t(coords), 4)
 
 
+@BIASED
 @pytest.mark.parametrize("p_select", ["all", "window"])
-def test_full_model_packed_matches_jax(p_select):
+def test_full_model_packed_matches_jax(p_select, biased):
     """P32 at 48x64 (a 6x8 grid: every level packs, level 3 is 0x1), two
     iterations, each within the full-model bound of JAX's same
     configuration (interpret-mode Pallas kernels)."""
     kw = dict(corr_impl="pallas", gru_impl="pallas", pallas_pack=True,
               pallas_p_select=p_select, pallas_p_blk=1024, iters=2)
     jcfg = JaxConfig.full(**kw)
-    params = seeded_jax_params(jcfg)
+    params = seeded_jax_params(jcfg, biased=biased)
     im = np.random.RandomState(3).rand(2, 1, 48, 64, 3).astype(np.float32)
     out, _ = jax.jit(jax_forward, static_argnames=("config", "all_flows"))(
         params, jnp.asarray(im[0]), jnp.asarray(im[1]), config=jcfg,

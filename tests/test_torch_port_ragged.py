@@ -22,7 +22,7 @@ from raft_tpu_torch.ops import corr_cuda
 from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_ragged_plain,
                                      lookup_window_plain, mask_ragged_rows,
                                      ragged_pyramid)
-from test_torch_port_model import _jax_params
+from test_torch_port_model import BIASED, _jax_params
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -133,8 +133,8 @@ def _assert_every_iteration(got, want, crops):
                 f"iter {i} item {b}: max|dflow|={err:.2e} vs scale {scale:.2e}")
 
 
-def _both_models(jcfg, cfg, im, sizes=None):
-    params = _jax_params(jcfg)
+def _both_models(jcfg, cfg, im, sizes=None, biased=False):
+    params = _jax_params(jcfg, biased=biased)
     out, _ = jax_forward(params, jnp.asarray(im[0]), jnp.asarray(im[1]), jcfg,
                          all_flows=True,
                          sizes=None if sizes is None else jnp.asarray(sizes))
@@ -146,7 +146,8 @@ def _both_models(jcfg, cfg, im, sizes=None):
     return got.flow_iters.numpy(), np.asarray(out.flow_iters)
 
 
-def test_full_model_ragged_every_iteration_matches_jax():
+@BIASED
+def test_full_model_ragged_every_iteration_matches_jax(biased):
     """Full widths, a 48x64 box holding a 48x64 and a 29x40 item (odd live
     extent, not a multiple of 8), two iterations; JAX runs the ragged
     Pallas kernel (interpret mode) and the Pallas GRU."""
@@ -155,18 +156,19 @@ def test_full_model_ragged_every_iteration_matches_jax():
     got, want = _both_models(
         JaxConfig.full(corr_impl="pallas", gru_impl="pallas", iters=2),
         rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=2),
-        im, sizes)
+        im, sizes, biased)
     assert got.shape == (2, 2, 48, 64, 2)
     _assert_every_iteration(got, want, sizes)
 
 
-def test_full_model_window_every_iteration_matches_jax():
+@BIASED
+def test_full_model_window_every_iteration_matches_jax(biased):
     """The main path with pallas_p_select='window' at 48x64, both packages."""
     kw = dict(corr_impl="pallas", gru_impl="pallas", iters=2,
               pallas_p_select="window")
     im = np.random.RandomState(6).rand(2, 1, 48, 64, 3).astype(np.float32)
     got, want = _both_models(JaxConfig.full(**kw), rt.RAFTConfig.full(**kw),
-                             im)
+                             im, biased=biased)
     assert got.shape == (2, 1, 48, 64, 2)
     _assert_every_iteration(got, want, [(48, 64)])
 

@@ -9,24 +9,27 @@ The kernels of one checkout run in a process of their own, the checkouts in
 turns (parent, change, change, parent, ...), each process building its
 kernels from its own sources and timing them on the inputs of this
 checkout's ``chip_smoke.kernel_inputs`` (same seed): the correlation
-lookup (float32 and bfloat16 operands, on phase 3's noisy coords and on
-windows scattered over the map), the window lookup and the SepConvGRU
-(float32 and bfloat16 I/O) on the 54x128 query grid of a 432x1024 pair,
+lookup and the window lookup (float32 and bfloat16 operands, each on
+phase 3's noisy coords and on windows scattered over the map) and the
+SepConvGRU (float32 and bfloat16 I/O) on the 54x128 query grid of a
+432x1024 pair,
 the ragged lookup (float32, also on scattered windows, and bfloat16) on
 the 3-item 440x1248 box, the packed lookup (float32 under 'all', also on
 scattered windows, and 'window'; bfloat16 under 'window') on the 54x128
 grid.  A checkout whose GRU kernel
 reads prepared weights (``prepare_gru_weights``) gets them; an older one
 its fused float32 weights.  Then whole requests at 432x1024, 12
-iterations, on seeded random weights: the float32 main path, the BF path
-(``chip_smoke.py`` phase 6c: bfloat16 compute, 'default' corr, pack,
-p_select 'window') and pallas-bf16corr-ctx-gru (bfloat16 compute,
-'default' corr, p_select 'all'), and the BF path's loop set-up
+iterations, on seeded random weights: the float32 main path under
+p_select 'all' and 'window', the BF path (``chip_smoke.py`` phase 6c:
+bfloat16 compute, 'default' corr, pack, p_select 'window'),
+pallas-bf16corr-ctx-gru (bfloat16 compute, 'default' corr, p_select
+'all') and its -win twin (p_select 'window'), and the BF path's loop set-up
 (``prepare_loop``) alone.  Prints the card's name and power limit, then
 one line per process: ms per call on the device (CUDA events; a kernel
 200 calls after 5 of warm-up, a request or set-up the median of 8 after
 one of warm-up) and, in brackets, the host's ms to issue a call (a device
-time close to it is the host's, not the kernel's).  Cards differ between
+time close to it is the host's, not the kernel's); then the kernels and
+copies the device runs for one request of each path (torch.profiler).  Cards differ between
 machines, so only times of one run are compared.
 """
 
@@ -121,6 +124,12 @@ def _time_one(root: str, tag: str) -> None:
         "corr_lookup_bf16": ms(lambda: lookup(bf1, blevels, coords, r)),
         "corr_lookup_bf16_scattered": ms(lambda: lookup(bf1, blevels, wild, r)),
         "corr_window": ms(lambda: corr_cuda.corr_window_cuda(f1, levels, coords, r)),
+        "corr_window_scattered": ms(lambda: corr_cuda.corr_window_cuda(
+            f1, levels, wild, r)),
+        "corr_window_bf16": ms(lambda: corr_cuda.corr_window_cuda(
+            bf1, blevels, coords, r)),
+        "corr_window_bf16_scattered": ms(lambda: corr_cuda.corr_window_cuda(
+            bf1, blevels, wild, r)),
         "corr_ragged": ms(lambda: corr_cuda.corr_ragged_cuda(
             rf1, rlevels, rcoords, sizes8, r)),
         "corr_ragged_scattered": ms(lambda: corr_cuda.corr_ragged_cuda(
@@ -145,24 +154,44 @@ def _time_one(root: str, tag: str) -> None:
     im1 = rng.rand(1, smoke.H_IMG, smoke.W_IMG, 3).astype(np.float32)
     im2 = np.roll(im1, (1, 3), axis=(1, 2))
     cfg_k = rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")
+    cfg_w = rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                               pallas_p_select="window")
     bf = dict(corr_impl="pallas", gru_impl="pallas", compute_dtype="bfloat16",
               corr_precision="default")
     cfg_bf = rt.RAFTConfig.full(**bf, pallas_pack=True, pallas_p_select="window",
                                 pallas_p_blk=1024)
     cfg_bfc = rt.RAFTConfig.full(**bf)
+    cfg_bfw = rt.RAFTConfig.full(**bf, pallas_p_select="window",
+                                 pallas_p_blk=1024)
     model_bf = rt.init_raft_torch(cfg_bf, device=dev,
                                   generator=torch.Generator().manual_seed(0))
-    for name, cfg, mdl in (("e2e_main", cfg_k, model), ("e2e_bf", cfg_bf, model_bf),
-                           ("e2e_bf16corr_ctx_gru", cfg_bfc, model_bf)):
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ops(fn) -> int:
+        """Kernels and copies the device runs for one ``fn()`` call."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(k.count for k in prof.key_averages()
+                   if k.device_type == torch.autograd.DeviceType.CUDA)
+
+    ops = {}
+    for name, cfg, mdl in (("e2e_main", cfg_k, model), ("e2e_window", cfg_w, model),
+                           ("e2e_bf", cfg_bf, model_bf),
+                           ("e2e_bf16corr_ctx_gru", cfg_bfc, model_bf),
+                           ("e2e_bf16corr_ctx_gru_win", cfg_bfw, model_bf)):
         infer = rt.make_inference_fn(cfg, iters=smoke.ITERS)
         times[name] = median_ms(lambda: infer(mdl, im1, im2))
+        ops[name] = device_ops(lambda: infer(mdl, im1, im2))
     with torch.no_grad():
         a, b = (torch.from_numpy(x).to(dev) for x in (im1, im2))
         fm1, fm2, _, inp = encode_pair(model_bf, a, b, cfg_bf)
         times["bf_loop_setup"] = median_ms(
             lambda: prepare_loop(model_bf, fm1, fm2, inp, cfg_bf))
     print(f"{tag}: " + " ".join(f"{k} {d:.4f} (host {h:.4f})"
-                                 for k, (d, h) in times.items()), flush=True)
+                                 for k, (d, h) in times.items())
+          + "; device ops per request: "
+          + " ".join(f"{k} {n}" for k, n in ops.items()), flush=True)
 
 
 def main() -> int:
