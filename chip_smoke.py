@@ -45,7 +45,9 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    on each path printed).
 4. main path: raft-things (full width and depth, seeded random weights) on
    4 seeded frame pairs at 432x1024, batch 1, 12 iterations, through
-   make_inference_fn with corr_impl='pallas', gru_impl='pallas'.  The flows
+   raft_forward (the eager forward that make_inference_fn captures; every
+   launch count and parity check of phases 4-6h runs eager) with
+   corr_impl='pallas', gru_impl='pallas'.  The flows
    must be finite, every iteration must have launched both kernels (launch
    counters).  The same pairs through the plain versions
    (corr_impl='blockwise', corr_lookup='onehot', gru_impl='xla') must agree
@@ -57,8 +59,7 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    window kernel must run once per iteration and the first lookup never;
    the same parity as phase 4.
 6. ragged path: one batch of 3 in a 440x1248 max box (Sintel 436x1024,
-   KITTI 375x1242, FlyingChairs 384x512) through make_ragged_inference_fn,
-   12 iterations: the ragged kernel once per iteration, the GRU kernel 4
+   KITTI 375x1242, FlyingChairs 384x512), eager with sizes, 12 iterations: the ragged kernel once per iteration, the GRU kernel 4
    times, the other lookups never; finite flows on each live crop; the
    parity of phase 4 against the plain ragged configuration on each live
    crop; each item alone (batch 1, same box) against its row of the batch
@@ -85,10 +86,42 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    main path and of BF (launch counts), each held per iteration as in
    phases 4 and 6c.
 6e. C2: under PyTorch's default switches (cuDNN TF32 on) a 3-iteration
-   float32 request through make_inference_fn gives, within the bound of
-   phase 4, the flow of the same request with TF32 off in the process,
-   and leaves the switches as the caller set them; the same forward with
-   cuDNN TF32 on is printed beside it.
+   float32 request through make_inference_fn (captured under them) gives,
+   within the bound of phase 4, the flow of the same request with TF32 off
+   in the process, and leaves the switches as the caller set them; the
+   same forward with cuDNN TF32 on is printed beside it.
+6f. capture: the f32 main path, BF, pallas-bf16corr-ctx-gru and the ragged
+   batch in f32 and in bf16, each through its factory (make_inference_fn,
+   make_ragged_inference_fn: a CUDA graph captured at the first call,
+   replayed after it), 2 requests (the ragged batch 1): one capture, whose
+   launch counts are twice an eager request's (the warm-up and the
+   captured forward) and the replays' none; each replay equal to the eager
+   forward of the same request bitwise (else within phase 4's bound, the
+   reason printed), an earlier result left as it was by later replays; the
+   graph pool's size.  A second key (a 384x512 pair; the ragged box at
+   batch 2) captures a second graph and the first still replays right;
+   new sizes in the same box replay with no new capture; after an
+   in-place load_state_dict of the C1 weights the replay follows them, and
+   after the model's storages move the next call captures anew.
+6g. raft-small: corr_lookup at raft-small's shape ([1, 54, 128, 128],
+   4 levels, radius 3) held three ways to its plain version in both
+   entries (noisy and scattered coords), timed beside its plain version
+   and its bound; the window and the packed lookups ('all', 'window') on
+   the same maps and the ragged lookup on phase 3's box at C = 128, both
+   entries, held three ways likewise; RAFTConfig.small_model(corr_impl=
+   'pallas') on 2 pairs, 12 iterations, float32 and bfloat16 ('default'
+   corr): one corr_lookup launch per iteration, no GRU kernel (its 3x3
+   ConvGRU is stock PyTorch); per iteration and over 3 iterations held to
+   small_model(corr_impl='blockwise') as in phase 4 (bf16 as in phase 6c);
+   each captured equal to eager; then one float32 request each under
+   pallas_p_select='window', pallas_pack=True and on phase 6's ragged
+   batch: its kernel once per iteration and no other, per iteration held
+   to 'blockwise' as in phase 4.
+6h. dense: RAFTConfig.full() and RAFTConfig.small_model() as they stand
+   (corr_impl='dense', 'onehot', the plain GRU) on 2 pairs: no kernel
+   launched, finite flows, the peak memory of a request and the dense
+   pyramid's bytes; per iteration held to corr_impl='pallas' on the same
+   weights as in phase 4; each captured equal to eager.
 7. times (CUDA events, after warm-up): each kernel per call beside its
    plain version and its bound — the packed lookup beside the first and
    the window lookups on the same inputs, each bfloat16
@@ -99,12 +132,19 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    each alone), and of the ragged lookup
    on phase 3's box and on the ragged batch's own coords (the first lookup
    beside it); median request latency and pairs/s of the main, window,
-   P32 and BF paths, of pallas-bf16corr-ctx-gru and of its -win twin; the
-   ragged batch's median and pairs/s, in float32 and
-   in bfloat16, beside the three pairs run one by one (printed, not held).
+   P32 and BF paths, of pallas-bf16corr-ctx-gru and of its -win twin, of
+   the ragged batch in float32 and in bfloat16, of raft-small in both
+   dtypes and of the two dense configurations, each captured (its factory)
+   and eager (raft_forward), in turns; the ragged batch beside the three
+   pairs run one by one (printed, not held); BF's loop set-up eager and as
+   a graph of its own; the clone of a captured call's output (the f32 main
+   path's flow, flow_lr and iters_used); the device idle share (torch.profiler) of the f32
+   main path, BF, pallas-bf16corr-ctx-gru and the ragged batch in both
+   dtypes, captured and eager; the total wall time.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  No single PyTorch call computes any of the
+Before the last two lines the e2e JSON record (PERF.md §2 says what each
+key means); the line before the last is the kernels' JSON record; the
+last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
 bytes over the memory rate and the operations over the card's rate for
 them, each product priced at the fastest route the card offers at its
@@ -122,6 +162,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -333,6 +374,7 @@ def _reset(*wrappers) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # -- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -341,10 +383,11 @@ def main() -> int:
                                 make_inference_fn, make_ragged_inference_fn)
     from raft_tpu_torch import _build
     from raft_tpu_torch.ops import corr_cuda, gru_cuda
+    from raft_tpu_torch.models.capture import capture
     from raft_tpu_torch.models.raft import (encode_pair, gru_step, prepare_loop,
-                                            raft_forward)
+                                            raft_forward, upsample_flow)
     from raft_tpu_torch.ops.coords import coords_grid
-    from raft_tpu_torch.ops.corr import (fmap2_pyramid, live_mask,
+    from raft_tpu_torch.ops.corr import (build_pyramid, fmap2_pyramid, live_mask,
                                          lookup_blockwise_onehot,
                                          lookup_operands, lookup_packed_plain,
                                          lookup_ragged_plain,
@@ -370,6 +413,18 @@ def main() -> int:
     kernels = (corr_cuda.corr_lookup_cuda, corr_cuda.corr_window_cuda,
                corr_cuda.corr_ragged_cuda, corr_cuda.corr_packed_cuda,
                gru_cuda.sep_conv_gru_cuda)
+
+    def eager_fn(cfg, iters):
+        """``fn(model, image1, image2[, sizes]) -> flow``, the eager forward
+        the inference functions capture: ``raft_forward`` on the card, TF32
+        off as in the whole process.  Launch counts and parity run on it."""
+        def fn(mdl, im1, im2, sizes=None):
+            t1, t2 = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                      for x in (im1, im2))
+            sz = None if sizes is None else torch.as_tensor(sizes, device=dev)
+            with torch.no_grad():
+                return raft_forward(mdl, t1, t2, cfg, iters=iters, sizes=sz).flow
+        return fn
 
     # -- 2. build ------------------------------------------------------
     secs = _build.build_all()
@@ -438,17 +493,17 @@ def main() -> int:
         k_in[k] for k in ("sizes8", "rf1", "rlevels", "rcoords", "rwild"))
     live8 = live_mask(sizes8, hb, wb)
 
-    def ragged_held(label, f1_, lvs, cc, s8, live):
+    def ragged_held(label, f1_, lvs, cc, s8, live, rr=r):
         """The ragged lookup three ways on its live queries; its dead
         queries exact zeros every time."""
         def run(ratio, st):
-            got_ = corr_cuda.corr_ragged_cuda(f1_, lvs, cc, s8, r, mma_ratio=ratio,
+            got_ = corr_cuda.corr_ragged_cuda(f1_, lvs, cc, s8, rr, mma_ratio=ratio,
                                               stats=st)
             if float(got_[~live].abs().max()) != 0.0:
                 raise AssertionError(f"{label}: dead queries are not exact zeros")
             return got_
         return three_ways(f"{label}, live queries", run,
-                          lookup_ragged_plain(f1_, lvs, cc, s8, r), len(lvs), live)
+                          lookup_ragged_plain(f1_, lvs, cc, s8, rr), len(lvs), live)
 
     rag_err = max(ragged_held(
         f"corr_ragged [3,{hb},{wb},256] sizes8 {sizes8.tolist()}, {label} coords",
@@ -536,10 +591,10 @@ def main() -> int:
 
     first = packed_levels_from([lv.shape[2] for lv in levels])   # 1 at 54x128
 
-    def packed_held(label, f1_, lvs, cc, ps):
+    def packed_held(label, f1_, lvs, cc, ps, rr=r):
         return three_ways(label, lambda ratio, st: corr_cuda.corr_packed_cuda(
-            f1_, lvs, cc, r, ps, mma_ratio=ratio, stats=st),
-            lookup_packed_plain(f1_, lvs, cc, r, ps), len(lvs))
+            f1_, lvs, cc, rr, ps, mma_ratio=ratio, stats=st),
+            lookup_packed_plain(f1_, lvs, cc, rr, ps), len(lvs))
 
     pack_err = 0.0
     for ps in ("all", "window"):
@@ -646,13 +701,13 @@ def main() -> int:
         return im1, im2
 
     pairs = [frame_pair(H_IMG, W_IMG, i) for i in range(N_PAIRS)]
-    infer_k = make_inference_fn(cfg_k, iters=ITERS)
+    run_k = eager_fn(cfg_k, ITERS)
     cfg_p = RAFTConfig.full(corr_impl="blockwise", corr_lookup="onehot",
                             gru_impl="xla")
-    infer_p = make_inference_fn(cfg_p, iters=ITERS)
+    run_p = eager_fn(cfg_p, ITERS)
 
     _reset(*kernels)
-    flows_k = [infer_k(model, a, b) for a, b in pairs]
+    flows_k = [run_k(model, a, b) for a, b in pairs]
     torch.cuda.synchronize()
     launches = _launches(*kernels)
     print(f"main path: {N_PAIRS} requests at {H_IMG}x{W_IMG}, {ITERS} iters; "
@@ -689,8 +744,8 @@ def main() -> int:
             net_k, ck, mk = gru_step(mdl, cfg_k, loop_k, net, coords1)
             _, cp, mp = gru_step(mdl, cfg_p, loop_p, net, coords1)
             worst = max(worst, _within(
-                f"iteration {it}", convex_upsample_flow(ck - c0, mk),
-                convex_upsample_flow(cp - c0, mp), crops))
+                f"iteration {it}", upsample_flow(cfg_k, ck - c0, mk),
+                upsample_flow(cfg_p, cp - c0, mp), crops))
             net, coords1 = net_k, ck
         return worst
 
@@ -700,8 +755,8 @@ def main() -> int:
             t2 = torch.from_numpy(b).to(dev)
             worst = step_parity(cfg_k, cfg_p, t1, t2)
             e2e = _within("3 iterations end to end",
-                          make_inference_fn(cfg_k, iters=3)(model, a, b),
-                          make_inference_fn(cfg_p, iters=3)(model, a, b))
+                          eager_fn(cfg_k, 3)(model, a, b),
+                          eager_fn(cfg_p, 3)(model, a, b))
             print(f"pair {i}: every iteration, worst {worst[1]}; {e2e[1]}")
             if worst[0] > 1.0 or e2e[0] > 1.0:
                 raise AssertionError(f"pair {i}: kernel path disagrees with "
@@ -732,9 +787,9 @@ def main() -> int:
     # -- 5. window main path ---------------------------------------------
     cfg_w = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                             pallas_p_select="window")
-    infer_w = make_inference_fn(cfg_w, iters=ITERS)
+    run_w = eager_fn(cfg_w, ITERS)
     _reset(*kernels)
-    flows_w = [infer_w(model, a, b) for a, b in pairs[:N_WINDOW]]
+    flows_w = [run_w(model, a, b) for a, b in pairs[:N_WINDOW]]
     torch.cuda.synchronize()
     launches_w = _launches(*kernels)
     print(f"window path: {N_WINDOW} requests at {H_IMG}x{W_IMG}, {ITERS} "
@@ -751,8 +806,8 @@ def main() -> int:
             worst = step_parity(cfg_w, cfg_p, torch.from_numpy(a).to(dev),
                                 torch.from_numpy(b).to(dev))
             e2e = _within("3 iterations end to end",
-                          make_inference_fn(cfg_w, iters=3)(model, a, b),
-                          make_inference_fn(cfg_p, iters=3)(model, a, b))
+                          eager_fn(cfg_w, 3)(model, a, b),
+                          eager_fn(cfg_p, 3)(model, a, b))
             print(f"window pair {i}: every iteration, worst {worst[1]}; {e2e[1]}")
             if worst[0] > 1.0 or e2e[0] > 1.0:
                 raise AssertionError(f"window pair {i}: kernel path disagrees "
@@ -763,9 +818,9 @@ def main() -> int:
     rim1 = np.concatenate([embed_to_shape(c[0], BOX) for c in crops])
     rim2 = np.concatenate([embed_to_shape(c[1], BOX) for c in crops])
     sizes = np.array(CROPS, np.int32)
-    infer_r = make_ragged_inference_fn(cfg_k, iters=ITERS)
+    run_r = eager_fn(cfg_k, ITERS)
     _reset(*kernels)
-    flow_r = infer_r(model, rim1, rim2, sizes)
+    flow_r = run_r(model, rim1, rim2, sizes)
     torch.cuda.synchronize()
     launches_r = _launches(*kernels)
     print(f"ragged path: batch of 3 in a {BOX[0]}x{BOX[1]} box, live "
@@ -778,15 +833,14 @@ def main() -> int:
     for b, (h, w) in enumerate(CROPS):
         if not bool(torch.isfinite(flow_r[b, :h, :w]).all()):
             raise AssertionError(f"ragged item {b}: non-finite flow on its crop")
-    ragged_k = make_ragged_inference_fn(cfg_k, iters=3)
+    ragged_k = eager_fn(cfg_k, 3)
     with torch.no_grad():
         sz = torch.from_numpy(sizes).to(dev)
         worst = step_parity(cfg_k, cfg_p, torch.from_numpy(rim1).to(dev),
                             torch.from_numpy(rim2).to(dev), sz, CROPS)
         mixed = ragged_k(model, rim1, rim2, sizes)
         e2e = _within("3 iterations end to end", mixed,
-                      make_ragged_inference_fn(cfg_p, iters=3)(
-                          model, rim1, rim2, sizes), CROPS)
+                      eager_fn(cfg_p, 3)(model, rim1, rim2, sizes), CROPS)
         print(f"ragged batch, each live crop: every iteration, worst "
               f"{worst[1]}; {e2e[1]}")
         if worst[0] > 1.0 or e2e[0] > 1.0:
@@ -804,8 +858,8 @@ def main() -> int:
         junk1, junk2 = (rng.rand(*rim1.shape).astype(np.float32) for _ in range(2))
         for b, (h, w) in enumerate(CROPS):
             junk1[b, :h, :w], junk2[b, :h, :w] = rim1[b, :h, :w], rim2[b, :h, :w]
-        clean = infer_r(model, rim1, rim2, sizes)
-        dirty = infer_r(model, junk1, junk2, sizes)
+        clean = run_r(model, rim1, rim2, sizes)
+        dirty = run_r(model, junk1, junk2, sizes)
         torch.backends.cudnn.deterministic = False
         same = [bool(torch.equal(clean[b, :h, :w], dirty[b, :h, :w]))
                 for b, (h, w) in enumerate(CROPS)]
@@ -837,14 +891,14 @@ def main() -> int:
 
     gru_per_iter = gru_cuda.LAUNCHES_PER_CALL
     n_it = N_WINDOW * ITERS
-    launches_p32, infer_p32 = {}, {}
+    launches_p32, run_p32 = {}, {}
     for ps in ("all", "window"):
         cfg_pk = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                                  pallas_pack=True, pallas_p_select=ps)
-        infer_p32[ps] = make_inference_fn(cfg_pk, iters=ITERS)
+        run_p32[ps] = eager_fn(cfg_pk, ITERS)
         launches_p32[ps] = drive(
             f"P32 path, p_select={ps!r}: {N_WINDOW} requests at "
-            f"{H_IMG}x{W_IMG}, {ITERS} iters", infer_p32[ps], model,
+            f"{H_IMG}x{W_IMG}, {ITERS} iters", run_p32[ps], model,
             pairs[:N_WINDOW], {"corr_packed": n_it,
                                "sep_conv_gru": n_it * gru_per_iter})
         with torch.no_grad():
@@ -852,8 +906,8 @@ def main() -> int:
                 worst = step_parity(cfg_pk, cfg_p, torch.from_numpy(a).to(dev),
                                     torch.from_numpy(b).to(dev))
                 e2e = _within("3 iterations end to end",
-                              make_inference_fn(cfg_pk, iters=3)(model, a, b),
-                              make_inference_fn(cfg_p, iters=3)(model, a, b))
+                              eager_fn(cfg_pk, 3)(model, a, b),
+                              eager_fn(cfg_p, 3)(model, a, b))
                 print(f"P32 {ps} pair {i}: every iteration, worst {worst[1]}; {e2e[1]}")
                 if worst[0] > 1.0 or e2e[0] > 1.0:
                     raise AssertionError(f"P32 {ps} pair {i}: kernel path "
@@ -867,32 +921,32 @@ def main() -> int:
     # the same seeded weights as `model`, rounded to bfloat16 once
     model_bf = init_raft_torch(cfg_bf, generator=torch.Generator().manual_seed(0),
                                device=dev)
-    infer_bf = make_inference_fn(cfg_bf, iters=ITERS)
+    run_bf = eager_fn(cfg_bf, ITERS)
     launches_bf = drive(
         f"BF path: {N_WINDOW} requests at {H_IMG}x{W_IMG}, {ITERS} iters",
-        infer_bf, model_bf, pairs[:N_WINDOW],
+        run_bf, model_bf, pairs[:N_WINDOW],
         {"corr_packed": n_it, "sep_conv_gru": n_it * gru_per_iter})
     cfg_bfc = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                               compute_dtype="bfloat16", corr_precision="default")
-    infer_bfc = make_inference_fn(cfg_bfc, iters=ITERS)
+    run_bfc = eager_fn(cfg_bfc, ITERS)
     launches_bfc = drive(
         f"pallas-bf16corr-ctx-gru: 1 request at {H_IMG}x{W_IMG}, {ITERS} iters",
-        infer_bfc, model_bf, pairs[:1],
+        run_bfc, model_bf, pairs[:1],
         {"corr_lookup": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
     cfg_bfw = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                               compute_dtype="bfloat16", corr_precision="default",
                               pallas_p_select="window", pallas_p_blk=1024)
-    infer_bfw = make_inference_fn(cfg_bfw, iters=ITERS)
+    run_bfw = eager_fn(cfg_bfw, ITERS)
     launches_bfw = drive(
         f"pallas-bf16corr-ctx-gru-win: 1 request at {H_IMG}x{W_IMG}, {ITERS} iters",
-        infer_bfw, model_bf, pairs[:1],
+        run_bfw, model_bf, pairs[:1],
         {"corr_window": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
     cfg_pb = RAFTConfig.full(corr_impl="blockwise", corr_lookup="onehot",
                              gru_impl="xla", compute_dtype="bfloat16",
                              corr_precision="default")
 
     def bf16_step_parity(cfg_k, t1, t2, sizes=None, crops=None,
-                         mdl_bf=model_bf, mdl=model):
+                         mdl_bf=model_bf, mdl=model, cfg_b=cfg_pb, cfg_f=cfg_p):
         """Worst (ratio, message) over the iterations of |kernel step -
         plain bf16 step| / |plain bf16 step - plain float32 step|, all three
         steps taken from the kernel path's state (the float32 step on the
@@ -903,17 +957,17 @@ def main() -> int:
             sizes8 = sizes // 8
         fm1, fm2, net, inp = encode_pair(mdl_bf, t1, t2, cfg_k)
         loop_k = prepare_loop(mdl_bf, fm1, fm2, inp, cfg_k, sizes8)
-        loop_b = prepare_loop(mdl_bf, fm1, fm2, inp, cfg_pb, sizes8)
+        loop_b = prepare_loop(mdl_bf, fm1, fm2, inp, cfg_b, sizes8)
         loop_f = prepare_loop(mdl, fm1.float(), fm2.float(), inp.float(),
-                              cfg_p, sizes8)
+                              cfg_f, sizes8)
         c0, coords1, worst = loop_k.coords0, loop_k.coords0, (0.0, "")
         if crops is None:
             crops = [(t1.shape[1], t1.shape[2])] * t1.shape[0]
         for it in range(ITERS):
             net_k, ck, mk = gru_step(mdl_bf, cfg_k, loop_k, net, coords1)
-            _, cb, mb = gru_step(mdl_bf, cfg_pb, loop_b, net, coords1)
-            _, cf, mf = gru_step(mdl, cfg_p, loop_f, net.float(), coords1)
-            fk, fb, ff = (convex_upsample_flow(c - c0, m.float()) for c, m in
+            _, cb, mb = gru_step(mdl_bf, cfg_b, loop_b, net, coords1)
+            _, cf, mf = gru_step(mdl, cfg_f, loop_f, net.float(), coords1)
+            fk, fb, ff = (upsample_flow(cfg_k, c - c0, m) for c, m in
                           ((ck, mk), (cb, mb), (cf, mf)))
             for b, (h, w) in enumerate(crops):
                 dk = float((fk[b, :h, :w] - fb[b, :h, :w]).abs().max())
@@ -938,10 +992,10 @@ def main() -> int:
                                      f"bf16 does from float32")
     cfg_rbf = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                               compute_dtype="bfloat16", corr_precision="default")
-    infer_rbf = make_ragged_inference_fn(cfg_rbf, iters=ITERS)
+    run_rbf = eager_fn(cfg_rbf, ITERS)
     launches_rbf = drive(
         f"BF ragged batch of 3 in {BOX[0]}x{BOX[1]}, {ITERS} iters",
-        infer_rbf, model_bf, [(rim1, rim2, sizes)],
+        run_rbf, model_bf, [(rim1, rim2, sizes)],
         {"corr_ragged": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
     with torch.no_grad():
         worst = bf16_step_parity(cfg_rbf, torch.from_numpy(rim1).to(dev),
@@ -976,9 +1030,9 @@ def main() -> int:
             t.copy_(dev_t(rng_c1.uniform(lo, hi, tuple(t.shape))))
     model_c1_bf = init_raft_torch(cfg_bf, device=dev)
     model_c1_bf.load_state_dict(model_c1.state_dict())
-    drive("C1 weights, main path: 1 request", infer_k, model_c1, pairs[:1],
+    drive("C1 weights, main path: 1 request", run_k, model_c1, pairs[:1],
           {"corr_lookup": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
-    drive("C1 weights, BF: 1 request", infer_bf, model_c1_bf, pairs[:1],
+    drive("C1 weights, BF: 1 request", run_bf, model_c1_bf, pairs[:1],
           {"corr_packed": ITERS, "sep_conv_gru": ITERS * gru_per_iter})
     with torch.no_grad():
         t1, t2 = (torch.from_numpy(x).to(dev) for x in pairs[0])
@@ -998,12 +1052,12 @@ def main() -> int:
     # of the same request with TF32 off in the whole process, and the
     # caller's switches are as they were after it; not held, printed: the
     # same forward through raft_forward with cuDNN TF32 on
+    # (a factory of its own, whose graph is captured under those switches)
     cudnn_, matmul_ = torch.backends.cudnn, torch.backends.cuda.matmul
-    infer_3 = make_inference_fn(cfg_k, iters=3)
     a, b = pairs[0]
-    off = infer_3(model, a, b)
+    off = eager_fn(cfg_k, 3)(model, a, b)
     cudnn_.allow_tf32, matmul_.allow_tf32 = True, False     # PyTorch's defaults
-    dflt = infer_3(model, a, b)
+    dflt = make_inference_fn(cfg_k, iters=3)(model, a, b)
     flags_after = (cudnn_.allow_tf32, matmul_.allow_tf32)
     with torch.no_grad():
         tf32 = raft_forward(model, torch.from_numpy(a).to(dev),
@@ -1017,6 +1071,298 @@ def main() -> int:
     if held[0] > 1.0 or flags_after != (True, False):
         raise AssertionError("C2: the float32 entry point ran with TF32 or "
                              "did not restore the caller's switches")
+
+    # -- 6f. the inference functions as captured CUDA graphs ---------------
+    # each path through its factory (captured at the first call, replayed
+    # after it) beside the eager raft_forward of the same requests: the
+    # replay equals eager bitwise (else within phase 4's bound, the reason
+    # printed); a capture counts its eager warm-up's launches and the
+    # captured forward's, a replay none
+    def held_replay(label, got, want, crops=None):
+        torch.cuda.synchronize()
+        if torch.equal(got, want):
+            print(f"{label}: replay bitwise equal to eager")
+            return
+        ratio, msg = _within(label, got, want, crops)
+        print(f"{label}: replay NOT bitwise equal to eager; {msg} (ratio "
+              f"{ratio:.3g}); reason: the graph's kernels differ from the "
+              f"eager run's (a cuDNN engine chosen anew, or a sum of "
+              f"another order)")
+        if ratio > 1.0:
+            raise AssertionError(f"{label}: replay disagrees with eager")
+
+    def captured_drive(label, fn, run, mdl, reqs, crops=None):
+        """Every request of ``reqs`` through the factory ``fn`` (one
+        capture, then replays) and through ``run`` (eager): counts, one
+        graph, each replay held to eager; the graph pool's size, as the
+        device memory reserved after the capture less before it (the
+        allocator's free cache emptied on both sides).  Returns the
+        eager flows."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        _reset(*kernels)
+        first = fn(mdl, *reqs[0])
+        torch.cuda.synchronize()
+        at_capture = _launches(*kernels)
+        torch.cuda.empty_cache()
+        pool_mib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 20
+        outs = [first] + [fn(mdl, *req) for req in reqs[1:]]
+        torch.cuda.synchronize()
+        replays = {k: v - at_capture[k] for k, v in _launches(*kernels).items()}
+        _reset(*kernels)
+        want = [run(mdl, *req) for req in reqs]
+        torch.cuda.synchronize()
+        eager1 = {k: v // len(reqs) for k, v in _launches(*kernels).items()}
+        print(f"{label}: {len(reqs)} requests, graphs {fn.graphs.graph_count()}, "
+              f"captures {fn.graphs.captures}; launches at the capture "
+              f"{at_capture} (an eager request: {eager1}), at the replays "
+              f"{replays}; graph pool {pool_mib:.0f} MiB reserved")
+        if (fn.graphs.captures != 1 or fn.graphs.graph_count() != 1
+                or at_capture != {k: 2 * v for k, v in eager1.items()}
+                or any(replays.values())):
+            raise AssertionError(f"{label}: not one capture of the eager "
+                                 f"path's launches")
+        # every output is the caller's own: the later replays left the
+        # earlier results as they were
+        for i, (o, w) in enumerate(zip(outs, want)):
+            held_replay(f"{label}, request {i}", o, w, crops)
+        return want, pool_mib
+
+    infer_k = make_inference_fn(cfg_k, iters=ITERS)
+    infer_bf = make_inference_fn(cfg_bf, iters=ITERS)
+    infer_bfc = make_inference_fn(cfg_bfc, iters=ITERS)
+    infer_r = make_ragged_inference_fn(cfg_k, iters=ITERS)
+    infer_rbf = make_ragged_inference_fn(cfg_rbf, iters=ITERS)
+    pool_mib = {}
+    for label, fn, run, mdl, reqs, crops_ in (
+            ("captured f32 main", infer_k, run_k, model, pairs[:2], None),
+            ("captured BF", infer_bf, run_bf, model_bf, pairs[:2], None),
+            ("captured pallas-bf16corr-ctx-gru", infer_bfc, run_bfc, model_bf,
+             pairs[:2], None),
+            ("captured ragged f32", infer_r, run_r, model,
+             [(rim1, rim2, sizes)], CROPS),
+            ("captured ragged bf16", infer_rbf, run_rbf, model_bf,
+             [(rim1, rim2, sizes)], CROPS)):
+        pool_mib[label.split(" ", 1)[1]] = captured_drive(
+            label, fn, run, mdl, reqs, crops_)[1]
+
+    # a second key captures a second graph, and the first still replays
+    # right: a FlyingChairs-size pair (384x512) beside 432x1024; the ragged
+    # box at batch 2 beside batch 3
+    a, b = pairs[0]
+    small_pair = (a[:, :384, :512].copy(), b[:, :384, :512].copy())
+    held_replay("captured f32 main, a 384x512 pair (second graph)",
+                infer_k(model, *small_pair), run_k(model, *small_pair))
+    held_replay("captured f32 main, 432x1024 again after it",
+                infer_k(model, a, b), run_k(model, a, b))
+    held_replay("captured ragged f32, batch of 2 in the box (second graph)",
+                infer_r(model, rim1[:2], rim2[:2], sizes[:2]),
+                run_r(model, rim1[:2], rim2[:2], sizes[:2]), CROPS[:2])
+    held_replay("captured ragged f32, batch of 3 again after it",
+                infer_r(model, rim1, rim2, sizes), run_r(model, rim1, rim2, sizes),
+                CROPS)
+    # other crops in the same box: sizes are an input, no new capture
+    crops2 = ((400, 1000), (320, 1248), (440, 640))
+    sizes2 = np.array(crops2, np.int32)
+    held_replay(f"captured ragged f32, new sizes {[list(c) for c in crops2]}",
+                infer_r(model, rim1, rim2, sizes2), run_r(model, rim1, rim2, sizes2),
+                crops2)
+    graphs_k, graphs_r = infer_k.graphs, infer_r.graphs
+    print(f"captured f32 main: graphs {graphs_k.graph_count()}, captures "
+          f"{graphs_k.captures}; captured ragged: graphs {graphs_r.graph_count()}, "
+          f"captures {graphs_r.captures} (new sizes captured nothing)")
+    if (graphs_k.captures, graphs_r.captures) != (2, 2):
+        raise AssertionError("a second key did not capture once, or new sizes "
+                             "captured")
+    # weights: an in-place load is seen by the next replay; a parameter's
+    # storage moved makes the next call capture anew
+    model_w = init_raft_torch(cfg_k, generator=torch.Generator().manual_seed(0),
+                              device=dev)
+    infer_wt = make_inference_fn(cfg_k, iters=ITERS)
+    before = infer_wt(model_w, a, b)
+    model_w.load_state_dict(model_c1.state_dict())
+    held_replay("captured f32 main after an in-place load of the C1 weights",
+                infer_wt(model_w, a, b), run_k(model_c1, a, b))
+    held_replay("  the result taken before the load, unchanged", before,
+                flows_k[0])
+    captures_in_place = infer_wt.graphs.captures
+    # every storage moved (the old ones held, so no address is reused)
+    old_storage = [t.data for t in model_w.state_dict().values()]
+    model_w.cpu()
+    model_w.to(dev)
+    held_replay("captured f32 main after the model moved (storages changed)",
+                infer_wt(model_w, a, b), run_k(model_c1, a, b))
+    print(f"weights: captures after the in-place load {captures_in_place} "
+          f"(1 wanted), after the move {infer_wt.graphs.captures} (2 wanted)")
+    if (captures_in_place, infer_wt.graphs.captures) != (1, 2):
+        raise AssertionError("the weight rule of the capture does not hold")
+    del model_w, infer_wt, old_storage
+
+    # -- 6g. raft-small: RAFTConfig.small_model(corr_impl='pallas') --------
+    # B1 at the small shape (r = 3, C = 128) held to its plain version, both
+    # entries, its tiles by box, all on the MMA path, all on the gather
+    rng8 = np.random.RandomState(8)
+    rs, cs = 3, 128
+    s_f1 = dev_t(rng8.randn(1, h8, w8, cs))
+    s_levels = [lv.contiguous() for lv in fmap2_pyramid(dev_t(rng8.randn(1, h8, w8, cs)), L)]
+    s_noise = rng8.uniform(-(rs + 3), rs + 3, (1, h8, w8, 2))
+    s_noise[rng8.rand(1, h8, w8) < 0.125] += np.array([-300.0, 700.0])
+    s_coords = (coords_grid(1, h8, w8, device=dev) + dev_t(s_noise)).contiguous()
+    s_wild = (coords_grid(1, h8, w8, device=dev) + dev_t(rng8.uniform(
+        -w8, w8, (1, h8, w8, 2)))).contiguous()
+    small_b1 = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "bf16 " if dt == torch.bfloat16 else ""
+        a_, l_ = s_f1.to(dt), [x.to(dt) for x in s_levels]
+        err_ = max(b1_held(f"{tag}[1,54,128,128] L=4 r=3 (raft-small), {label}",
+                           a_, l_, cc, rs)
+                   for label, cc in (("noisy", s_coords), ("scattered", s_wild)))
+        ms_ = _time_ms(lambda: corr_cuda.corr_lookup_cuda(a_, l_, s_coords, rs), 3, 50)
+        plain_ms_ = _time_ms(lambda: lookup_blockwise_onehot(a_, l_, s_coords, rs), 1, 5)
+        bound_ = _corr_bound(a_, l_, s_coords, rs)
+        small_b1[dt] = (err_, ms_, plain_ms_) + bound_
+        print(f"corr_lookup {tag}at raft-small's shape [1,54,128,128] L=4 r=3: "
+              f"{ms_:.4f} ms/call (plain {plain_ms_:.4f}), bound {bound_[0]:.4f} "
+              f"ms by {bound_[1]}, max_abs_err {err_:.3e}")
+    corr_err = max(corr_err, small_b1[torch.float32][0])
+    bf_err["corr_lookup"] = max(bf_err["corr_lookup"], small_b1[torch.bfloat16][0])
+    # B3, B4 and B5 at the small shape likewise, both entries: the window
+    # and the packed lookups ('all' and 'window') on the maps above, the
+    # ragged lookup on phase 3's box at C = 128 (live queries held, dead
+    # ones exact zeros)
+    s_rf1 = mask_ragged_rows(dev_t(rng8.randn(3, hb, wb, cs)), sizes8).contiguous()
+    s_rlevels = [lv.contiguous() for lv in ragged_pyramid(
+        dev_t(rng8.randn(3, hb, wb, cs)), sizes8, L)]
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "bf16 " if dt == torch.bfloat16 else ""
+        a_, l_ = s_f1.to(dt), [x.to(dt) for x in s_levels]
+        ra_, rl_ = s_rf1.to(dt), [x.to(dt) for x in s_rlevels]
+        errs = {"corr_window": 0.0, "corr_packed": 0.0, "corr_ragged": 0.0}
+        for label, cc in (("noisy", s_coords), ("scattered", s_wild)):
+            shape = f"{tag}[1,54,128,128] L=4 r=3 (raft-small), {label} coords"
+            errs["corr_window"] = max(errs["corr_window"], three_ways(
+                f"corr_window {shape}", lambda ratio, st, cc=cc:
+                corr_cuda.corr_window_cuda(a_, l_, cc, rs, mma_ratio=ratio, stats=st),
+                lookup_window_plain(a_, l_, cc, rs), L))
+            for ps in ("all", "window"):
+                errs["corr_packed"] = max(errs["corr_packed"], packed_held(
+                    f"corr_packed {ps} {shape}", a_, l_, cc, ps, rs))
+        for label, cc in (("noisy", rcoords), ("scattered", rwild)):
+            errs["corr_ragged"] = max(errs["corr_ragged"], ragged_held(
+                f"corr_ragged {tag}[3,{hb},{wb},128] r=3 (raft-small) sizes8 "
+                f"{sizes8.tolist()}, {label} coords", ra_, rl_, cc, sizes8,
+                live8, rs))
+        print(f"raft-small shape, {tag or 'f32 '}window / packed / ragged "
+              f"lookups: max_abs_err {errs}")
+        if dt == torch.float32:
+            win_err = max(win_err, errs["corr_window"])
+            pack_err = max(pack_err, errs["corr_packed"])
+            rag_err = max(rag_err, errs["corr_ragged"])
+        else:
+            for k, e in errs.items():
+                bf_err[k] = max(bf_err[k], e)
+
+    cfg_s = RAFTConfig.small_model(corr_impl="pallas")
+    cfg_sp = RAFTConfig.small_model(corr_impl="blockwise")
+    cfg_sb = RAFTConfig.small_model(corr_impl="pallas", compute_dtype="bfloat16",
+                                    corr_precision="default")
+    cfg_sbp = RAFTConfig.small_model(corr_impl="blockwise", compute_dtype="bfloat16",
+                                     corr_precision="default")
+    model_s = init_raft_torch(cfg_s, generator=torch.Generator().manual_seed(0),
+                              device=dev)
+    model_sb = init_raft_torch(cfg_sb, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+    run_s, run_sb = eager_fn(cfg_s, ITERS), eager_fn(cfg_sb, ITERS)
+    n_it = N_WINDOW * ITERS
+    launches_s = drive(f"raft-small f32: {N_WINDOW} requests at {H_IMG}x{W_IMG}, "
+                       f"{ITERS} iters", run_s, model_s, pairs[:N_WINDOW],
+                       {"corr_lookup": n_it})
+    launches_sb = drive(f"raft-small bf16 ('default' corr): {N_WINDOW} requests",
+                        run_sb, model_sb, pairs[:N_WINDOW], {"corr_lookup": n_it})
+    with torch.no_grad():
+        for i, (a, b) in enumerate(pairs[:N_WINDOW]):
+            t1, t2 = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+            worst = step_parity(cfg_s, cfg_sp, t1, t2, mdl=model_s)
+            e2e = _within("3 iterations end to end", eager_fn(cfg_s, 3)(model_s, a, b),
+                          eager_fn(cfg_sp, 3)(model_s, a, b))
+            worst_bf = bf16_step_parity(cfg_sb, t1, t2, mdl_bf=model_sb,
+                                        mdl=model_s, cfg_b=cfg_sbp, cfg_f=cfg_sp)
+            print(f"raft-small pair {i}: f32 every iteration, worst {worst[1]}; "
+                  f"{e2e[1]}; bf16 per-iteration steps, worst {worst_bf[1]} "
+                  f"(ratio {worst_bf[0]:.3f})")
+            if worst[0] > 1.0 or e2e[0] > 1.0 or not worst_bf[0] <= 1.0:
+                raise AssertionError(f"raft-small pair {i}: the kernel path "
+                                     f"disagrees with the plain path")
+    infer_s = make_inference_fn(cfg_s, iters=ITERS)
+    infer_sb = make_inference_fn(cfg_sb, iters=ITERS)
+    for label, fn, run, mdl in (("raft-small f32", infer_s, run_s, model_s),
+                                ("raft-small bf16", infer_sb, run_sb, model_sb)):
+        held_replay(f"captured {label}", fn(mdl, *pairs[0]), run(mdl, *pairs[0]))
+    # the small model on the window, packed and ragged lookups: one request
+    # each (the ragged batch of phase 6), its kernel once per iteration and
+    # no other, per iteration held to small_model(corr_impl='blockwise') as
+    # in phase 4
+    for label, cfg_x, reqs, kernel, crops_x in (
+            ("window", RAFTConfig.small_model(corr_impl="pallas",
+                                              pallas_p_select="window"),
+             pairs[:1], "corr_window", None),
+            ("packed", RAFTConfig.small_model(corr_impl="pallas", pallas_pack=True),
+             pairs[:1], "corr_packed", None),
+            ("ragged", cfg_s, [(rim1, rim2, sizes)], "corr_ragged", CROPS)):
+        drive(f"raft-small f32 {label}: 1 request, {ITERS} iters",
+              eager_fn(cfg_x, ITERS), model_s, reqs, {kernel: ITERS})
+        req = reqs[0]
+        with torch.no_grad():
+            worst = step_parity(
+                cfg_x, cfg_sp, torch.from_numpy(req[0]).to(dev),
+                torch.from_numpy(req[1]).to(dev),
+                None if crops_x is None else torch.from_numpy(req[2]).to(dev),
+                crops_x, mdl=model_s)
+        print(f"raft-small {label}: every iteration, worst {worst[1]}")
+        if worst[0] > 1.0:
+            raise AssertionError(f"raft-small {label}: the kernel path "
+                                 f"disagrees with the plain path")
+
+    # -- 6h. corr_impl='dense': RAFTConfig.full() and small_model() as they
+    # stand, held per iteration to corr_impl='pallas' on the same weights
+    cfg_d, cfg_ds = RAFTConfig.full(), RAFTConfig.small_model()
+    run_d, run_ds = eager_fn(cfg_d, ITERS), eager_fn(cfg_ds, ITERS)
+    for label, run, mdl in (("dense raft-things", run_d, model),
+                            ("dense raft-small", run_ds, model_s)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held0 = torch.cuda.memory_allocated()
+        drive(f"{label}: {N_WINDOW} requests at {H_IMG}x{W_IMG}, {ITERS} iters "
+              f"(no kernel on this path)", run, mdl, pairs[:N_WINDOW], {})
+        print(f"{label}: peak device memory of a request "
+              f"{(torch.cuda.max_memory_allocated() - held0) / 2 ** 20:.0f} MiB "
+              f"above the {held0 / 2 ** 20:.0f} MiB held before it")
+    with torch.no_grad():
+        fm1, fm2, _, _ = encode_pair(model, *(torch.from_numpy(x).to(dev)
+                                              for x in pairs[0]), cfg_d)
+        pyr = build_pyramid(*lookup_operands(fm1.permute(0, 2, 3, 1),
+                                             fm2.permute(0, 2, 3, 1), L))
+        pyramid_mb = sum(x.numel() * x.element_size() for x in pyr) / 1e6
+        print(f"dense pyramid at {H_IMG}x{W_IMG}, batch 1: levels "
+              f"{[list(x.shape) for x in pyr]}, {pyramid_mb:.1f} MB "
+              f"(level 0 {pyr[0].numel() * 4 / 1e6:.1f} MB)")
+        del pyr, fm1, fm2
+        for label, c_d, c_k, mdl in (
+                ("dense raft-things", cfg_d, RAFTConfig.full(corr_impl="pallas"), model),
+                ("dense raft-small", cfg_ds, cfg_s, model_s)):
+            for i, (a, b) in enumerate(pairs[:N_WINDOW]):
+                worst = step_parity(c_d, c_k, torch.from_numpy(a).to(dev),
+                                    torch.from_numpy(b).to(dev), mdl=mdl)
+                print(f"{label} pair {i} vs corr_impl='pallas': every "
+                      f"iteration, worst {worst[1]}")
+                if worst[0] > 1.0:
+                    raise AssertionError(f"{label}: dense disagrees with pallas")
+    infer_d = make_inference_fn(cfg_d, iters=ITERS)
+    infer_ds = make_inference_fn(cfg_ds, iters=ITERS)
+    for label, fn, run, mdl in (("dense raft-things", infer_d, run_d, model),
+                                ("dense raft-small", infer_ds, run_ds, model_s)):
+        held_replay(f"captured {label}", fn(mdl, *pairs[0]), run(mdl, *pairs[0]))
 
     # -- 7. times ----------------------------------------------------------
     corr_ms = _time_ms(lambda: corr_cuda.corr_lookup_cuda(fmap1, levels, coords, r), 3, 50)
@@ -1109,38 +1455,55 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end)
 
-    call_ms(infer_k, *pairs[0])
-    lat_k = [call_ms(infer_k, *pairs[i % N_PAIRS]) for i in range(8)]
-    call_ms(infer_p, *pairs[0])
-    lat_p = [call_ms(infer_p, *pairs[i % N_PAIRS]) for i in range(4)]
-    med_k, med_p = statistics.median(lat_k), statistics.median(lat_p)
-    print(f"e2e {H_IMG}x{W_IMG} batch 1, {ITERS} iters: kernels median "
-          f"{med_k:.2f} ms/request ({1e3 / med_k:.2f} pairs/s); plain median "
-          f"{med_p:.2f} ms/request ({1e3 / med_p:.2f} pairs/s); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
-    call_ms(infer_w, *pairs[0])
-    med_w = statistics.median([call_ms(infer_w, *pairs[i % N_PAIRS]) for i in range(8)])
-    print(f"e2e {H_IMG}x{W_IMG} batch 1, {ITERS} iters, pallas_p_select='window': "
-          f"median {med_w:.2f} ms/request ({1e3 / med_w:.2f} pairs/s)")
-    med_more = {}
-    for label, fn, mdl in (("P32 all", infer_p32["all"], model),
-                           ("P32 window", infer_p32["window"], model),
-                           ("BF", infer_bf, model_bf),
-                           ("pallas-bf16corr-ctx-gru", infer_bfc, model_bf),
-                           ("pallas-bf16corr-ctx-gru-win", infer_bfw, model_bf)):
-        call_ms(fn, *pairs[0], mdl=mdl)
-        med_more[label] = statistics.median(
-            [call_ms(fn, *pairs[i % N_PAIRS], mdl=mdl) for i in range(8)])
-        print(f"e2e {H_IMG}x{W_IMG} batch 1, {ITERS} iters, {label}: median "
-              f"{med_more[label]:.2f} ms/request ({1e3 / med_more[label]:.2f} "
-              f"pairs/s) against the float32 main path's {med_k:.2f}")
+    # every path captured (its factory: one graph per key, replayed) and
+    # eager (raft_forward), in turns, after one warm-up call of each
+    def p32_cfg(ps):
+        return RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                               pallas_pack=True, pallas_p_select=ps)
 
-    call_ms(infer_r, rim1, rim2, sizes)
-    lat_r = [call_ms(infer_r, rim1, rim2, sizes) for _ in range(6)]
-    med_r = statistics.median(lat_r)
-    call_ms(infer_rbf, rim1, rim2, sizes, mdl=model_bf)
-    med_rbf = statistics.median(
-        [call_ms(infer_rbf, rim1, rim2, sizes, mdl=model_bf) for _ in range(6)])
+    ragged_req = [(rim1, rim2, sizes)]
+    e2e_paths = (
+        ("main", infer_k, run_k, model, pairs, 1),
+        ("window", make_inference_fn(cfg_w, iters=ITERS), run_w, model, pairs, 1),
+        ("p32_all", make_inference_fn(p32_cfg("all"), iters=ITERS),
+         run_p32["all"], model, pairs, 1),
+        ("p32_window", make_inference_fn(p32_cfg("window"), iters=ITERS),
+         run_p32["window"], model, pairs, 1),
+        ("bf", infer_bf, run_bf, model_bf, pairs, 1),
+        ("bf16corr_ctx_gru", infer_bfc, run_bfc, model_bf, pairs, 1),
+        ("bf16corr_ctx_gru_win", make_inference_fn(cfg_bfw, iters=ITERS), run_bfw,
+         model_bf, pairs, 1),
+        ("ragged", infer_r, run_r, model, ragged_req, 3),
+        ("ragged_bf16", infer_rbf, run_rbf, model_bf, ragged_req, 3),
+        ("small", infer_s, run_s, model_s, pairs, 1),
+        ("small_bf16", infer_sb, run_sb, model_sb, pairs, 1),
+        ("dense", infer_d, run_d, model, pairs, 1),
+        ("dense_small", infer_ds, run_ds, model_s, pairs, 1))
+    cap_all, eag_all = {}, {}
+    for key, fn, run, mdl, reqs, per_call in e2e_paths:
+        call_ms(fn, *reqs[0], mdl=mdl)
+        call_ms(run, *reqs[0], mdl=mdl)
+        cap_all[key], eag_all[key] = [], []
+        for i in range(8 if per_call == 1 else 6):
+            cap_all[key].append(call_ms(fn, *reqs[i % len(reqs)], mdl=mdl))
+            eag_all[key].append(call_ms(run, *reqs[i % len(reqs)], mdl=mdl))
+        cap, eag = statistics.median(cap_all[key]), statistics.median(eag_all[key])
+        unit = "request" if per_call == 1 else f"batch of {per_call}"
+        print(f"e2e {key}, {ITERS} iters: captured median {cap:.2f} ms/{unit} "
+              f"({1e3 * per_call / cap:.2f} pairs/s, min {min(cap_all[key]):.2f} "
+              f"max {max(cap_all[key]):.2f}); eager median {eag:.2f} "
+              f"({1e3 * per_call / eag:.2f} pairs/s, min {min(eag_all[key]):.2f} "
+              f"max {max(eag_all[key]):.2f})")
+    cap_med = {k: statistics.median(v) for k, v in cap_all.items()}
+    eag_med = {k: statistics.median(v) for k, v in eag_all.items()}
+    call_ms(run_p, *pairs[0])
+    lat_p = [call_ms(run_p, *pairs[i % N_PAIRS]) for i in range(4)]
+    med_p = statistics.median(lat_p)
+    lat_k, med_k = cap_all["main"], cap_med["main"]
+    med_r = cap_med["ragged"]
+    print(f"e2e {H_IMG}x{W_IMG} batch 1, {ITERS} iters: the plain path (eager) "
+          f"median {med_p:.2f} ms/request ({1e3 / med_p:.2f} pairs/s); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     live_share = sum(h * w for h, w in CROPS) / (len(CROPS) * BOX[0] * BOX[1])
     seq = []
     for (a, b), (h, w) in zip(crops, CROPS):
@@ -1148,15 +1511,12 @@ def main() -> int:
         a8, b8 = embed_to_shape(a, hw8), embed_to_shape(b, hw8)
         call_ms(infer_k, a8, b8)
         seq.append(statistics.median([call_ms(infer_k, a8, b8) for _ in range(4)]))
-    print(f"ragged batch of 3 in {BOX[0]}x{BOX[1]}, {ITERS} iters: median "
-          f"{med_r:.2f} ms/batch ({3e3 / med_r:.2f} pairs/s), live-pixel share "
-          f"{live_share:.3f}; not held: the 3 pairs one by one through "
-          f"make_inference_fn at their sizes padded to multiples of 8: "
+    print(f"ragged batch of 3 in {BOX[0]}x{BOX[1]}, {ITERS} iters: captured "
+          f"median {med_r:.2f} ms/batch ({3e3 / med_r:.2f} pairs/s), live-pixel "
+          f"share {live_share:.3f}; not held: the 3 pairs one by one, captured, "
+          f"at their sizes padded to multiples of 8: "
           f"{' + '.join(f'{x:.2f}' for x in seq)} = {sum(seq):.2f} ms "
           f"({3e3 / sum(seq):.2f} pairs/s)")
-    print(f"ragged batch of 3 in {BOX[0]}x{BOX[1]}, {ITERS} iters, bfloat16 "
-          f"compute and 'default' corr: median {med_rbf:.2f} ms/batch "
-          f"({3e3 / med_rbf:.2f} pairs/s) against the float32 batch's {med_r:.2f}")
 
     # where a request's time goes: stages by CUDA events, kernels and the
     # device's idle share by torch.profiler
@@ -1165,43 +1525,71 @@ def main() -> int:
         e.record()
         return e
 
+    # (each sequence twice, the second printed: the first may pay the
+    # allocator's growth after the graphs' captures)
     a, b = (torch.from_numpy(x).to(dev) for x in pairs[0])
-    with torch.no_grad():
-        e0 = ev()
-        fm1, fm2, net, inp = encode_pair(model, a, b, cfg_k)
-        e1 = ev()
-        loop = prepare_loop(model, fm1, fm2, inp, cfg_k)
-        e2 = ev()
-        c1 = loop.coords0
-        for it in range(ITERS):
-            net, c1, mk = gru_step(model, cfg_k, loop, net, c1)
-            if it == 2:
-                c3 = c1                    # the coords after 3 iterations
-        e3 = ev()
-        convex_upsample_flow(c1 - loop.coords0, mk)
-        e4 = ev()
-    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.no_grad():
+            e0 = ev()
+            fm1, fm2, net, inp = encode_pair(model, a, b, cfg_k)
+            e1 = ev()
+            loop = prepare_loop(model, fm1, fm2, inp, cfg_k)
+            e2 = ev()
+            c1 = loop.coords0
+            for it in range(ITERS):
+                net, c1, mk = gru_step(model, cfg_k, loop, net, c1)
+                if it == 2:
+                    c3 = c1                    # the coords after 3 iterations
+            e3 = ev()
+            convex_upsample_flow(c1 - loop.coords0, mk)
+            e4 = ev()
+        torch.cuda.synchronize()
     stages = {"encoders": e0.elapsed_time(e1), "loop_setup": e1.elapsed_time(e2),
               "iterations": e2.elapsed_time(e3), "upsample": e3.elapsed_time(e4)}
     print("stages ms/request: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     # the BF path's stages, before any profiler session (whose hooks slow
     # the host, and the BF path waits on the host)
-    with torch.no_grad():
-        be = [ev()]
-        bfm1, bfm2, bnet, binp = encode_pair(model_bf, a, b, cfg_bf)
-        be.append(ev())
-        bloop = prepare_loop(model_bf, bfm1, bfm2, binp, cfg_bf)
-        be.append(ev())
-        bc1 = bloop.coords0
-        for _ in range(ITERS):
-            bnet, bc1, bmk = gru_step(model_bf, cfg_bf, bloop, bnet, bc1)
-        be.append(ev())
-        convex_upsample_flow(bc1 - bloop.coords0, bmk.float())
-        be.append(ev())
-    torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.no_grad():
+            be = [ev()]
+            bfm1, bfm2, bnet, binp = encode_pair(model_bf, a, b, cfg_bf)
+            be.append(ev())
+            bloop = prepare_loop(model_bf, bfm1, bfm2, binp, cfg_bf)
+            be.append(ev())
+            bc1 = bloop.coords0
+            for _ in range(ITERS):
+                bnet, bc1, bmk = gru_step(model_bf, cfg_bf, bloop, bnet, bc1)
+            be.append(ev())
+            convex_upsample_flow(bc1 - bloop.coords0, bmk.float())
+            be.append(ev())
+        torch.cuda.synchronize()
     print("BF stages ms/request: " + ", ".join(
         f"{k} {be[i].elapsed_time(be[i + 1]):.3f}" for i, k in enumerate(
             ("encoders", "loop_setup", "iterations", "upsample"))))
+
+    # BF's loop set-up (prepare_loop: pyramid, bf16 rounding, the GRU's
+    # fused and kernel-laid-out weights, context terms) eager and as a
+    # replay of its own graph: device ms per call over 20 calls
+    def bf_setup():
+        with torch.no_grad():
+            return prepare_loop(model_bf, bfm1, bfm2, binp, cfg_bf)
+
+    setup_graph, _ = capture(bf_setup)
+    bf_setup_ms = {"eager": _time_ms(bf_setup, 3, 20),
+                   "captured": _time_ms(setup_graph.replay, 3, 20)}
+    print(f"BF loop set-up: eager {bf_setup_ms['eager']:.3f} ms/call, "
+          f"captured {bf_setup_ms['captured']:.3f} ms/replay")
+    del setup_graph
+    # the fresh outputs every captured call returns: the clone of the f32
+    # main path's RAFTOutput (flow, flow_lr, iters_used), device ms per call
+    out_m = infer_k.graphs(model, *pairs[0])
+    clone_parts = {k: list(t.shape) for k, t in out_m._asdict().items()
+                   if t is not None}
+    clone_bytes = sum(t.numel() * t.element_size() for t in out_m if t is not None)
+    clone_ms = _time_ms(lambda: [None if t is None else t.clone() for t in out_m],
+                        3, 50)
+    print(f"captured call's output clone at {H_IMG}x{W_IMG}: {clone_parts}, "
+          f"{clone_bytes} bytes, {clone_ms:.4f} ms/call")
     # the two paths of the tile-body lookups and their MMA_RATIO threshold:
     # per call with the tiles sent by their boxes at MMA_RATIO (and the
     # share of tiles that took the MMA path, per level), every tile on the
@@ -1294,7 +1682,12 @@ def main() -> int:
                   L, rag_bound(a_, l_, cc), f"; corr_lookup on the same inputs {b1_ms:.4f}")
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled(label, plural, n, run):
+    def profiled(label, plural, n, run, top=6):
+        """(idle share, busy ms per call) over ``n`` calls of ``run``: 1 -
+        kernels' busy time / the events' window (the profiler's hooks slow
+        the host, so an eager path's share is overstated), and the busy
+        time; (None, 0.0) if the profiler saw no device time.  Prints the
+        ``top`` kernels."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             s0 = ev()
             for _ in range(n):
@@ -1305,18 +1698,35 @@ def main() -> int:
         kern = [k for k in prof.key_averages()
                 if k.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(k.self_device_time_total for k in kern) / 1e3
+        idle = 1 - busy / window if busy > 0 else None
         print(f"profiler: {n} {plural}, {window:.2f} ms window, kernels busy "
-              f"{busy:.2f} ms, device idle share {1 - busy / window:.3f}")
-        for k in sorted(kern, key=lambda k: -k.self_device_time_total)[:10]:
+              f"{busy:.2f} ms, device idle share "
+              f"{'not measured (no device time seen)' if idle is None else f'{idle:.3f}'}")
+        for k in sorted(kern, key=lambda k: -k.self_device_time_total)[:top]:
             print(f"  {k.self_device_time_total / (n * 1e3):8.3f} ms/{label} "
                   f"{k.count / n:6.1f} launches/{label}  {k.key[:90]}")
+        return idle, busy / n
 
-    it_pairs = iter(pairs[:2])
-    profiled("request", "requests", 2, lambda: infer_k(model, *next(it_pairs)))
-    it_pairs = iter(pairs[:2])
-    profiled("BF request", "BF requests", 2,
-             lambda: infer_bf(model_bf, *next(it_pairs)))
-    profiled("batch", "ragged batches", 2, lambda: infer_r(model, rim1, rim2, sizes))
+    # the idle share under the profiler, and 1 - busy / the unprofiled
+    # median latency of the same path (what the host leaves idle when no
+    # profiler slows it)
+    idle = {"captured": {}, "eager": {}}
+    idle_of_median = {"captured": {}, "eager": {}}
+    for key, fn, run, mdl, reqs, per_call in e2e_paths:
+        if key in ("window", "p32_all", "p32_window", "bf16corr_ctx_gru_win"):
+            continue
+        # raft-small and the dense paths: their captured breakdown only
+        hows = ((("captured", fn),) if key.startswith(("small", "dense"))
+                else (("captured", fn), ("eager", run)))
+        for how, f in hows:
+            it_reqs = iter(reqs * 2)
+            idle[how][key], busy_ms = profiled(
+                f"{how} {key} call", f"{how} {key} calls", 2,
+                lambda: f(mdl, *next(it_reqs)))
+            med = (cap_med if how == "captured" else eag_med)[key]
+            idle_of_median[how][key] = 1 - busy_ms / med
+            print(f"  {how} {key}: busy {busy_ms:.2f} ms per call, 1 - busy / "
+                  f"median latency {med:.2f} = {idle_of_median[how][key]:.3f}")
     # why cudnn.benchmark is on: the motion encoder's convc2 at batch 3 and
     # about the ragged box's grid, by cuDNN's heuristic choice and
     # benchmarked.  Plans are cached by shape whatever the mode, so each
@@ -1334,23 +1744,44 @@ def main() -> int:
           f"batch 3: heuristic choice at {hb}x{conv_ms[False][0]} "
           f"{conv_ms[False][1]:.3f} ms/call, benchmark mode at "
           f"{hb}x{conv_ms[True][0]} {conv_ms[True][1]:.3f} ms/call")
+    def both(key):
+        return {"captured": cap_med[key], "eager": eag_med[key]}
+
+    wall_s = time.perf_counter() - t_start
+    print(f"chip_smoke wall time {wall_s:.1f} s")
     print(json.dumps({"e2e": {"latency_ms_median": med_k, "pairs_per_s": 1e3 / med_k,
                               "latency_ms_all": lat_k, "plain_latency_ms_median": med_p,
                               "plain_pairs_per_s": 1e3 / med_p,
-                              "window_latency_ms_median": med_w,
-                              "p32_all_latency_ms_median": med_more["P32 all"],
-                              "p32_window_latency_ms_median": med_more["P32 window"],
-                              "bf_latency_ms_median": med_more["BF"],
+                              "window_latency_ms_median": cap_med["window"],
+                              "p32_all_latency_ms_median": cap_med["p32_all"],
+                              "p32_window_latency_ms_median": cap_med["p32_window"],
+                              "bf_latency_ms_median": cap_med["bf"],
                               "bf16corr_ctx_gru_latency_ms_median":
-                                  med_more["pallas-bf16corr-ctx-gru"],
+                                  cap_med["bf16corr_ctx_gru"],
                               "bf16corr_ctx_gru_win_latency_ms_median":
-                                  med_more["pallas-bf16corr-ctx-gru-win"],
+                                  cap_med["bf16corr_ctx_gru_win"],
                               "ragged_batch_ms_median": med_r,
                               "ragged_pairs_per_s": 3e3 / med_r,
-                              "ragged_batch_ms_all": lat_r,
-                              "ragged_bf16_batch_ms_median": med_rbf,
+                              "ragged_batch_ms_all": cap_all["ragged"],
+                              "ragged_bf16_batch_ms_median": cap_med["ragged_bf16"],
                               "ragged_live_pixel_share": live_share,
-                              "one_by_one_ms": seq}}))
+                              "one_by_one_ms": seq,
+                              "captured_latency_ms_median": cap_med,
+                              "eager_latency_ms_median": eag_med,
+                              "captured_latency_ms_all": cap_all,
+                              "eager_latency_ms_all": eag_all,
+                              "idle_share": idle,
+                              "idle_share_of_median": idle_of_median,
+                              "small_latency_ms_median": {
+                                  "f32": both("small"), "bf16": both("small_bf16")},
+                              "dense_latency_ms_median": {
+                                  "raft_things": both("dense"),
+                                  "raft_small": both("dense_small")},
+                              "dense_pyramid_mb": pyramid_mb,
+                              "graph_pool_mib": pool_mib,
+                              "bf_loop_setup_ms": bf_setup_ms,
+                              "output_clone_ms": clone_ms,
+                              "wall_s": wall_s}}))
 
     def entry(name, source, replaces, runs, err, ms, plain_ms, bound, by):
         return {"name": name, "route": "cuda", "source": source,
@@ -1361,7 +1792,8 @@ def main() -> int:
     print(f"device: {smi}")
     print(json.dumps({"kernels": [
         entry("corr_lookup", "raft_tpu_torch/csrc/corr_lookup.cu",
-              "raft_tpu/ops/corr_pallas.py:349", launches["corr_lookup"],
+              "raft_tpu/ops/corr_pallas.py:349",
+              launches["corr_lookup"] + launches_s["corr_lookup"],
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242", launches["sep_conv_gru"],
@@ -1380,7 +1812,7 @@ def main() -> int:
                bf_err[name], bf_ms[name][0], bf_ms[name][1], *bf_ms[name][2])
          for name, src, replaces, runs in (
              ("corr_lookup", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:349",
-              launches_bfc["corr_lookup"]),
+              launches_bfc["corr_lookup"] + launches_sb["corr_lookup"]),
              ("corr_window", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:342",
               launches_bfw["corr_window"]),
              ("corr_packed", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:125",

@@ -1,10 +1,12 @@
 """raft_tpu_torch: the PyTorch/CUDA port of raft_tpu for an NVIDIA H100.
 
 It imports torch and numpy only — never jax, never raft_tpu.  It runs
-eval-mode inference of the full ``raft-things`` model, pairwise and on
+eval-mode inference of ``raft-things`` and ``raft-small``, pairwise and on
 ragged mixed-resolution batches, in float32 or under the bf16 compute
-policy, with hand-written CUDA kernels for the correlation lookups
-(``ops/corr_cuda.py``) and the SepConvGRU iteration (``ops/gru_cuda.py``).
+policy, with the dense correlation volume or hand-written CUDA kernels for
+the correlation lookups (``ops/corr_cuda.py``) and the SepConvGRU
+iteration (``ops/gru_cuda.py``).  On CUDA the inference functions replay
+captured CUDA graphs (``models/capture.py``).
 
     model = init_raft_torch(RAFTConfig.full(), device="cuda")
     cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")

@@ -58,7 +58,12 @@ class RAFTConfig:
     ``corr_impl='pallas'`` / ``gru_impl='pallas'`` select this port's CUDA
     kernels (the names stay those of the JAX configuration they replace);
     ``corr_impl='blockwise', corr_lookup='onehot'`` and ``gru_impl='xla'``
-    select their plain PyTorch versions.  The TPU tiling knobs
+    select their plain PyTorch versions; ``corr_impl='dense'`` (the
+    default) materialises the correlation volume of every level (one
+    matrix product each, as JAX leaves it to XLA) and samples it with
+    ``corr_lookup`` ('onehot' or 'gather').  ``small=True`` is raft-small
+    (``small_model()``): its 3x3 ConvGRU is stock PyTorch, as in JAX, so
+    it takes ``gru_impl='xla'`` only.  The TPU tiling knobs
     ``pallas_q_blk``, ``pallas_p_blk``, ``pallas_lookup_style`` and
     ``gru_block_rows`` are accepted and validated as in JAX but change no
     value: the CUDA kernels have their own fixed tiling.
@@ -141,7 +146,7 @@ class RAFTConfig:
 
     @staticmethod
     def small_model(**overrides) -> "RAFTConfig":
-        """raft-small variant (not ported yet: ROADMAP Queue A item 6b)."""
+        """raft-small variant."""
         defaults = dict(small=True, hidden_dim=96, context_dim=64,
                         corr_radius=3, iters=12)
         return RAFTConfig(**{**defaults, **overrides})
@@ -188,17 +193,11 @@ def check_port_support(config: RAFTConfig) -> None:
     not implement yet (each names its ROADMAP item)."""
     _validate_like_jax(config)
     todo = []
-    if config.small:
-        todo.append("small=True (the raft-small variant): ROADMAP Queue A "
-                    "item 6b")
     if parse_iters_policy(config.iters_policy)[0] != "fixed":
         todo.append(f"iters_policy={config.iters_policy!r}: ROADMAP Queue A "
                     f"item 6c")
     if config.quant != "none":
         todo.append(f"quant={config.quant!r}: ROADMAP Queue A item 6d")
-    if config.corr_impl == "dense":
-        todo.append("corr_impl='dense' (the materialised volume): ROADMAP "
-                    "Queue A item 6e")
     if config.corr_impl == "blockwise" and config.corr_lookup != "onehot":
         todo.append(f"corr_impl='blockwise' with corr_lookup="
                     f"{config.corr_lookup!r}: ROADMAP Queue A item 6e")

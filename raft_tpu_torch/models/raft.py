@@ -1,4 +1,4 @@
-"""RAFT (the full ``raft-things`` model), eval-mode inference.
+"""RAFT (``raft-things`` and ``raft-small``), eval-mode inference.
 
 The port of the JAX package's ``models/raft.py``: ``make_inference_fn``
 (pairwise) and ``make_ragged_inference_fn`` / ``make_ragged_counted_
@@ -9,16 +9,22 @@ Inside, activations are NCHW ``channels_last`` (NHWC in memory), so the
 kernels read them through ``permute`` views without copies.
 
 Per iteration the loop runs the correlation lookup, the motion encoder,
-the SepConvGRU (``gru_impl='pallas'``: the CUDA kernel of
-``ops/gru_cuda.py``; ``'xla'``: its plain version) and the flow and mask
-heads; then convex upsampling.  The lookup (``ops/corr_cuda.py``) is, with
+the GRU and the heads; then the upsampling.  The full model's GRU is the
+SepConvGRU (``gru_impl='pallas'``: the CUDA kernel of ``ops/gru_cuda.py``;
+``'xla'``: its plain version), its heads the flow and mask heads, its
+upsampling convex; the small model's GRU is a 3x3 ConvGRU in stock
+PyTorch (as in JAX, it has no kernel), its head the flow head alone, its
+upsampling ``upflow8``.  The lookup (``ops/corr_cuda.py``) is, with
 ``corr_impl='pallas'``, the CUDA kernel of ``pallas_p_select`` ('all' or
 'window'; with ``pallas_pack=True`` the narrow levels go to the packed
 kernel) or, for a ragged batch, the ragged kernel (``pallas_pack`` does not
 apply there, as in JAX); with ``'blockwise'`` + ``'onehot'``, the plain
-versions.  A ragged batch masks the images and the correlation features
-outside each item's crop; everything else runs over the whole max box, as
-in JAX, and the caller slices each item's crop.
+versions; with ``'dense'``, the materialised pyramid (``ops/corr.py::
+build_pyramid``) sampled by ``corr_lookup``.  A ragged batch masks the
+images and the correlation features outside each item's crop, and takes
+the ragged kernel under 'pallas', the masked plain twin under 'dense' and
+'blockwise', as in JAX; everything else runs over the whole max box, and
+the caller slices each item's crop.
 
 ``compute_dtype='bfloat16'`` follows the JAX package's policy: the images
 are cast after ``2x - 1``; the model's weights must already be bfloat16
@@ -31,16 +37,18 @@ coordinates and the upsampling stay float32.
 
 Entry points (:func:`init_raft_torch`, :func:`make_inference_fn`, the
 ragged ones) run on CUDA unless the caller passes ``device="cpu"``, and
-raise when CUDA is absent and the CPU was not asked for.  Under
-``compute_dtype='float32'`` the inference functions run each call with
-TF32 off for cuDNN and cuBLAS (:func:`tf32_off`), as the JAX package's
-float32 convs are computed, and give the caller's settings back after it.
+raise when CUDA is absent and the CPU was not asked for.  On CUDA the
+inference functions replay captured CUDA graphs (``models/capture.py``);
+on the CPU they run eager.  :func:`raft_forward` is always eager.  Under
+``compute_dtype='float32'`` the inference functions run with TF32 off for
+cuDNN and cuBLAS (:func:`tf32_off`), as the JAX package's float32 convs
+are computed, and give the caller's settings back after it.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -48,14 +56,17 @@ import torch.nn as nn
 from ..config import RAFTConfig, check_port_support
 from ..ops.conv import init_conv_, to_nchw, to_nhwc
 from ..ops.coords import coords_grid
-from ..ops.corr import (lookup_blockwise_onehot, lookup_operands,
+from ..ops.corr import (build_pyramid, lookup_blockwise_onehot, lookup_dense,
+                        lookup_dense_onehot, lookup_operands,
                         lookup_ragged_plain, mask_ragged_rows)
 from ..ops.corr_cuda import (make_fused_lookup, make_ragged_fused_lookup,
                              make_window_lookup)
 from ..ops.gru_cuda import fuse_gru_weights, prepare_gru_weights
-from ..ops.upsample import convex_upsample_flow
-from .encoders import BasicEncoder
-from .update import BasicUpdateBlock, precompute_gru_ctx
+from ..ops.upsample import convex_upsample_flow, upflow8
+from .capture import GraphedForward
+from .encoders import BasicEncoder, SmallEncoder
+from .update import (BasicUpdateBlock, SmallUpdateBlock, fuse_conv_gru_weights,
+                     precompute_gru_ctx)
 
 
 class RAFTOutput(NamedTuple):
@@ -77,14 +88,18 @@ def resolve_device(device=None) -> torch.device:
 
 
 class RAFT(nn.Module):
-    """The weights of the full model; ``state_dict`` keys are the JAX
-    parameter paths (see ``convert/weights.py``)."""
+    """The weights of the full model or, with ``config.small``, of
+    raft-small; ``state_dict`` keys are the JAX parameter paths (see
+    ``convert/weights.py``)."""
 
     def __init__(self, config: RAFTConfig):
         super().__init__()
         if config.small:
-            raise NotImplementedError("small=True (the raft-small variant) "
-                                      "is ROADMAP Queue A item 6b")
+            self.fnet = SmallEncoder(config.fnet_dim, "instance")
+            self.cnet = SmallEncoder(config.cnet_dim, "none")
+            self.update_block = SmallUpdateBlock(
+                config.corr_feature_dim, config.hidden_dim, config.context_dim)
+            return
         self.fnet = BasicEncoder(config.fnet_dim, "instance")
         self.cnet = BasicEncoder(config.cnet_dim, "batch")
         self.update_block = BasicUpdateBlock(
@@ -119,6 +134,31 @@ def _preprocess(image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[B, H, W, 3] float32 in [0, 1] -> NCHW channels_last in [-1, 1],
     cast to ``dtype`` after the affine map."""
     return to_nchw((2.0 * image - 1.0).to(dtype).contiguous())
+
+
+def check_images(image1, image2) -> Tuple[int, int, int]:
+    """(B, H, W) of two [B, H, W, 3] image batches (arrays or tensors);
+    raises unless their shapes agree and H and W are multiples of 8."""
+    shape1, shape2 = tuple(image1.shape), tuple(image2.shape)
+    if len(shape1) != 4 or shape1[3] != 3:
+        raise ValueError(f"images must be [B, H, W, 3], got {list(shape1)}")
+    if shape2 != shape1:
+        raise ValueError(f"image shapes differ: {shape1} vs {shape2}")
+    B, H, W, _ = shape1
+    if H % 8 or W % 8:
+        raise ValueError(
+            f"RAFT requires H and W divisible by 8, got {(H, W)}; pad or "
+            f"resize the inputs.")
+    return B, H, W
+
+
+def check_sizes(sizes: torch.Tensor, B: int) -> torch.Tensor:
+    """``sizes`` as int32, after checking it is an integer [B, 2]."""
+    if tuple(sizes.shape) != (B, 2) or sizes.is_floating_point():
+        raise ValueError(f"sizes must be an integer [B, 2] = {[B, 2]} "
+                         f"tensor of live (h, w) per item, got "
+                         f"{sizes.dtype} {list(sizes.shape)}")
+    return sizes.to(torch.int32)
 
 
 def _check_model_dtype(model: RAFT, config: RAFTConfig) -> None:
@@ -166,22 +206,10 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     check_port_support(config)
     _check_model_dtype(model, config)
     iters = config.iters if iters is None else iters
-    B, H, W, _ = image1.shape
-    if H % 8 or W % 8:
-        raise ValueError(
-            f"RAFT requires H and W divisible by 8, got {(H, W)}; pad or "
-            f"resize the inputs.")
-    if image2.shape != image1.shape:
-        raise ValueError(f"image shapes differ: {tuple(image1.shape)} vs "
-                         f"{tuple(image2.shape)}")
+    B = check_images(image1, image2)[0]
     sizes8 = None
     if sizes is not None:
-        sizes = torch.as_tensor(sizes, device=image1.device)
-        if tuple(sizes.shape) != (B, 2) or sizes.is_floating_point():
-            raise ValueError(f"sizes must be an integer [B, 2] = {[B, 2]} "
-                             f"tensor of live (h, w) per item, got "
-                             f"{sizes.dtype} {list(sizes.shape)}")
-        sizes = sizes.to(torch.int32)
+        sizes = check_sizes(torch.as_tensor(sizes, device=image1.device), B)
         # dead regions become exact zeros whatever the caller embedded, so
         # each item's flow depends only on its crop
         image1 = mask_ragged_rows(image1, sizes)
@@ -194,8 +222,9 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
 
 class LoopState(NamedTuple):
     """What every GRU iteration reads: the lookup closure, the hoisted
-    context terms, the fused GRU weights, the GRU kernel's weights (CUDA
-    and ``gru_impl='pallas'`` only, else None) and the base coordinates."""
+    context terms, the in-loop GRU weights (the SepConvGRU's fused ones,
+    or the small ConvGRU's), the GRU kernel's weights (CUDA and
+    ``gru_impl='pallas'`` only, else None) and the base coordinates."""
     lookup: object
     gru_ctx: tuple
     gru_weights: dict
@@ -210,7 +239,9 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
     and inp [B, ctx, h, w] NCHW; ``sizes8`` [B, 2] int32 live (h, w) per
     item on the 1/8 grid for a ragged batch, else None.  The lookup's
     operands are float32 maps (bfloat16-rounded under
-    ``corr_precision='default'``), whatever the compute dtype."""
+    ``corr_precision='default'``), whatever the compute dtype; a ragged
+    batch under 'dense' or 'blockwise' takes the masked plain twin, as in
+    JAX (the volume has no ragged form)."""
     B, _, h, w = fmap1.shape
     f1 = to_nhwc(fmap1)
     f2 = to_nhwc(fmap2)
@@ -227,6 +258,13 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
         lookup = make_window_lookup(f1, f2, L, r, config.pallas_pack, prec)
     elif pallas:
         lookup = make_fused_lookup(f1, f2, L, r, config.pallas_pack, prec)
+    elif config.corr_impl == "dense":
+        pyramid = build_pyramid(*lookup_operands(f1, f2, L, prec))
+        sample = (lookup_dense_onehot if config.corr_lookup == "onehot"
+                  else lookup_dense)
+
+        def lookup(coords):
+            return sample(pyramid, coords, r)
     else:                                   # 'blockwise' + 'onehot'
         f1p, levels = lookup_operands(f1, f2, L, prec)
 
@@ -234,10 +272,17 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
             return lookup_blockwise_onehot(f1p, levels, coords, r)
 
     gru = model.update_block.gru
-    fw = fuse_gru_weights(gru, config.hidden_dim, config.context_dim)
     kw = None
-    if config.gru_impl == "pallas" and f1.device.type == "cuda":
-        kw = prepare_gru_weights(fw, compute_dtype(config))
+    if config.small:
+        fw = fuse_conv_gru_weights(gru, config.hidden_dim, config.context_dim)
+    else:
+        fw = fuse_gru_weights(gru, config.hidden_dim, config.context_dim)
+        if config.gru_impl == "pallas" and f1.device.type == "cuda":
+            # in the compute dtype: bfloat16 weights are bfloat16-exact by
+            # type, so laying them out needs no check on the host
+            cdt = compute_dtype(config)
+            kw = prepare_gru_weights({k: v.to(cdt) for k, v in fw.items()},
+                                     cdt)
     return LoopState(
         lookup=lookup,
         gru_ctx=precompute_gru_ctx(gru, inp, config.hidden_dim),
@@ -247,19 +292,29 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
 
 def gru_step(model: RAFT, config: RAFTConfig, loop: LoopState,
              net: torch.Tensor, coords1: torch.Tensor):
-    """One GRU iteration: lookup, motion encoder, SepConvGRU, heads.
+    """One GRU iteration: lookup, motion encoder, GRU, heads.
     net [B, h, w, hidden] (compute dtype) and coords1 [B, h, w, 2] (float32)
     NHWC; returns the new (net, coords1, mask), mask NHWC [B, h, w, 576] in
-    the compute dtype.  The float32 correlation and flow are cast to the
-    compute dtype, the flow update back to float32 before it moves
-    coords1."""
+    the compute dtype, or None for the small model (no mask head).  The
+    float32 correlation and flow are cast to the compute dtype, the flow
+    update back to float32 before it moves coords1."""
     cdt = compute_dtype(config)
     corr = loop.lookup(coords1).to(cdt)
     flow = (coords1 - loop.coords0).to(cdt)
     net, mask, delta_flow = model.update_block(
         net, to_nchw(corr), to_nchw(flow), loop.gru_ctx, loop.gru_weights,
         gru_impl=config.gru_impl, gru_kernel_weights=loop.gru_kernel_weights)
-    return net, coords1 + to_nhwc(delta_flow).float(), to_nhwc(mask)
+    return (net, coords1 + to_nhwc(delta_flow).float(),
+            None if mask is None else to_nhwc(mask))
+
+
+def upsample_flow(config: RAFTConfig, flow_lr: torch.Tensor,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The full-resolution flow of a low-resolution one, float32: convex
+    upsampling with ``mask`` (full model), ``upflow8`` (small model)."""
+    if config.small:
+        return upflow8(flow_lr.float())
+    return convex_upsample_flow(flow_lr, mask.float())
 
 
 def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -274,13 +329,13 @@ def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
     coords0 = loop.coords0
     coords1 = coords0 if flow_init is None else coords0 + flow_init.float()
     B, h, w, _ = coords0.shape
-    mask = torch.zeros((B, h, w, 64 * 9), dtype=compute_dtype(config),
-                       device=coords0.device)
+    mask = None if config.small else torch.zeros(
+        (B, h, w, 64 * 9), dtype=compute_dtype(config), device=coords0.device)
     flows = []
     for _ in range(iters):
         net, coords1, mask = gru_step(model, config, loop, net, coords1)
         if all_flows:
-            flows.append(convex_upsample_flow(coords1 - coords0, mask.float()))
+            flows.append(upsample_flow(config, coords1 - coords0, mask))
 
     flow_lr = coords1 - coords0
     if all_flows:
@@ -288,7 +343,7 @@ def _iterate_flow(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
         final = flow_iters[-1]
     else:
         flow_iters = None
-        final = convex_upsample_flow(flow_lr, mask.float())
+        final = upsample_flow(config, flow_lr, mask)
     iters_used = torch.full((B,), iters, dtype=torch.int32,
                             device=coords0.device)
     return RAFTOutput(flow=final, flow_iters=flow_iters, flow_lr=flow_lr,
@@ -301,7 +356,10 @@ def tf32_off():
     inside the block; the caller's two switches are restored after it,
     whether it returns or raises.  The switches are the process-wide
     ``torch.backends.cudnn.allow_tf32`` (PyTorch's default: True) and
-    ``torch.backends.cuda.matmul.allow_tf32``."""
+    ``torch.backends.cuda.matmul.allow_tf32``.  They choose the math of a
+    kernel when it is launched from Python, so for a captured CUDA graph
+    they matter while it is captured (and during its eager warm-up); a
+    replay runs what was captured, whatever they say then."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = cudnn.allow_tf32, matmul.allow_tf32
     cudnn.allow_tf32 = matmul.allow_tf32 = False
@@ -311,40 +369,55 @@ def tf32_off():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
-def _forward_on(config: RAFTConfig, iters: Optional[int], device):
+def _forward_on(config: RAFTConfig, iters: Optional[int], device,
+                ragged: bool):
     """``forward(model, image1, image2, sizes=None) -> RAFTOutput`` on
     ``device`` (CUDA unless ``device="cpu"``): images (and sizes) as numpy
-    arrays or tensors, moved to the model's device.  A float32 forward
-    runs under :func:`tf32_off`."""
+    arrays or tensors, moved to the model's device; ``sizes`` given iff
+    ``ragged``.  A float32 forward runs under :func:`tf32_off`.  On the CPU
+    the forward runs eager; on CUDA it replays a captured graph
+    (:class:`~raft_tpu_torch.models.capture.GraphedForward`)."""
     dev = resolve_device(device)
     check_port_support(config)
     precision = (tf32_off if compute_dtype(config) == torch.float32
                  else contextlib.nullcontext)
 
-    def forward(model: RAFT, image1, image2, sizes=None) -> RAFTOutput:
+    def check(model: RAFT) -> None:
         p = next(model.parameters())
         if p.device.type != dev.type:
             raise ValueError(f"model is on {p.device}, the inference "
                              f"function on {dev}")
+        _check_model_dtype(model, config)
+
+    def eager(model: RAFT, image1, image2, sizes=None) -> RAFTOutput:
+        check(model)
+        p = next(model.parameters())
         im1 = torch.as_tensor(image1, dtype=torch.float32, device=p.device)
         im2 = torch.as_tensor(image2, dtype=torch.float32, device=p.device)
         with precision():
             return raft_forward(model, im1, im2, config, iters=iters,
                                 sizes=sizes)
 
-    return forward
+    if dev.type != "cuda":
+        return eager
+    return GraphedForward(eager, check, ragged)
 
 
 def make_inference_fn(config: RAFTConfig, iters: Optional[int] = None,
                       device=None):
     """``fn(model, image1, image2) -> flow`` [B, H, W, 2] on ``device``
     (CUDA unless ``device="cpu"``).  Images are [B, H, W, 3] in [0, 1],
-    numpy arrays or tensors; they are moved to the device."""
-    forward = _forward_on(config, iters, device)
+    numpy arrays or tensors; they are moved to the device.  On CUDA each
+    (model, batch, H, W) is captured once as a CUDA graph and replayed
+    (``models/capture.py``; ``fn.graphs`` is the
+    :class:`~raft_tpu_torch.models.capture.GraphedForward`, None on the
+    CPU); each call returns a fresh tensor."""
+    forward = _forward_on(config, iters, device, ragged=False)
 
     def fn(model: RAFT, image1, image2) -> torch.Tensor:
         return forward(model, image1, image2).flow
 
+    fn.graphs = forward if isinstance(forward, GraphedForward) else None
     return fn
 
 
@@ -355,12 +428,15 @@ def make_ragged_inference_fn(config: RAFTConfig, iters: Optional[int] = None,
     ``device="cpu"``): images [B, H, W, 3] in [0, 1] hold each item
     corner-anchored in the shared max box (``data.pipeline.embed_to_shape``),
     ``sizes`` [B, 2] integer the items' full-resolution (h, w).  Item b's
-    flow is valid on ``[:sizes[b, 0], :sizes[b, 1]]``."""
-    forward = _forward_on(config, iters, device)
+    flow is valid on ``[:sizes[b, 0], :sizes[b, 1]]``.  On CUDA one graph
+    per (model, box, batch) serves every ``sizes``, as
+    :func:`make_inference_fn` captures."""
+    forward = _forward_on(config, iters, device, ragged=True)
 
     def fn(model: RAFT, image1, image2, sizes) -> torch.Tensor:
         return forward(model, image1, image2, sizes).flow
 
+    fn.graphs = forward if isinstance(forward, GraphedForward) else None
     return fn
 
 
@@ -369,10 +445,11 @@ def make_ragged_counted_inference_fn(config: RAFTConfig,
                                      device=None):
     """As :func:`make_ragged_inference_fn`, returning ``(flow,
     iters_used)``, iters_used [B] int32 (the fixed policy's count)."""
-    forward = _forward_on(config, iters, device)
+    forward = _forward_on(config, iters, device, ragged=True)
 
     def fn(model: RAFT, image1, image2, sizes):
         out = forward(model, image1, image2, sizes)
         return out.flow, out.iters_used
 
+    fn.graphs = forward if isinstance(forward, GraphedForward) else None
     return fn

@@ -1,6 +1,14 @@
-"""The full model's update block: motion encoder, SepConvGRU, flow and mask
-heads (NCHW, ``channels_last``).  Module names mirror the JAX tree
-(``encoder.convc1``, ``gru.convz1``, ``flow_head.conv1``, ``mask.0`` ...).
+"""The update blocks (NCHW, ``channels_last``): the full model's motion
+encoder, SepConvGRU, flow and mask heads, and the small model's motion
+encoder, 3x3 ConvGRU and flow head (no mask head: raft-small upsamples
+bilinearly).  Module names mirror the JAX tree (``encoder.convc1``,
+``gru.convz1``, ``flow_head.conv1``, ``mask.0`` ...).
+
+Both GRUs run on hoisted context terms (:func:`precompute_gru_ctx`, the
+JAX package's ``gru_ctx_hoist=True``): the gate convs' terms over the
+loop-invariant context features, biases folded in, computed once per
+forward, so the in-loop gate convs read only ``[h, motion]`` and carry no
+bias.
 """
 
 from __future__ import annotations
@@ -11,7 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv import apply_conv_fused, make_conv, to_nchw, to_nhwc
+from ..ops.conv import (apply_conv_fused, conv_nchw, make_conv, to_nchw,
+                        to_nhwc)
 from ..ops.gru_cuda import sep_conv_gru, sep_conv_gru_plain
 
 # .25 mask scale as in official RAFT
@@ -36,6 +45,23 @@ class BasicMotionEncoder(nn.Module):
         return torch.cat([out, flow], dim=1)
 
 
+class SmallMotionEncoder(nn.Module):
+    def __init__(self, corr_dim: int):
+        super().__init__()
+        self.convc1 = make_conv(1, corr_dim, 96)
+        self.convf1 = make_conv(7, 2, 64)
+        self.convf2 = make_conv(3, 64, 32)
+        self.conv = make_conv(3, 96 + 32, 80)
+
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+        """flow [B, 2, H, W], corr [B, L*(2r+1)^2, H, W] -> [B, 82, H, W]:
+        80 conv channels, then the 2 flow channels."""
+        cor = F.relu(self.convc1(corr))
+        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
+        out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
+
 class SepConvGRU(nn.Module):
     """Holds the six gate convs; the iteration itself runs through
     :func:`raft_tpu_torch.ops.gru_cuda.sep_conv_gru` (or its plain
@@ -49,21 +75,73 @@ class SepConvGRU(nn.Module):
                 setattr(self, g + s, make_conv(k, hx, hidden))
 
 
-def precompute_gru_ctx(gru: SepConvGRU, inp: torch.Tensor, hidden: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+class ConvGRU(nn.Module):
+    """The small model's 3x3 ConvGRU: holds the three gate convs; the
+    iteration is :func:`conv_gru_hoisted`."""
+
+    def __init__(self, hidden: int, input_dim: int):
+        super().__init__()
+        for g in ("convz", "convr", "convq"):
+            setattr(self, g, make_conv(3, hidden + input_dim, hidden))
+
+
+_GATES = ("convz", "convr", "convq")
+
+
+def precompute_gru_ctx(gru: nn.Module, inp: torch.Tensor, hidden: int
+                       ) -> Tuple[torch.Tensor, ...]:
     """The gate convs' terms over the loop-invariant context ``inp``
     [B, ctx, H, W], biases folded in, so the in-loop convs are bias-free.
     The hx layout is [h, inp, motion]: inp is kernel columns
-    ``[hidden, hidden+ctx)``.  Returns the 1x5 and the 5x1 pass terms, each
-    [B, H, W, 3*hidden] NHWC (z | r | q), from one fused conv per pass."""
+    ``[hidden, hidden+ctx)``.  For a :class:`SepConvGRU`, the 1x5 and the
+    5x1 pass terms, each [B, H, W, 3*hidden] NHWC (z | r | q), from one
+    fused conv per pass; for a :class:`ConvGRU`, the z, r and q terms,
+    each [B, hidden, H, W] NCHW, from one fused conv."""
     lo, hi = hidden, hidden + inp.shape[1]
+    if isinstance(gru, ConvGRU):
+        convs = [getattr(gru, g) for g in _GATES]
+        return apply_conv_fused([c.weight[:, lo:hi] for c in convs],
+                                [c.bias for c in convs], inp)
     out = []
     for s in ("1", "2"):
-        convs = [getattr(gru, g + s) for g in ("convz", "convr", "convq")]
+        convs = [getattr(gru, g + s) for g in _GATES]
         terms = apply_conv_fused([c.weight[:, lo:hi] for c in convs],
                                  [c.bias for c in convs], inp)
         out.append(to_nhwc(torch.cat(terms, dim=1)).contiguous())
     return out[0], out[1]
+
+
+def fuse_conv_gru_weights(gru: ConvGRU, hidden: int, ctx_dim: int
+                          ) -> Dict[str, torch.Tensor]:
+    """The ConvGRU's in-loop weights (the JAX package's ``_gate_loop_w``),
+    once per forward: each gate's kernel with the context input channels
+    ``[hidden, hidden+ctx_dim)`` removed; ``wzr`` [2*hidden, hidden+motion,
+    3, 3] holds z and r fused on the output, ``wq`` [hidden, hidden+motion,
+    3, 3] the q gate.  In the parameters' dtype."""
+    lo, hi = hidden, hidden + ctx_dim
+
+    def loop_cols(conv: nn.Module) -> torch.Tensor:
+        w = conv.weight
+        return torch.cat([w[:, :lo], w[:, hi:]], dim=1)
+
+    return {"wzr": torch.cat([loop_cols(gru.convz), loop_cols(gru.convr)]),
+            "wq": loop_cols(gru.convq).contiguous()}
+
+
+def conv_gru_hoisted(fw: Dict[str, torch.Tensor], h: torch.Tensor,
+                     motion: torch.Tensor, ctx: Tuple[torch.Tensor, ...]
+                     ) -> torch.Tensor:
+    """One ConvGRU iteration on hoisted context terms (the JAX package's
+    ``apply_conv_gru_hoisted``): h [B, hidden, H, W] and motion NCHW, ``fw``
+    from :func:`fuse_conv_gru_weights`, ``ctx`` the z, r and q terms of
+    :func:`precompute_gru_ctx`.  In h's dtype, op by op."""
+    hidden = h.shape[1]
+    zr = conv_nchw(torch.cat([h, motion], dim=1), fw["wzr"], None)
+    z = torch.sigmoid(zr[:, :hidden] + ctx[0])
+    r = torch.sigmoid(zr[:, hidden:] + ctx[1])
+    q = torch.tanh(conv_nchw(torch.cat([r * h, motion], dim=1), fw["wq"], None)
+                   + ctx[2])
+    return (1.0 - z) * h + z * q
 
 
 class BasicUpdateBlock(nn.Module):
@@ -101,3 +179,26 @@ class BasicUpdateBlock(nn.Module):
         delta_flow = self.flow_head.conv2(F.relu(fh))
         mask = MASK_SCALE * self.mask[2](F.relu(mh))
         return net, mask, delta_flow
+
+
+class SmallUpdateBlock(nn.Module):
+    def __init__(self, corr_dim: int, hidden_dim: int = 96,
+                 context_dim: int = 64):
+        super().__init__()
+        self.encoder = SmallMotionEncoder(corr_dim)
+        self.gru = ConvGRU(hidden_dim, context_dim + 82)
+        self.flow_head = nn.Module()
+        self.flow_head.conv1 = make_conv(3, hidden_dim, 128)
+        self.flow_head.conv2 = make_conv(3, 128, 2)
+
+    def forward(self, net: torch.Tensor, corr: torch.Tensor,
+                flow: torch.Tensor, gru_ctx, gru_weights: Dict[str, torch.Tensor],
+                **_) -> Tuple[torch.Tensor, None, torch.Tensor]:
+        """net [B, H, W, hidden] NHWC; corr, flow NCHW; ``gru_ctx`` and
+        ``gru_weights`` from :func:`precompute_gru_ctx` and
+        :func:`fuse_conv_gru_weights`.  Returns the new net (NHWC), no mask
+        and the flow update (NCHW)."""
+        motion = self.encoder(flow, corr)
+        h = conv_gru_hoisted(gru_weights, to_nchw(net), motion, gru_ctx)
+        delta_flow = self.flow_head.conv2(F.relu(self.flow_head.conv1(h)))
+        return to_nhwc(h), None, delta_flow

@@ -7,6 +7,13 @@ Semantics (those of the JAX package's ``ops/corr.py``):
 channels ordered (level, x-offset, y-offset): the window is
 **x-offset-major**.
 
+``corr_impl='dense'`` materialises the volume, as the JAX package does
+outside any Pallas kernel: :func:`build_pyramid` correlates fmap1 with
+each pooled fmap2 level in one large matrix product per level
+(:func:`dense_corr`, 191 MB at level 0 for a 432x1024 frame), then each
+iteration samples it with :func:`lookup_dense_onehot`
+(``corr_lookup='onehot'``) or :func:`lookup_dense` (``'gather'``).
+
 The plain PyTorch versions of the CUDA lookup kernels (``ops/corr_cuda.py``),
 none of which builds the ``(HW)^2`` volume:
 
@@ -169,6 +176,95 @@ def lookup_partial_onehot(corr3: torch.Tensor, coords: torch.Tensor,
     win_y = torch.matmul(a_y, corr3)                            # [B,Q,n(y),W2]
     win = torch.matmul(a_x, win_y.transpose(-1, -2))            # [B,Q,n(x),n(y)]
     return win.reshape(B, Q, n * n)
+
+
+def dense_corr(fmap1: torch.Tensor, fmap2_l: torch.Tensor) -> torch.Tensor:
+    """[B, H1, W1, C] x [B, H2, W2, C] -> [B, H1*W1, H2, W2] float32
+    correlation, divided by ``sqrt(C)`` as the JAX package's
+    ``dense_corr``; the operands are upcast to float32 first (bfloat16
+    ones under ``corr_precision='default'``: exact products, float32
+    sums).  A plain matrix product: the caller sets TF32 (off under
+    ``compute_dtype='float32'``)."""
+    B, H1, W1, C = fmap1.shape
+    _, H2, W2, _ = fmap2_l.shape
+    f1 = fmap1.reshape(B, H1 * W1, C).float()
+    f2 = fmap2_l.reshape(B, H2 * W2, C).float()
+    corr = torch.matmul(f1, f2.transpose(1, 2))
+    # sqrt(C) in float32, made on the device: a true division, as JAX's
+    # (a host scalar is a multiply by its reciprocal on CUDA), and no
+    # host-to-device copy, which a CUDA graph capture refuses
+    corr = corr / torch.full((), float(C), device=corr.device).sqrt()
+    return corr.reshape(B, H1 * W1, H2, W2)
+
+
+def build_pyramid(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor]
+                  ) -> List[torch.Tensor]:
+    """The dense correlation pyramid of ``corr_impl='dense'``: fmap1
+    against each pooled fmap2 level (:func:`lookup_operands` gives both),
+    a list of [B, Q, H2/2^l, W2/2^l] float32."""
+    return [dense_corr(fmap1, f2) for f2 in f2_levels]
+
+
+def lookup_dense_onehot(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                        radius: int) -> torch.Tensor:
+    """Sample the dense pyramid at ``coords`` [B, H, W, 2] (x, y) with the
+    one-hot matmul lookup, level by level -> [B, H, W, L*(2r+1)^2]."""
+    B, H, W, _ = coords.shape
+    flat = coords.reshape(B, H * W, 2)
+    return torch.cat([lookup_partial_onehot(corr, flat, radius, lvl)
+                      for lvl, corr in enumerate(pyramid)],
+                     dim=-1).reshape(B, H, W, -1)
+
+
+def _window_gather_2d(vol: torch.Tensor, ix0: torch.Tensor, iy0: torch.Tensor,
+                      win: int) -> torch.Tensor:
+    """The aligned integer windows of vol [B, Q, H, W] with top-left corners
+    (ix0, iy0) [B, Q], zeros outside -> [B, Q, win(y), win(x)]."""
+    B, Q, H, W = vol.shape
+    if H == 0 or W == 0:                    # a level pooled away
+        return vol.new_zeros((B, Q, win, win))
+    offs = torch.arange(win, device=vol.device)
+    iy = iy0[..., None] + offs                              # [B, Q, win]
+    ix = ix0[..., None] + offs
+    zero = torch.zeros((), dtype=vol.dtype, device=vol.device)
+    rows = torch.gather(vol, 2, iy.clamp(0, H - 1)[..., None].expand(
+        B, Q, win, W))                                      # [B, Q, win, W]
+    rows = torch.where(((iy >= 0) & (iy < H))[..., None], rows, zero)
+    winv = torch.gather(rows, 3, ix.clamp(0, W - 1)[:, :, None, :].expand(
+        B, Q, win, win))                                    # [B, Q, win, win]
+    return torch.where(((ix >= 0) & (ix < W))[:, :, None, :], winv, zero)
+
+
+def _bilinear_window(winv: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
+                     radius: int) -> torch.Tensor:
+    """A (2r+2)^2 integer window [B, Q, y, x] and the fractions [B, Q] ->
+    the (2r+1)^2 bilinear samples, x-offset-major [B, Q, (2r+1)^2]."""
+    n = 2 * radius + 1
+    fx, fy = fx[..., None, None], fy[..., None, None]
+    out = ((1 - fx) * (1 - fy) * winv[:, :, :n, :n]
+           + fx * (1 - fy) * winv[:, :, :n, 1:]
+           + (1 - fx) * fy * winv[:, :, 1:, :n]
+           + fx * fy * winv[:, :, 1:, 1:])                  # [B, Q, n(y), n(x)]
+    return out.transpose(2, 3).reshape(*out.shape[:2], n * n)
+
+
+def lookup_dense(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
+                 radius: int) -> torch.Tensor:
+    """Sample the dense pyramid at ``coords`` [B, H, W, 2] (x, y) with the
+    gather lookup (``corr_lookup='gather'``): per level the (2r+2)^2
+    integer window of each query, gathered with zeros outside, combined
+    by the query's shared fraction -> [B, H, W, L*(2r+1)^2]."""
+    B, H, W, _ = coords.shape
+    flat = coords.reshape(B, H * W, 2)
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        c = flat / (2.0 ** lvl)
+        cx0, cy0 = torch.floor(c[..., 0]), torch.floor(c[..., 1])
+        winv = _window_gather_2d(corr, cx0.long() - radius,
+                                 cy0.long() - radius, 2 * radius + 2)
+        outs.append(_bilinear_window(winv, c[..., 0] - cx0, c[..., 1] - cy0,
+                                     radius))
+    return torch.cat(outs, dim=-1).reshape(B, H, W, -1)
 
 
 def _level_blockwise(f1: torch.Tensor, f2: torch.Tensor, coords: torch.Tensor,

@@ -183,7 +183,9 @@ def _launch_tiled(wrapper, stem: str, fmap1: torch.Tensor,
     """Validate and launch one of ``corr_lookup.cu``'s entries, called as
     ``(f1, coords, out, f2_ptrs, level_hw, *lead, L, B, H, W, C, radius,
     scale, mma_ratio, stats, stream)`` (``lead``: pointers), adding one to
-    ``wrapper.launches`` where it launches."""
+    ``wrapper.launches`` where it launches (once at a graph's capture, not
+    at its replays).  It reads shapes only: no host sync, so it can be
+    captured."""
     hw = _check_lookup(stem, fmap1, f2_levels, coords, radius)
     B, H, W, C = fmap1.shape
     L = len(f2_levels)
@@ -232,7 +234,10 @@ def corr_lookup_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                          coords, radius, mma_ratio, stats)
 
 
-corr_lookup_cuda.launches = 0      # kernel launches; callers that count reset it
+# kernel launches issued from Python (each entry's counter; callers that
+# count reset it).  A captured CUDA graph (models/capture.py) counts at
+# capture, not at replay.
+corr_lookup_cuda.launches = 0
 
 
 def corr_window_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],

@@ -107,15 +107,17 @@ def prepare_gru_weights(fw: Dict[str, torch.Tensor], dtype: torch.dtype
 
     * float32: slabs of 8 channels; (hi[2t], hi[2t+1], lo[2t], lo[2t+1]),
       hi = tf32(w) and lo = tf32(w - hi) (the 3xTF32 split), float32;
-    * bfloat16: slabs of 16 channels; channels 4t..4t+3, bfloat16 — exact,
-      since the weights are bfloat16-rounded parameters (raises otherwise).
+    * bfloat16: slabs of 16 channels; channels 4t..4t+3, bfloat16.  The
+      weights must be bfloat16-exact: bfloat16 weights are by type; float32
+      ones are checked on the host (a sync) and raise otherwise.
     """
     if dtype not in _SUFFIX:
         raise ValueError(f"the kernel takes float32 or bfloat16 activations, "
                          f"got {dtype}")
     out = {}
     for k in _WEIGHTS:
-        w = fw[k].detach().float()
+        src = fw[k].detach()
+        w = src.float()
         taps, cin, n = w.shape
         if dtype == torch.float32:
             hi = _tf32(w)
@@ -126,7 +128,7 @@ def prepare_gru_weights(fw: Dict[str, torch.Tensor], dtype: torch.dtype
             out[k] = torch.cat([slabs(hi), slabs(lo)], dim=-1).contiguous()
         else:
             wb = w.to(torch.bfloat16)
-            if not torch.equal(wb.float(), w):
+            if src.dtype != torch.bfloat16 and not torch.equal(wb.float(), w):
                 raise ValueError(f"{k}: the bfloat16 entry needs bfloat16-"
                                  f"exact weights")
             out[k] = wb.reshape(taps, cin // 16, 4, 4, n).permute(
@@ -235,7 +237,9 @@ def sep_conv_gru_cuda(kw: Dict[str, torch.Tensor], h: torch.Tensor,
     return out
 
 
-sep_conv_gru_cuda.launches = 0      # kernel launches; callers that count reset it
+# kernel launches issued from Python; callers that count reset it.  A
+# captured CUDA graph (models/capture.py) counts at capture, not at replay.
+sep_conv_gru_cuda.launches = 0
 
 
 class _SepConvGRU(torch.autograd.Function):

@@ -31,3 +31,17 @@ def convex_upsample_flow(flow: torch.Tensor, mask: torch.Tensor,
     up = (m[..., None] * patches[:, :, :, :, None, None, :]).sum(dim=3)
     up = up.permute(0, 1, 3, 2, 4, 5)                     # [B, H, f, W, f, 2]
     return up.reshape(B, H * f, W * f, 2)
+
+
+def upflow8(flow: torch.Tensor) -> torch.Tensor:
+    """The small model's upsampling: [B, H, W, 2] -> [B, 8H, 8W, 2], the
+    align-corners bilinear resize by 8 with the flow values scaled by 8
+    (the JAX package's ``upflow8(rescale=True)``).  JAX forms the resize as
+    two products with interpolation matrices; this port calls
+    ``F.interpolate(mode='bilinear', align_corners=True)``, elementwise
+    float32 arithmetic (the same two-tap weights, summed in another order),
+    so no TF32 switch can reach it."""
+    B, H, W, _ = flow.shape
+    up = F.interpolate(flow.permute(0, 3, 1, 2), size=(8 * H, 8 * W),
+                       mode="bilinear", align_corners=True)
+    return 8.0 * up.permute(0, 2, 3, 1)

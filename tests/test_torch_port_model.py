@@ -119,9 +119,7 @@ def test_npz_checkpoint_round_trip_loads_strict(tmp_path):
     dict(quant="bf16w"),
     dict(quant="int8+bf16w"),
     dict(iters_policy="converge:0.5"),
-    dict(small=True, gru_impl="xla"),
     dict(quant="int8"),
-    dict(corr_impl="dense"),
     dict(corr_impl="blockwise", corr_lookup="gather"),
     dict(corr_impl="blockwise", gru_impl="xla", gru_ctx_hoist=False),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
@@ -140,7 +138,10 @@ def test_unported_values_raise_not_implemented(overrides):
     dict(compute_dtype="bfloat16", corr_precision="default",
          pallas_pack=True, pallas_p_select="window", pallas_p_blk=1024),
     dict(compute_dtype="bfloat16", corr_precision="default"),
-], ids=["P32_all", "P32_window", "BF", "bf16corr_ctx_gru"])
+    dict(small=True, gru_impl="xla"),
+    dict(corr_impl="dense"),
+], ids=["P32_all", "P32_window", "BF", "bf16corr_ctx_gru", "small=True,gru_impl=xla",
+        "corr_impl=dense"])
 def test_slice_configurations_are_accepted(overrides):
     cfg = rt.RAFTConfig.full(**{"corr_impl": "pallas", "gru_impl": "pallas",
                                 **overrides})
@@ -171,8 +172,8 @@ def test_ragged_with_pack_runs_the_ragged_lookup(monkeypatch):
 
 
 def test_small_sizes_and_bad_knobs_raise():
-    with pytest.raises(NotImplementedError, match="6b"):
-        rt.RAFT(rt.RAFTConfig.small_model())
+    with pytest.raises(ValueError, match="3x3 ConvGRU"):
+        rt.check_port_support(rt.RAFTConfig.small_model(gru_impl="pallas"))
     with pytest.raises(ValueError, match="lookup_style"):
         rt.check_port_support(rt.RAFTConfig.full(pallas_lookup_style="mxu"))
     with pytest.raises(ValueError, match="block_rows"):
@@ -225,3 +226,30 @@ def test_float32_entry_points_turn_tf32_off_and_restore_the_flags(
         cudnn.allow_tf32, matmul.allow_tf32 = saved
     inside = (False, False) if dtype == "float32" else (True, True)
     assert seen == [inside] * 4
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["pairwise", "ragged"])
+def test_inference_functions_run_eager_on_cpu(ragged):
+    """On ``device="cpu"`` the three factories capture nothing (``fn.graphs``
+    is None) and return ``raft_forward``'s flow bitwise, and its
+    ``iters_used``; fresh tensors on every call."""
+    cfg = rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=2)
+    model = rt.init_raft_torch(cfg, device="cpu")
+    im = np.random.RandomState(12).rand(2, 2, 16, 24, 3).astype(np.float32)
+    sizes = np.array([[16, 24], [9, 13]], np.int32) if ragged else None
+    want = rt.raft_forward(model, torch.from_numpy(im[0]),
+                           torch.from_numpy(im[1]), cfg,
+                           sizes=None if sizes is None else torch.from_numpy(sizes))
+    if ragged:
+        fns = [rt.make_ragged_inference_fn(cfg, device="cpu"),
+               rt.make_ragged_counted_inference_fn(cfg, device="cpu")]
+        outs = [fn(model, im[0], im[1], sizes) for fn in fns]
+        flow, (flow2, used) = outs
+        torch.testing.assert_close(flow2, want.flow, rtol=0, atol=0)
+        torch.testing.assert_close(used, want.iters_used, rtol=0, atol=0)
+    else:
+        fns = [rt.make_inference_fn(cfg, device="cpu")]
+        flow = fns[0](model, im[0], im[1])
+        assert fns[0](model, im[0], im[1]) is not flow
+    assert all(fn.graphs is None for fn in fns)
+    torch.testing.assert_close(flow, want.flow, rtol=0, atol=0)

@@ -19,7 +19,9 @@ scattered windows, and 'window'; bfloat16 under 'window') on the 54x128
 grid.  A checkout whose GRU kernel
 reads prepared weights (``prepare_gru_weights``) gets them; an older one
 its fused float32 weights.  Then whole requests at 432x1024, 12
-iterations, on seeded random weights: the float32 main path under
+iterations, on seeded random weights, through ``make_inference_fn`` (a
+checkout that has ``models/capture.py`` replays a captured CUDA graph, an
+older one runs eager): the float32 main path under
 p_select 'all' and 'window', the BF path (``chip_smoke.py`` phase 6c:
 bfloat16 compute, 'default' corr, pack, p_select 'window'),
 pallas-bf16corr-ctx-gru (bfloat16 compute, 'default' corr, p_select
