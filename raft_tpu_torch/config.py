@@ -3,11 +3,12 @@
 The port keeps its own copy of the JAX package's ``RAFTConfig`` (same knob
 names, same defaults, same validation), so one configuration value means
 the same thing in both packages.  ``TrainConfig`` is not ported yet
-(ROADMAP Queue A item 7).
+(ROADMAP Queue A item 7): the port has no training entry, so the training
+knobs (``dropout``, ``remat_iters``, ``scan_unroll``) are validated and
+change no inference value, as in the JAX package at ``train=False``.
 
-:func:`check_port_support` is the slice boundary: every value this port
-does not implement yet raises ``NotImplementedError`` naming the ROADMAP
-item that will add it, never a silent fallback to another path.
+:func:`check_port_support` validates a configuration as the JAX package
+does; every value of every field runs in the port.
 """
 
 from __future__ import annotations
@@ -51,6 +52,12 @@ def parse_iters_policy(spec: str):
     return ("converge", eps, min_iters)
 
 
+def adaptive_iters(spec: str) -> bool:
+    """True when ``spec`` enables the per-sample early exit (validates as a
+    side effect)."""
+    return parse_iters_policy(spec)[0] == "converge"
+
+
 @dataclasses.dataclass(frozen=True)
 class RAFTConfig:
     """Static hyperparameters of the RAFT model (the JAX package's fields).
@@ -79,7 +86,18 @@ class RAFTConfig:
     caller's ``model.to(torch.bfloat16)``, not per request — while the
     correlation is computed from float32 feature maps, the GRU computes in
     float32 with bfloat16 I/O, coordinates stay float32 and the upsampling
-    runs in float32.  Under ``compute_dtype='float32'`` the inference
+    runs in float32.
+
+    ``iters_policy='converge:eps[:min_iters]'`` freezes a sample once the
+    mean L2 norm of its flow update drops below ``eps`` (from iteration
+    ``min_iters`` on) and ends the loop when every sample has frozen;
+    ``quant`` selects the streaming storage formats: ``'int8'`` slot rows
+    (``quant_slots``), ``'bf16w'`` bfloat16 encoder weights computed in the
+    compute dtype (``quant_weights``; ``models/raft.py::
+    cast_encoder_weights``).  ``gru_ctx_hoist=False`` runs the plain GRU
+    on ``[h, context, motion]`` each iteration instead of hoisting the
+    context terms (``gru_impl='pallas'`` hoists whatever it says, as in
+    JAX).  Under ``compute_dtype='float32'`` the inference
     functions (``make_inference_fn`` and the ragged ones) turn TF32 off
     for cuDNN's convolutions and cuBLAS's matmuls for the duration of each
     call and restore the caller's settings after it, since PyTorch's
@@ -128,6 +146,16 @@ class RAFTConfig:
                              f"got {self.quant!r}")
 
     @property
+    def quant_slots(self) -> bool:
+        """True when a slot pool stores int8 fmap/cnet rows."""
+        return "int8" in self.quant
+
+    @property
+    def quant_weights(self) -> bool:
+        """True when the fnet/cnet encoder weights are stored bfloat16."""
+        return "bf16w" in self.quant
+
+    @property
     def fnet_dim(self) -> int:
         return 128 if self.small else 256
 
@@ -152,8 +180,10 @@ class RAFTConfig:
         return RAFTConfig(**{**defaults, **overrides})
 
 
-def _validate_like_jax(config: RAFTConfig) -> None:
-    """The ValueErrors the JAX package raises for malformed knob values."""
+def check_port_support(config: RAFTConfig) -> None:
+    """Validate ``config`` as the JAX package does: a ValueError for a
+    malformed knob value.  Every configuration value the JAX package's
+    inference accepts runs in the port."""
     parse_iters_policy(config.iters_policy)
     if config.gru_impl not in ("xla", "pallas"):
         raise ValueError(f"gru_impl must be 'xla' or 'pallas', "
@@ -185,25 +215,3 @@ def _validate_like_jax(config: RAFTConfig) -> None:
     if config.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
                          f"got {config.compute_dtype!r}")
-
-
-def check_port_support(config: RAFTConfig) -> None:
-    """Validate ``config`` as the JAX package does, then raise
-    ``NotImplementedError`` for every value this slice of the port does
-    not implement yet (each names its ROADMAP item)."""
-    _validate_like_jax(config)
-    todo = []
-    if parse_iters_policy(config.iters_policy)[0] != "fixed":
-        todo.append(f"iters_policy={config.iters_policy!r}: ROADMAP Queue A "
-                    f"item 6c")
-    if config.quant != "none":
-        todo.append(f"quant={config.quant!r}: ROADMAP Queue A item 6d")
-    if config.corr_impl == "blockwise" and config.corr_lookup != "onehot":
-        todo.append(f"corr_impl='blockwise' with corr_lookup="
-                    f"{config.corr_lookup!r}: ROADMAP Queue A item 6e")
-    if config.gru_impl == "xla" and not config.gru_ctx_hoist:
-        todo.append("gru_ctx_hoist=False (the un-hoisted GRU): ROADMAP "
-                    "Queue A item 6e")
-    if todo:
-        raise NotImplementedError(
-            "not ported to raft_tpu_torch yet: " + "; ".join(todo))

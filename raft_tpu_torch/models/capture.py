@@ -1,4 +1,4 @@
-"""The fixed-policy inference functions as captured CUDA graphs.
+"""The inference and streaming functions as captured CUDA graphs.
 
 The port's counterpart of the compiled executable the JAX package runs
 (``jax.jit(make_inference_fn(cfg))``, or one loaded by its engine cache):
@@ -9,13 +9,35 @@ of a Python issue of every kernel.
 
 Rules:
 
-* **Key.** The model, batch, H and W (one compute dtype per
-  :class:`GraphedForward`, the config's); a ragged entry's box is its
-  (H, W).  ``sizes`` is an input of the graph, like the
-  images: one graph serves every mix of crops in one box.
-* **Inputs.** Static device buffers hold image1, image2 (and sizes); each
-  call copies the caller's arrays in, outside the graph, so no pageable
-  host-to-device copy happens inside a capture.
+* **Key.** The model and the shapes and dtypes of the arguments (one
+  compute dtype per :class:`GraphedForward`, the config's): for a pairwise
+  entry (model, batch, H, W), a ragged entry's box being its (H, W).
+  ``sizes`` is an input of the graph, like the images: one graph serves
+  every mix of crops in one box.  An argument read ``BY_ADDRESS`` (a slot
+  pool's buffers) joins the key with its ``data_ptr``s: each pool has a
+  graph of its own, so pools used in turns replay without capturing
+  again.
+* **Inputs.** Static device buffers hold the arguments the entry copies
+  (images, sizes, slots, active; the solo stream step's maps and seed);
+  each call copies the caller's arrays in, outside the graph, so no
+  pageable host-to-device copy happens inside a capture.  A by-address
+  argument is not copied: the graph reads it where it lies (a buffer that
+  moved is another key, captured anew) and holds a reference to it, so it
+  is never freed under the graph; a pool's graph lives as long as the
+  model.
+* **The converge policy.** Its loop exits on data, which a graph cannot.
+  It is captured as three graphs per key from the one pool: the prologue
+  (the entry's encoders and gathers, the loop's set-up, the initial state
+  in static buffers), one masked iteration (updates the state in place and
+  writes the device flag all(converged)) and the epilogue (the upsampling
+  and the outputs).  A call replays the prologue, then the iteration until
+  the flag, read on the host (``raft.converge_iterations``: before the
+  first and after each from ``min_iters`` on), is set or ``iters`` ran,
+  then the epilogue: the iteration replays number max(iters_used)
+  (``step_replays``).  Frozen rows are masked on the device, so the number
+  of replays changes the time, never the values.  At capture the
+  prologue's graph is replayed once before the iteration's warm-up, which
+  so reads a real state.
 * **Warm-up.** Before a capture one eager forward with the same key runs on
   a side stream: cuDNN's benchmark mode picks its algorithms, every kernel
   entry the path launches is built and loaded, and lazy module loading
@@ -37,27 +59,72 @@ Rules:
 * **No fallback.** A host sync in the path, a capture error, a kernel that
   does not build or launch: the call raises; it never runs eager on CUDA.
 * **Memory.** Every graph of one :class:`GraphedForward` draws on one
-  memory pool, which is safe because the outputs are cloned out and the
-  graphs are replayed one at a time.
+  memory pool, which is safe because the outputs are cloned out, the
+  graphs are replayed one at a time, and a converge key's three graphs
+  in the order they were captured.
 * **Concurrency.** A graph is not re-entrant: replay one at a time per
   :class:`GraphedForward` (serving's locks are not this module's job).
 * **Counters.** The kernel wrappers count launches issued from Python, so
   a capture adds two forwards' launches (the warm-up's and the captured
-  one's) and a replay adds none.
+  one's; for a converge key two iterations') and a replay adds none.
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
+
+
+class _ByAddress:
+    def __repr__(self) -> str:
+        return "BY_ADDRESS"
+
+
+BY_ADDRESS = _ByAddress()     # an argument the graph reads in place
 
 
 def weight_pointers(model: torch.nn.Module) -> Tuple[int, ...]:
     """The storage address of every parameter and buffer of ``model``."""
     return tuple(t.data_ptr() for t in model.parameters()) + tuple(
         t.data_ptr() for t in model.buffers())
+
+
+def _tensors(arg) -> tuple:
+    """A by-address argument's tensors: a tensor, or a pair of them."""
+    return tuple(arg) if isinstance(arg, (tuple, list)) else (arg,)
+
+
+def as_inputs(args, spec, device) -> tuple:
+    """The arguments as device tensors, as the eager forward takes them:
+    each copied one as a tensor of its ``spec`` dtype (None: its own) on
+    ``device``; a by-address one as it is (it must lie on ``device``)."""
+    out = []
+    for arg, dtype in zip(args, spec):
+        if dtype is BY_ADDRESS:
+            for t in _tensors(arg):
+                if t.device != device:
+                    raise ValueError(f"a buffer is on {t.device}, the model "
+                                     f"on {device}")
+            out.append(arg)
+        else:
+            out.append(torch.as_tensor(arg, dtype=dtype, device=device))
+    return tuple(out)
+
+
+def _key(args, spec) -> tuple:
+    """The shapes and dtypes of the arguments, and the addresses of the
+    by-address ones."""
+    key = []
+    for arg, dtype in zip(args, spec):
+        if dtype is BY_ADDRESS:
+            key.append(tuple((tuple(t.shape), t.dtype, t.data_ptr())
+                             for t in _tensors(arg)))
+        else:
+            key.append((tuple(arg.shape),
+                        dtype or torch.as_tensor(arg[:0]).dtype))
+    return tuple(key)
 
 
 def capture(fn: Callable[[], object], pool=None):
@@ -79,75 +146,97 @@ def capture(fn: Callable[[], object], pool=None):
 
 
 class _Entry(NamedTuple):
-    graph: torch.cuda.CUDAGraph
+    graphs: tuple                  # one graph, or a converge key's three
     pointers: Tuple[int, ...]
-    inputs: Tuple[Optional[torch.Tensor], ...]     # image1, image2, sizes
-    outputs: tuple                                  # the forward's result
+    inputs: tuple                  # static buffers, or by-address arguments
+    outputs: tuple                 # the forward's result
+    carry: object = None           # a converge key's loop state
 
 
 class GraphedForward:
-    """``forward(model, image1, image2, sizes=None)`` as graph replays.
+    """``forward(model, *args)`` as graph replays.
 
-    ``eager(model, image1, image2, sizes)`` is the eager forward on device
-    tensors (``sizes`` None for a pairwise entry), returning a
-    ``RAFTOutput`` (one config, so one compute dtype); ``check(model)``
-    validates the model (device, dtype) before every call.
-    Images are [B, H, W, 3] float arrays or tensors, ``sizes`` an integer
-    [B, 2] array or tensor, as the eager forward takes them."""
+    ``eager(model, *args)`` is the eager forward on device tensors,
+    returning a tuple of tensors (a ``RAFTOutput``, or a stream step's);
+    ``check(model)`` validates the model (device, dtype) before every
+    call; ``validate(*args)`` checks the caller's arguments (arrays or
+    tensors) and returns them normalized, raising before any copy;
+    ``spec`` gives per argument its dtype on the device (None: its own) or
+    ``BY_ADDRESS``.  ``staged``, for a converge policy, is the forward's
+    three parts (``raft.Forward``: ``new_carry``, ``begin``, ``step``,
+    ``end``, ``iterate``), captured as three graphs."""
 
-    def __init__(self, eager: Callable, check: Callable, ragged: bool):
+    def __init__(self, eager: Callable, check: Callable, spec: tuple,
+                 validate: Callable, staged=None):
         self._eager = eager
         self._check = check
-        self._ragged = ragged
+        self._spec = spec
+        self._validate = validate
+        self._staged = staged
         self._graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
         self._pool = None
-        self.captures = 0          # graphs captured so far
+        self.captures = 0          # keys captured so far
+        self.step_replays = 0      # a converge key: iteration replays, last call
 
     def graph_count(self) -> int:
-        """Graphs held now, over every live model."""
+        """Keys held now, over every live model."""
         return sum(len(v) for v in self._graphs.values())
 
-    def __call__(self, model: torch.nn.Module, image1, image2, sizes=None):
-        from .raft import RAFTOutput, check_images, check_sizes
+    def __call__(self, model: torch.nn.Module, *args):
         self._check(model)
-        if (sizes is not None) != self._ragged:
-            raise ValueError("a ragged entry takes sizes, a pairwise one none")
-        B, H, W = check_images(image1, image2)
-        if sizes is not None:
-            sizes = check_sizes(torch.as_tensor(sizes), B)
-        key = (B, H, W)
+        args = self._validate(*args)
+        key = _key(args, self._spec)
         per_model = self._graphs.setdefault(model, {})
         entry = per_model.get(key)
         pointers = weight_pointers(model)
         if entry is None or entry.pointers != pointers:
             per_model.pop(key, None)     # a stale graph goes before capturing
-            entry = self._capture(model, pointers, image1, image2, sizes)
+            entry = self._capture(model, pointers, args)
             per_model[key] = entry
         else:
-            self._load(entry.inputs, image1, image2, sizes)
-        entry.graph.replay()
-        return RAFTOutput(*[None if t is None else t.clone()
-                            for t in entry.outputs])
+            self._load(entry.inputs, args)
+        if self._staged is None:
+            entry.graphs[0].replay()
+        else:
+            begin, step, end = entry.graphs
+            begin.replay()
+            self.step_replays = self._staged.iterate(entry.carry, step.replay)
+            end.replay()
+        clones = [None if t is None else t.clone() for t in entry.outputs]
+        out = entry.outputs
+        return type(out)(*clones) if hasattr(out, "_fields") else tuple(clones)
 
-    @staticmethod
-    def _load(inputs, image1, image2, sizes) -> None:
-        im1, im2, sz = inputs
-        im1.copy_(torch.as_tensor(image1, dtype=torch.float32))
-        im2.copy_(torch.as_tensor(image2, dtype=torch.float32))
-        if sz is not None:
-            sz.copy_(sizes)
+    def _load(self, inputs, args) -> None:
+        for buf, arg, dtype in zip(inputs, args, self._spec):
+            if dtype is not BY_ADDRESS:
+                buf.copy_(torch.as_tensor(arg, dtype=buf.dtype))
 
-    def _capture(self, model, pointers, image1, image2, sizes) -> _Entry:
+    def _capture(self, model, pointers, args) -> _Entry:
         dev = next(model.parameters()).device
-        shape = tuple(torch.as_tensor(image1).shape)
-        inputs = (torch.empty(shape, dtype=torch.float32, device=dev),
-                  torch.empty(shape, dtype=torch.float32, device=dev),
-                  None if sizes is None else
-                  torch.empty((shape[0], 2), dtype=torch.int32, device=dev))
-        self._load(inputs, image1, image2, sizes)
+        inputs = []
+        for arg, dtype in zip(args, self._spec):
+            if dtype is BY_ADDRESS:
+                inputs.append(arg)
+            else:
+                t = torch.as_tensor(arg[:0], dtype=dtype)
+                inputs.append(torch.empty(tuple(arg.shape), dtype=t.dtype,
+                                          device=dev))
+        self._load(inputs, args)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        pool, staged = self._pool, self._staged
         with torch.cuda.device(dev):
-            graph, out = capture(lambda: self._eager(model, *inputs), self._pool)
+            if staged is None:
+                graph, out = capture(lambda: self._eager(model, *inputs), pool)
+                graphs, carry = (graph,), None
+            else:
+                carry = staged.new_carry()
+                begin, _ = capture(lambda: staged.begin(carry, model, *inputs),
+                                   pool)
+                begin.replay()           # the state the iteration's warm-up reads
+                step, _ = capture(lambda: staged.step(carry, model), pool)
+                end, out = capture(lambda: staged.end(carry), pool)
+                graphs = (begin, step, end)
         self.captures += 1
-        return _Entry(graph, pointers, inputs, tuple(out))
+        return _Entry(graphs, pointers, tuple(inputs), tuple(out) if not
+                      hasattr(out, "_fields") else out, carry)

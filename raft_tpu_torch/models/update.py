@@ -8,7 +8,11 @@ Both GRUs run on hoisted context terms (:func:`precompute_gru_ctx`, the
 JAX package's ``gru_ctx_hoist=True``): the gate convs' terms over the
 loop-invariant context features, biases folded in, computed once per
 forward, so the in-loop gate convs read only ``[h, motion]`` and carry no
-bias.
+bias.  Under ``gru_ctx_hoist=False`` (``gru_impl='xla'`` only: the kernel
+always hoists) they run as the JAX package's ``apply_sep_conv_gru`` and
+``apply_conv_gru``: every gate conv, bias included, on ``[h, x]`` with
+``x = [context, motion]`` (:func:`sep_conv_gru_full`,
+:func:`conv_gru_full`).
 """
 
 from __future__ import annotations
@@ -144,6 +148,36 @@ def conv_gru_hoisted(fw: Dict[str, torch.Tensor], h: torch.Tensor,
     return (1.0 - z) * h + z * q
 
 
+def _gate_pass(gru: nn.Module, suffix: str, h: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """One gate pass of the un-hoisted GRU (NCHW): z and r as one fused
+    conv over ``[h, x]``, q over ``[r*h, x]``, biases in the convs."""
+    z_conv, r_conv, q_conv = (getattr(gru, g + suffix) for g in _GATES)
+    zc, rc = apply_conv_fused([z_conv.weight, r_conv.weight],
+                              [z_conv.bias, r_conv.bias],
+                              torch.cat([h, x], dim=1))
+    z, r = torch.sigmoid(zc), torch.sigmoid(rc)
+    q = torch.tanh(q_conv(torch.cat([r * h, x], dim=1)))
+    return (1.0 - z) * h + z * q
+
+
+def sep_conv_gru_full(gru: SepConvGRU, h: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """The SepConvGRU iteration without hoisting (the JAX package's
+    ``apply_sep_conv_gru``): h [B, hidden, H, W] and x = [context, motion]
+    NCHW; the 1x5 pass, then the 5x1 pass.  In h's dtype, op by op."""
+    for suffix in ("1", "2"):
+        h = _gate_pass(gru, suffix, h, x)
+    return h
+
+
+def conv_gru_full(gru: ConvGRU, h: torch.Tensor, x: torch.Tensor
+                  ) -> torch.Tensor:
+    """The 3x3 ConvGRU iteration without hoisting (the JAX package's
+    ``apply_conv_gru``), shapes as :func:`sep_conv_gru_full`."""
+    return _gate_pass(gru, "", h, x)
+
+
 class BasicUpdateBlock(nn.Module):
     def __init__(self, corr_dim: int, hidden_dim: int = 128,
                  context_dim: int = 128):
@@ -159,18 +193,24 @@ class BasicUpdateBlock(nn.Module):
     def forward(self, net: torch.Tensor, corr: torch.Tensor,
                 flow: torch.Tensor, gru_ctx, gru_weights: Dict[str, torch.Tensor],
                 gru_impl: str = "pallas",
-                gru_kernel_weights: Optional[Dict[str, torch.Tensor]] = None
+                gru_kernel_weights: Optional[Dict[str, torch.Tensor]] = None,
+                inp: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """net [B, H, W, hidden] NHWC; corr, flow NCHW.  Returns the new
         net (NHWC), the mask logits and the flow update (NCHW).
         ``gru_kernel_weights``: the GRU kernel's weights
-        (``prepare_gru_weights``), needed on CUDA under ``gru_impl='pallas'``."""
-        motion = to_nhwc(self.encoder(flow, corr))
+        (``prepare_gru_weights``), needed on CUDA under ``gru_impl='pallas'``.
+        ``gru_ctx`` None runs the un-hoisted GRU on the context ``inp``
+        [B, ctx, H, W] (``gru_ctx_hoist=False``, ``gru_impl='xla'``)."""
+        motion = self.encoder(flow, corr)
         if gru_impl == "pallas":
-            net = sep_conv_gru(gru_weights, net, motion, gru_ctx,
+            net = sep_conv_gru(gru_weights, net, to_nhwc(motion), gru_ctx,
                                gru_kernel_weights)
+        elif gru_ctx is not None:
+            net = sep_conv_gru_plain(gru_weights, net, to_nhwc(motion), gru_ctx)
         else:
-            net = sep_conv_gru_plain(gru_weights, net, motion, gru_ctx)
+            net = to_nhwc(sep_conv_gru_full(self.gru, to_nchw(net),
+                                            torch.cat([inp, motion], dim=1)))
         # flow head conv1 and mask head [0] read `net` with 3x3 kernels:
         # one fused conv, then each branch's own tail
         heads = (self.flow_head.conv1, self.mask[0])
@@ -193,12 +233,18 @@ class SmallUpdateBlock(nn.Module):
 
     def forward(self, net: torch.Tensor, corr: torch.Tensor,
                 flow: torch.Tensor, gru_ctx, gru_weights: Dict[str, torch.Tensor],
+                inp: Optional[torch.Tensor] = None,
                 **_) -> Tuple[torch.Tensor, None, torch.Tensor]:
         """net [B, H, W, hidden] NHWC; corr, flow NCHW; ``gru_ctx`` and
         ``gru_weights`` from :func:`precompute_gru_ctx` and
-        :func:`fuse_conv_gru_weights`.  Returns the new net (NHWC), no mask
-        and the flow update (NCHW)."""
+        :func:`fuse_conv_gru_weights`, or ``gru_ctx`` None and the context
+        ``inp`` [B, ctx, H, W] for the un-hoisted GRU.  Returns the new net
+        (NHWC), no mask and the flow update (NCHW)."""
         motion = self.encoder(flow, corr)
-        h = conv_gru_hoisted(gru_weights, to_nchw(net), motion, gru_ctx)
+        if gru_ctx is None:
+            h = conv_gru_full(self.gru, to_nchw(net),
+                              torch.cat([inp, motion], dim=1))
+        else:
+            h = conv_gru_hoisted(gru_weights, to_nchw(net), motion, gru_ctx)
         delta_flow = self.flow_head.conv2(F.relu(self.flow_head.conv1(h)))
         return to_nhwc(h), None, delta_flow

@@ -31,6 +31,13 @@ none of which builds the ``(HW)^2`` volume:
   the TPU's row-packed formulation on the narrow levels (the predicate of
   :func:`packed_levels_from`), the others as above.
 
+``corr_impl='blockwise'`` with ``corr_lookup='gather'`` runs
+:func:`lookup_ondemand`: per query chunk and level it gathers each
+query's (2r+2)^2 fmap2 feature window and contracts it with the query's
+fmap1 vector, a plain gather path with no kernel (slow by design, as in
+JAX).  :func:`naive_corr_lookup` samples the dense pyramid point by point
+with ``ops/grid_sample.py``: a test oracle only.
+
 Operands may be float32 or bfloat16 (:func:`lookup_operands` rounds them
 under ``corr_precision='default'``); every plain version computes in
 float32 and returns float32.
@@ -466,3 +473,95 @@ def lookup_ragged_plain(fmap1: torch.Tensor,
     out = lookup_blockwise_onehot(fmap1, f2_levels, coords, radius, chunk)
     live = live_mask(sizes8.to(out.device), H, W)[..., None]
     return torch.where(live, out, torch.zeros((), device=out.device))
+
+
+def _gather_feature_windows(fmap: torch.Tensor, ix0: torch.Tensor,
+                            iy0: torch.Tensor, win: int) -> torch.Tensor:
+    """The ``win x win`` feature windows of fmap [B, H, W, C] with top-left
+    corners (ix0, iy0) [B, T], zeros outside -> [B, T, win(y), win(x), C]:
+    one flat gather over the H*W plane of exactly the T*win^2 points."""
+    B, H, W, C = fmap.shape
+    T = ix0.shape[1]
+    if H == 0 or W == 0:                    # a level pooled away
+        return fmap.new_zeros((B, T, win, win, C))
+    offs = torch.arange(win, device=fmap.device)
+    iy = iy0[..., None] + offs                              # [B, T, win]
+    ix = ix0[..., None] + offs
+    valid = (((iy >= 0) & (iy < H))[..., :, None]
+             & ((ix >= 0) & (ix < W))[..., None, :])        # [B, T, win, win]
+    flat = (iy.clamp(0, H - 1)[..., :, None] * W
+            + ix.clamp(0, W - 1)[..., None, :])             # [B, T, win, win]
+    pts = torch.gather(fmap.reshape(B, H * W, C), 1,
+                       flat.reshape(B, T * win * win, 1).expand(-1, -1, C))
+    zero = torch.zeros((), dtype=fmap.dtype, device=fmap.device)
+    return torch.where(valid[..., None], pts.reshape(B, T, win, win, C), zero)
+
+
+def ondemand_chunk(B: int, C: int, radius: int) -> int:
+    """Queries per chunk of :func:`lookup_ondemand`: the window buffer
+    ``B * chunk * (2r+2)^2 * C`` float32 values held near 8 MB, clipped to
+    [32, 1024] and rounded down to a power of 2, as the JAX package sizes
+    it."""
+    win = 2 * radius + 2
+    chunk = max(32, min(1024, 8 * 2 ** 20 // max(1, B * win * win * C * 4)))
+    return 1 << (chunk.bit_length() - 1)
+
+
+def lookup_ondemand(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
+                    coords: torch.Tensor, radius: int,
+                    chunk: Optional[int] = None) -> torch.Tensor:
+    """The gather lookup of ``corr_impl='blockwise'``, ``corr_lookup=
+    'gather'``: fmap1 [B, H, W, C], f2_levels [B, H/2^l, W/2^l, C] (float32
+    or bfloat16), coords [B, H, W, 2] -> [B, H, W, L*(2r+1)^2] float32.
+    Per chunk of queries (``chunk``, default :func:`ondemand_chunk`) and
+    level, each query's (2r+2)^2 window of fmap2 features is gathered and
+    contracted with its fmap1 vector (float32), scaled by ``1/sqrt(C)``
+    and combined bilinearly by the query's shared fraction.  No volume is
+    built."""
+    B, H, W, C = fmap1.shape
+    Q = H * W
+    win = 2 * radius + 2
+    if chunk is None:
+        chunk = ondemand_chunk(B, C, radius)
+    f1 = fmap1.reshape(B, Q, C).float()
+    flat = coords.reshape(B, Q, 2)
+    scale = corr_scale(C)
+    levels = [f2.float() for f2 in f2_levels]
+    outs = []
+    for s in range(0, Q, chunk):
+        f1c, cc = f1[:, s:s + chunk], flat[:, s:s + chunk]
+        per_level = []
+        for lvl, f2 in enumerate(levels):
+            c = cc / (2.0 ** lvl)
+            cx0, cy0 = torch.floor(c[..., 0]), torch.floor(c[..., 1])
+            winf = _gather_feature_windows(f2, cx0.long() - radius,
+                                           cy0.long() - radius, win)
+            winv = torch.einsum("btyxc,btc->btyx", winf, f1c) * scale
+            per_level.append(_bilinear_window(winv, c[..., 0] - cx0,
+                                              c[..., 1] - cy0, radius))
+        outs.append(torch.cat(per_level, dim=-1))
+    return torch.cat(outs, dim=1).reshape(B, H, W, -1)
+
+
+def naive_corr_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                      coords: torch.Tensor, num_levels: int,
+                      radius: int) -> torch.Tensor:
+    """Point-by-point lookup on the dense pyramid, each of the (2r+1)^2
+    window points of each query and level sampled with
+    ``ops/grid_sample.py`` (zeros padding), x-offset-major: a test oracle
+    only.  fmap1, fmap2 [B, H, W, C] float32 -> [B, H, W, L*(2r+1)^2]."""
+    from .grid_sample import grid_sample
+    B, H, W, C = fmap1.shape
+    pyramid = build_pyramid(fmap1, fmap2_pyramid(fmap2, num_levels))
+    n = 2 * radius + 1
+    d = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                     device=fmap1.device)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), dim=-1)  # (dx, dy)
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        _, Q, H2, W2 = corr.shape
+        vol = corr.reshape(B * Q, H2, W2, 1)
+        centroid = coords.reshape(B * Q, 1, 1, 2) / (2.0 ** lvl)
+        pts = centroid + delta.reshape(1, n, n, 2)
+        outs.append(grid_sample(vol, pts).reshape(B, H, W, n * n))
+    return torch.cat(outs, dim=-1)

@@ -54,8 +54,13 @@ CFG = rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=1)
 
 
 def _graphed(ragged=False, cfg=CFG):
-    eager = port_raft._forward_on(cfg, None, "cpu", ragged)
-    return capture_mod.GraphedForward(eager, lambda m: None, ragged), eager
+    """The pairwise entry's GraphedForward, capturing by the stand-in, and
+    the factory's eager function on the CPU."""
+    forward, spec, validate = port_raft._pair_entry(cfg, None, ragged)
+    staged = forward if forward.adaptive else None
+    return (capture_mod.GraphedForward(forward, lambda m: None, spec, validate,
+                                       staged),
+            port_raft._factory(cfg, "cpu", (forward, spec, validate)))
 
 
 def _images(seed, B=1, H=16, W=24):

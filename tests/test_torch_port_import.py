@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports with ``jax`` and ``raft_tpu``
-blocked, its sources import neither, and its entry points run on CUDA
-unless the CPU is asked for."""
+blocked, its sources import neither (nor ``cv2``), and its entry points
+run on CUDA unless the CPU is asked for."""
 
 import ast
 import os
@@ -35,6 +35,8 @@ def test_imports_with_jax_and_raft_tpu_blocked():
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_sources_import_neither_jax_nor_raft_tpu(path):
+    """Nor OpenCV: the card's machine has no cv2 (the warm start's fill
+    is scipy's)."""
     for node in ast.walk(ast.parse(path.read_text())):
         names = []
         if isinstance(node, ast.Import):
@@ -43,7 +45,7 @@ def test_sources_import_neither_jax_nor_raft_tpu(path):
             names = [node.module or ""]
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "raft_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "raft_tpu", "cv2"), (path, name)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

@@ -4,7 +4,7 @@ same seeded frames, weights converted from JAX ``init_raft`` through
 drawn away from zero and identity), every iteration's flow held to the
 full-model bound of tests/test_torch_golden.py (``1e-3 + 1e-3 *
 max|flow|``); the npz weight bridge; the float32 entry points' TF32
-switches; and the slice boundary (unported values raise)."""
+switches; and every configuration value of the JAX package accepted."""
 
 import dataclasses
 
@@ -116,23 +116,6 @@ def test_npz_checkpoint_round_trip_loads_strict(tmp_path):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(quant="bf16w"),
-    dict(quant="int8+bf16w"),
-    dict(iters_policy="converge:0.5"),
-    dict(quant="int8"),
-    dict(corr_impl="blockwise", corr_lookup="gather"),
-    dict(corr_impl="blockwise", gru_impl="xla", gru_ctx_hoist=False),
-], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
-def test_unported_values_raise_not_implemented(overrides):
-    cfg = rt.RAFTConfig.full(**{"corr_impl": "pallas", "gru_impl": "pallas",
-                                **overrides})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.check_port_support(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.make_inference_fn(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("overrides", [
     dict(pallas_pack=True),
     dict(pallas_pack=True, pallas_p_select="window"),
     dict(compute_dtype="bfloat16", corr_precision="default",
@@ -140,8 +123,17 @@ def test_unported_values_raise_not_implemented(overrides):
     dict(compute_dtype="bfloat16", corr_precision="default"),
     dict(small=True, gru_impl="xla"),
     dict(corr_impl="dense"),
+    dict(quant="bf16w"),
+    dict(quant="int8+bf16w"),
+    dict(iters_policy="converge:0.5"),
+    dict(quant="int8"),
+    dict(corr_impl="blockwise", corr_lookup="gather"),
+    dict(corr_impl="blockwise", gru_impl="xla", gru_ctx_hoist=False),
 ], ids=["P32_all", "P32_window", "BF", "bf16corr_ctx_gru", "small=True,gru_impl=xla",
-        "corr_impl=dense"])
+        "corr_impl=dense", "quant=bf16w", "quant=int8+bf16w",
+        "iters_policy=converge:0.5", "quant=int8",
+        "corr_impl=blockwise,corr_lookup=gather",
+        "corr_impl=blockwise,gru_impl=xla,gru_ctx_hoist=False"])
 def test_slice_configurations_are_accepted(overrides):
     cfg = rt.RAFTConfig.full(**{"corr_impl": "pallas", "gru_impl": "pallas",
                                 **overrides})
@@ -197,15 +189,15 @@ def test_float32_entry_points_turn_tf32_off_and_restore_the_flags(
     bf16 policy's forward runs under the caller's flags."""
     from raft_tpu_torch.models import raft as port_raft
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    seen, real = [], port_raft.raft_forward
+    seen, real = [], port_raft._iterate_flow
 
-    def spy(*args, **kwargs):
+    def spy(model, fmap1, fmap2, net, inp, config, iters, *args):
         seen.append((cudnn.allow_tf32, matmul.allow_tf32))
-        if kwargs.get("iters") == 0:
+        if iters == 0:
             raise RuntimeError("forward failed")
-        return real(*args, **kwargs)
+        return real(model, fmap1, fmap2, net, inp, config, iters, *args)
 
-    monkeypatch.setattr(port_raft, "raft_forward", spy)
+    monkeypatch.setattr(port_raft, "_iterate_flow", spy)
     cfg = rt.RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=1,
                              compute_dtype=dtype)
     model = rt.init_raft_torch(cfg, device="cpu")
