@@ -189,9 +189,36 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    read), the solo stream step beside the pairwise request, the batch step
    beside 3 solo steps, int8 slots, the ragged stream batch, 'blockwise' +
    'gather' and the un-hoisted GRU; the total wall time.
+8. serving (``serving_phases``): the port's FlowServer on localhost (port
+   0), full width, 12 iterations, fresh seeded models.  S1, the f32 main
+   path with streaming (bucket 432x1024, max_batch 4, 4 sessions): the
+   12-key warm grid of lint/budget.py; 8 sequential /v1/flow requests
+   bitwise equal to make_inference_fn called directly on the same model;
+   4 clients x 8 requests (mean device batch > 1, each device batch
+   bitwise the direct call on that padded batch, each response its row);
+   3 /v1/stream sessions x 4 frames advanced together (mean step width >
+   1, fnet cache hits == advances, each advance its row of the engine's
+   batch step, the slot pool's addresses unchanged across commits and a
+   reset); /admin/reload of seed-1 weights (version 2, no capture, the
+   next response bitwise the direct call on them); no serve-time capture.
+   S2, BF with ragged=True over the Sintel, KITTI and FlyingChairs
+   buckets (box 440x1248): 9 sequential and 3 clients x 6 mixed requests,
+   each device batch bitwise make_ragged_inference_fn on it, each
+   response its unpadded row, no serve-time capture.  Then the timings,
+   3 windows of 5 s each (hundreds of requests): the HTTP median at one
+   client beside the captured factory's (the serving overhead), pairs/s
+   and the mean device batch with several clients, S1's stream advances
+   from 3 sessions; warmup seconds, the graph pools and peak allocated
+   memory.  Every device batch size served (pair or ragged batch, S1's
+   batch steps from the pool rows they gathered) has its kernels held to
+   the plain step at that batch from its own features, as in phases 4 and
+   6c, and every kept batch bitwise to the direct call.  Both hold their
+   launch counts (the warmup's captures and the reload's probe; replays
+   launch from the graph, uncounted, and are reported apart), which join
+   the kernels' record.
 
-Before the last two lines the e2e JSON record (PERF.md §2 says what each
-key means); the line before the last is the kernels' JSON record; the
+Before the last two lines the serving and e2e JSON records (PERF.md §2
+says what each key means); the line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
 bytes over the memory rate and the operations over the card's rate for
@@ -420,6 +447,693 @@ def _launches(*wrappers) -> dict:
 def _reset(*wrappers) -> None:
     for w in wrappers:
         w.launches = 0
+
+
+# -- 8. serving: the port's FlowServer on the card ----------------------------
+
+def _http(url: str, body: bytes = b"", ctype: str = "application/octet-stream",
+          timeout: float = 60.0, headers: dict = None):
+    """POST ``body`` (GET when None) and return (status, body bytes);
+    with ``headers`` (a dict) the response's headers are put in it."""
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": ctype,
+                                 "Accept": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if headers is not None:
+            headers.update(r.headers.items())
+        return r.status, r.read()
+
+
+def _npz(**arrays) -> bytes:
+    import io
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _unnpz(body: bytes) -> dict:
+    import io
+    with np.load(io.BytesIO(body)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _metric(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"/metrics has no {name}")
+
+
+def _graph_pool_mib(fns):
+    """MiB of the CUDA graph memory pools of ``fns`` (the factories'
+    ``GraphedForward``s), summed over their segments in the allocator's
+    snapshot; None when the snapshot does not name segment pools."""
+    pools = {tuple(f.graphs._pool) for f in fns
+             if f.graphs is not None and f.graphs._pool is not None}
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) in pools) / 2 ** 20
+
+
+def _clients(n: int, work):
+    """Run ``work(i)`` on ``n`` threads at once; returns the results in
+    order, re-raising the first failure; every thread joined."""
+    import threading
+    out, errors = [None] * n, []
+
+    def run(i):
+        try:
+            out[i] = work(i)
+        except BaseException as e:      # noqa: BLE001 — re-raised below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        if t.is_alive():
+            raise AssertionError("a client thread did not finish in 300 s")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _watch(engine, name: str, keep, before=None) -> dict:
+    """Wrap ``engine.<name>`` (called with the bucket, then a batch): count
+    its calls in ``calls`` and keep ``keep(args, kw, out, pre)`` in ``kept``
+    for every call while ``keep_all`` is set, else for the first call at
+    each batch size not kept yet; ``pre = before(args, kw)`` is taken just
+    before a call that is kept."""
+    st = {"calls": 0, "kept": [], "sizes": set(), "keep_all": True}
+    orig = getattr(engine, name)
+
+    def wrapped(*args, **kw):
+        b = args[1].shape[0]
+        take = keep is not None and (st["keep_all"] or b not in st["sizes"])
+        pre = before(args, kw) if take and before is not None else None
+        out = orig(*args, **kw)
+        st["calls"] += 1
+        if take:
+            st["sizes"].add(b)
+            st["kept"].append(keep(args, kw, out, pre))
+        return out
+    setattr(engine, name, wrapped)
+    return st
+
+
+def _windows(n_clients: int, request, calls=None, n_win: int = 3,
+             secs: float = 5.0):
+    """``n_clients`` clients, each calling ``request(c, i)`` (returns its
+    ms) back to back, over ``n_win`` windows of ``secs`` seconds each.
+    Per window: requests, requests/s (requests over the time until the
+    last one returned), their median and p90 ms and, with ``calls`` (a
+    _watch record of the device entry they reach), the device calls and
+    the mean device batch (requests per call).  Returns (windows, every
+    latency)."""
+    out, every = [], []
+    for _ in range(n_win):
+        c0 = calls["calls"] if calls is not None else 0
+        t0 = time.perf_counter()
+        end = t0 + secs
+
+        def client(c):
+            lat, i = [], 0
+            while time.perf_counter() < end:
+                lat.append(request(c, i))
+                i += 1
+            return lat
+        lats = [ms for x in _clients(n_clients, client) for ms in x]
+        dt = time.perf_counter() - t0
+        rec = {"requests": len(lats), "s": dt, "per_s": len(lats) / dt,
+               "ms_median": statistics.median(lats),
+               "ms_p90": float(np.percentile(lats, 90))}
+        if calls is not None:
+            rec["device_calls"] = calls["calls"] - c0
+            rec["mean_device_batch"] = len(lats) / rec["device_calls"]
+        out.append(rec)
+        every += lats
+    return out, every
+
+
+def _spread(wins, key):
+    """[min, median, max] of ``key`` over the windows."""
+    vals = [w[key] for w in wins]
+    return [min(vals), statistics.median(vals), max(vals)]
+
+
+def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
+                   hold_step) -> dict:
+    """Phase 8: the port's FlowServer (``raft_tpu_torch.serving``) on the
+    card, at full width and ``iters`` iterations on seeded random weights,
+    two servers on localhost (port 0), each stopped in ``finally``.
+
+    S1, f32 main (corr_impl='pallas', gru_impl='pallas'), bucket
+    432x1024, max_batch 4, 4 sessions: the 12-key warm grid; (a) 8
+    sequential /v1/flow requests, each bitwise equal to make_inference_fn
+    called directly at batch 1 on the same model; (b) 4 clients x 8
+    requests: mean device batch > 1, every device batch (kept by a wrapper
+    around engine.run) bitwise equal to the direct call on that padded
+    batch, every response equal to its row; (c) no serve-time capture; (d)
+    3 /v1/stream sessions x 4 frames advanced together: mean step width >
+    1, fnet cache hits == advances, each advance equal to its row of the
+    engine's batch step, the slot pool's addresses unchanged across
+    commits and a reset; (e) /admin/reload of seed-1 weights: version 2,
+    no capture, the next response bitwise equal to the direct call on a
+    model holding those weights.  S2, BF (the bench's
+    pallas-bf16corr-ctx-gru-winpack) with ragged=True, buckets 440x1024,
+    376x1248 and 384x512 (max box 440x1248), max_batch 4: Sintel, KITTI
+    and FlyingChairs requests, sequential then from 3 clients, held as
+    (a)-(c) against make_ragged_inference_fn on each batch the engine ran.
+
+    After the checks, the timings: 3 windows of 5 s at one client and at
+    several (and, in S1, of 3 sessions streaming), each request a frame
+    pair of its own client's 8 encoded anew; the device batches of sizes
+    the checks had not run are kept too.  Then the kernels of every
+    device batch size that was served (``hold_pair``; S1's batch steps
+    ``hold_step``, from the pool rows they gathered) are held against the
+    plain step from the same state, at that batch and on its own frames,
+    and every kept batch is held bitwise to the direct call.
+
+    Kernel launches are counted from the server's start: the warmup's
+    captures (each an eager warm-up and the captured forward) and the
+    reload's eager probe; a replay launches from the graph and is not
+    counted (the replays are counted apart, as the kernels they run).
+    The direct calls and the parity runs run after the counts are read."""
+    from raft_tpu_torch import (RAFTConfig, embed_to_shape, init_raft_torch,
+                                make_inference_fn, make_ragged_inference_fn)
+    from raft_tpu_torch.convert.weights import save_params_npz
+    from raft_tpu_torch.data.pipeline import pad_to_shape
+    from raft_tpu_torch.lint.budget import enumerate_warmup_grid
+    from raft_tpu_torch.ops import gru_cuda
+    from raft_tpu_torch.serving import FlowServer, ServeConfig
+    from raft_tpu_torch.serving.session import buffer_tensors
+
+    def frame(h, w):
+        return frame_rng.rand(h, w, 3).astype(np.float32)
+
+    def start(label, cfg, model, sc):
+        _reset(*kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reserved0 = torch.cuda.memory_reserved()
+        allocated0 = torch.cuda.memory_allocated() / 2 ** 20
+        server = FlowServer(cfg, model, sc, iters=iters)
+        server.start()
+        eng = server.engine
+        grid = enumerate_warmup_grid(eng.config, sc)
+        if eng.keys() != sorted(grid) or eng.executables != len(grid):
+            raise AssertionError(f"{label}: warm keys {eng.keys()} are not "
+                                 f"the grid {grid}")
+        warm = {"keys": len(grid), "warmup_s": eng.warmup_seconds,
+                "captures": eng.captures(), "graphs": eng.graph_count(),
+                "graph_pool_mib": _graph_pool_mib(eng._factories),
+                "reserved_mib": (torch.cuda.memory_reserved() - reserved0)
+                / 2 ** 20, "allocated_before_mib": allocated0}
+        print(f"{label}: warmed {len(grid)} keys in {warm['warmup_s']:.2f} s "
+              f"({warm['captures']} captures, {warm['graphs']} graphs; graph "
+              f"pools {warm['graph_pool_mib']} MiB, reserved "
+              f"+{warm['reserved_mib']:.0f} MiB): {grid}")
+        return server, warm
+
+    spans_ms = []           # the server's spans of each /v1/flow response
+
+    def flow_call(url, im1, im2):
+        head = {}
+        t0 = time.perf_counter()
+        body = _npz(image1=im1, image2=im2)
+        t1 = time.perf_counter()
+        _, body = _http(url + "/v1/flow", body, headers=head)
+        t2 = time.perf_counter()
+        flow = _unnpz(body)["flow"]
+        t3 = time.perf_counter()
+        ms = (t3 - t0) * 1e3
+        spans_ms.append(dict(json.loads(head["X-Raft-Timings"]), total=ms,
+                             client_npz=(t1 - t0 + t3 - t2) * 1e3))
+        if not np.isfinite(flow).all():
+            raise AssertionError("a served flow is not finite")
+        return flow, ms
+
+    def span_medians(calls):
+        """Median ms over ``calls`` (a slice of spans_ms) of each server
+        span (from admission to the flow on the host), of the client's npz
+        encode and decode, and of the rest of the client's wall time: the
+        HTTP transfer both ways, the server's npz decode and checks of the
+        request and its npz encode of the response."""
+        names = [k for k in calls[0] if k != "total"]
+        med = {k: statistics.median(c.get(k, 0.0) for c in calls)
+               for k in names}
+        top = [k for k in names if not k.startswith("execute_")]
+        med["transfer_and_server_npz"] = statistics.median(
+            c["total"] - sum(c.get(k, 0.0) for k in top) for c in calls)
+        return med
+
+    def timed_flows(url, pools, st):
+        """The 1-client and the len(pools)-client windows of /v1/flow, each
+        client cycling over its own frame pairs; the 1-client spans."""
+        n0 = len(spans_ms)
+        one, lat1 = _windows(1, lambda c, i: flow_call(
+            url, *pools[0][i % len(pools[0])])[1], st)
+        spans = span_medians(spans_ms[n0:])
+        many, _ = _windows(len(pools), lambda c, i: flow_call(
+            url, *pools[c][i % len(pools[c])])[1], st)
+        return one, statistics.median(lat1), spans, many
+
+    def factory_ms(fn, model, inputs, rounds=5):
+        out = []
+        for _ in range(rounds):
+            for args in inputs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(model, *args)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    def check_batches(label, kept, direct):
+        for i, (args, out) in enumerate(kept):
+            want = direct(args).cpu().numpy()
+            if not np.array_equal(out, want):
+                raise AssertionError(
+                    f"{label}: device batch {i} (batch {out.shape[0]}) is "
+                    f"not bitwise the direct call, max|diff| "
+                    f"{float(np.abs(out - want).max()):.3g}")
+
+    def first_of_each_size(kept):
+        out = {}
+        for args, res in kept:
+            out.setdefault(args[0].shape[0], args)
+        return [out[b] for b in sorted(out)]
+
+    def finish(label, server, warm):
+        eng = server.engine
+        if eng.compile_misses or eng.captures() != warm["captures"]:
+            raise AssertionError(
+                f"{label}: {eng.compile_misses} serve-time misses, captures "
+                f"{warm['captures']} -> {eng.captures()}")
+        text = _http(server.url + "/metrics", None)[1].decode()
+        if _metric(text, "raft_serving_compile_cache_misses_total") != 0:
+            raise AssertionError(f"{label}: /metrics counts a miss")
+        torch.cuda.synchronize()
+        return text
+
+    def report(wins):
+        return {"windows": wins, "per_s": _spread(wins, "per_s"),
+                "mean_device_batch": _spread(wins, "mean_device_batch"),
+                "ms_median": _spread(wins, "ms_median")}
+
+    rec = {}
+    # -- S1: f32 main, with streaming ----------------------------------------
+    cfg1 = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")
+    model1 = init_raft_torch(cfg1, generator=torch.Generator().manual_seed(0),
+                             device=dev)
+    sc1 = ServeConfig(buckets=((H_IMG, W_IMG),), max_batch=4, max_sessions=4,
+                      port=0, default_deadline_ms=60_000.0)
+    bucket1 = (H_IMG, W_IMG)
+    server, warm1 = start("S1 f32 main", cfg1, model1, sc1)
+    try:
+        eng = server.engine
+        url = server.url
+
+        def pool_rows(a, kw):
+            """The pool rows a batch step is about to gather: (fmap, cnet,
+            warm-start seed) at its slots."""
+            with eng._device_lock:
+                sl = torch.as_tensor(np.asarray(a[2], np.int64), device=dev)
+                return tuple(t.index_select(0, sl)
+                             for t in eng.pool.buffers(a[0]))
+        pairs_st = _watch(eng, "run", lambda a, kw, out, pre: (
+            (a[1].copy(), a[2].copy()), np.array(out)))
+        steps_st = _watch(eng, "run_stream_batch", lambda a, kw, out, pre: {
+            "images": a[1].copy(), "active": np.asarray(a[3]).copy(),
+            "flow": np.array(out[0]), "fmap_cur": out[2], "rows": pre},
+            before=pool_rows)
+        solo_st = _watch(eng, "run_stream", None)
+        # (a) sequential
+        seq = [(frame(H_IMG, W_IMG), frame(H_IMG, W_IMG)) for _ in range(8)]
+        seq_out = [flow_call(url, a, b)[0] for a, b in seq]
+        # (b) 4 clients x 8 requests, every pair its own frames
+        n_seq = len(pairs_st["kept"])
+        conc = [[(frame(H_IMG, W_IMG), frame(H_IMG, W_IMG)) for _ in range(8)]
+                for _ in range(4)]
+        conc_out = _clients(4, lambda c: [flow_call(url, a, b)[0]
+                                          for a, b in conc[c]])
+        conc_batches = pairs_st["kept"][n_seq:]
+        mean_batch = 32 / len(conc_batches)
+        # (d) 3 sessions x 4 frames, advanced together round by round
+        import threading
+        barrier = threading.Barrier(3)
+        vids = [[frame(H_IMG, W_IMG) for _ in range(4)] for _ in range(3)]
+        pool0 = [t.data_ptr() for t in buffer_tensors(eng.pool.buffers(
+            bucket1))]
+
+        def open_session(image):
+            _, body = _http(url + "/v1/stream", _npz(image=image))
+            return str(_unnpz(body)["session"])
+
+        def advance(sid, image):
+            t0 = time.perf_counter()
+            _, body = _http(url + "/v1/stream",
+                            _npz(image=image, session=np.asarray(sid)))
+            r = _unnpz(body)
+            return r, (time.perf_counter() - t0) * 1e3
+
+        def close(sid):
+            _http(url + "/v1/stream", _npz(op=np.asarray("close"),
+                                           session=np.asarray(sid)))
+
+        def session(s):
+            sid = open_session(vids[s][0])
+            out = []
+            for k in range(1, 4):
+                barrier.wait(120)
+                r, ms = advance(sid, vids[s][k])
+                if not bool(r["warm"]) or int(r["frame"]) != k:
+                    raise AssertionError(f"S1 session {s} frame {k}: not warm")
+                out.append(r["flow"])
+            close(sid)
+            return out
+        stream_out = _clients(3, session)
+        kept_steps = list(steps_st["kept"])
+        advances = sum(len(x) for x in stream_out)
+        rows = sum(int(k["active"].sum()) for k in kept_steps)
+        width = rows / len(kept_steps)
+        pool1 = [t.data_ptr() for t in buffer_tensors(eng.pool.buffers(
+            bucket1))]
+        eng.reset_slots(bucket1)
+        pool2 = [t.data_ptr() for t in buffer_tensors(eng.pool.buffers(
+            bucket1))]
+        for s in range(3):
+            for k in range(1, 4):
+                got = stream_out[s][k - 1]
+                for step in kept_steps:
+                    hit = [j for j in range(int(step["active"].sum()))
+                           if np.array_equal(step["images"][j], vids[s][k])]
+                    if hit:
+                        if not np.array_equal(got, step["flow"][hit[0]]):
+                            raise AssertionError(f"S1 session {s} frame {k}: "
+                                                 f"not its engine row")
+                        break
+                else:
+                    raise AssertionError(f"S1 session {s} frame {k}: in no "
+                                         f"batch step")
+        text = _http(url + "/metrics", None)[1].decode()
+        hits = _metric(text, "raft_stream_fnet_cache_hits_total")
+        if hits != advances or rows != advances:
+            raise AssertionError(f"S1 streams: fnet cache hits {hits}, rows "
+                                 f"{rows}, advances {advances}")
+        if not width > 1 or not mean_batch > 1:
+            raise AssertionError(f"S1: mean step width {width:.2f}, mean "
+                                 f"device batch {mean_batch:.2f} (both must "
+                                 f"be > 1)")
+        if not pool0 == pool1 == pool2:
+            raise AssertionError("S1: the slot pool's buffers moved")
+
+        # the timings: from here only batches of sizes not kept yet are kept
+        pairs_st["keep_all"] = steps_st["keep_all"] = False
+        pools = [[(frame(H_IMG, W_IMG), frame(H_IMG, W_IMG)) for _ in range(8)]
+                 for _ in range(4)]
+        one1, http_ms, spans1, four1 = timed_flows(url, pools, pairs_st)
+        svids = [[frame(H_IMG, W_IMG) for _ in range(8)] for _ in range(3)]
+        sids = [open_session(v[0]) for v in svids]
+        hits0 = _metric(_http(url + "/metrics", None)[1].decode(),
+                        "raft_stream_fnet_cache_hits_total")
+
+        def stream_request(c, i):
+            r, ms = advance(sids[c], svids[c][(i + 1) % len(svids[c])])
+            if not bool(r["warm"]) or not np.isfinite(r["flow"]).all():
+                raise AssertionError(f"S1 session {c}: a cold or non-finite "
+                                     f"advance")
+            return ms
+        stream1, adv_lat = _windows(3, stream_request, steps_st)
+        for sid in sids:
+            close(sid)
+        text = _http(url + "/metrics", None)[1].decode()
+        timed_adv = sum(w["requests"] for w in stream1)
+        if _metric(text, "raft_stream_fnet_cache_hits_total") - hits0 != timed_adv:
+            raise AssertionError("S1 timed streams: fnet cache hits are not "
+                                 "the advances")
+        adv_ms = statistics.median(adv_lat)
+        for w in stream1:
+            w["mean_step_width"] = w.pop("mean_device_batch")
+        finish("S1", server, warm1)
+        served = _launches(*kernels)
+
+        # the direct calls (a) and (b) are held to, on the same model
+        # object before the reload changes its weights, and the kernels at
+        # every served batch size; their launches (captures of the direct
+        # factory, eager parity runs) are left out of the counts
+        direct = make_inference_fn(cfg1, iters=iters, device=dev)
+        for i, ((a, b), got) in enumerate(zip(seq, seq_out)):
+            want = direct(model1, a[None], b[None])[0].cpu().numpy()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"S1 (a) request {i}: not bitwise the "
+                                     f"direct call")
+        check_batches("S1 served", pairs_st["kept"],
+                      lambda ims: direct(model1, *ims))
+        for c in range(4):
+            for (a, b), got in zip(conc[c], conc_out[c]):
+                for (ims, out) in conc_batches:
+                    hit = [j for j in range(ims[0].shape[0])
+                           if np.array_equal(ims[0][j], a)]
+                    if hit:
+                        if not np.array_equal(got, out[hit[0]]):
+                            raise AssertionError("S1 (b): a response is not "
+                                                 "its row of the batch")
+                        break
+                else:
+                    raise AssertionError("S1 (b): a request in no batch")
+        held1 = []
+        for ims in first_of_each_size(pairs_st["kept"]):
+            hold_pair("S1 served pair batch", cfg1, model1, *ims)
+            held1.append(("pair", ims[0].shape[0]))
+        step_widths = {}
+        for step in steps_st["kept"]:
+            step_widths.setdefault(step["images"].shape[0], step)
+        for b in sorted(step_widths):
+            fm, cn, seed = step_widths[b]["rows"]
+            hold_step(f"S1 served stream batch step (real rows "
+                      f"{int(step_widths[b]['active'].sum())})", cfg1, model1,
+                      fm, step_widths[b]["fmap_cur"], cn, seed)
+            held1.append(("sbatch", b))
+        factory1 = factory_ms(direct, model1, [(a[None], b[None])
+                                               for a, b in seq])
+        torch.cuda.synchronize()
+        compared = _launches(*kernels)
+        # (e) reload a second seeded weight set
+        model1b = init_raft_torch(cfg1, generator=torch.Generator().manual_seed(1),
+                                  device=dev)
+        import io
+        buf = io.BytesIO()
+        save_params_npz(model1b.state_dict(), buf)
+        _, body = _http(url + "/admin/reload", buf.getvalue())
+        version = json.loads(body)["weights"]["version"]
+        if version != 2 or eng.weight_info()["version"] != 2:
+            raise AssertionError(f"S1 reload: version {version}")
+        after = (frame(H_IMG, W_IMG), frame(H_IMG, W_IMG))
+        after_flow, _ = flow_call(url, *after)
+        finish("S1", server, warm1)
+        now = _launches(*kernels)
+        launches1 = {k: served[k] + now[k] - compared[k] for k in now}
+        flow_replays = pairs_st["calls"] + steps_st["calls"] + solo_st["calls"]
+        peak1 = torch.cuda.max_memory_allocated() / 2 ** 20
+        want = direct(model1b, after[0][None], after[1][None])[0].cpu().numpy()
+        if not np.array_equal(after_flow, want):
+            raise AssertionError("S1 (e): the response after the reload is "
+                                 "not bitwise the direct call on the new "
+                                 "weights")
+        captured_flow = 7                        # pair x3, stream, sbatch x3
+        want1 = {"corr_lookup": (2 * captured_flow + 1) * iters,
+                 "sep_conv_gru": (2 * captured_flow + 1) * iters
+                 * gru_cuda.LAUNCHES_PER_CALL}
+        got1 = {k: v for k, v in launches1.items() if v}
+        if got1 != want1 or warm1["captures"] != 8:
+            raise AssertionError(f"S1 launches {got1} != {want1} (captures "
+                                 f"{warm1['captures']})")
+        replayed1 = {"corr_lookup": flow_replays * iters,
+                     "sep_conv_gru": flow_replays * iters
+                     * gru_cuda.LAUNCHES_PER_CALL}
+        rec["s1"] = {
+            "warmup_s": warm1["warmup_s"], "keys": warm1["keys"],
+            "captures": warm1["captures"],
+            "graph_pool_mib": warm1["graph_pool_mib"],
+            "warmup_reserved_mib": warm1["reserved_mib"],
+            "allocated_before_mib": warm1["allocated_before_mib"],
+            "peak_allocated_mib": peak1,
+            "http_ms_median_1_client": http_ms,
+            "factory_ms_median": factory1,
+            "serving_overhead_ms": http_ms - factory1,
+            "spans_ms_median_1_client": spans1,
+            "one_client": report(one1),
+            "four_clients": report(four1),
+            "mean_device_batch_4x8_check": mean_batch,
+            "stream_advance_ms_median": adv_ms,
+            "streams_3_sessions": {
+                "windows": stream1,
+                "advances_per_s": _spread(stream1, "per_s"),
+                "mean_step_width": _spread(stream1, "mean_step_width")},
+            "stream_mean_step_width_check": width,
+            "stream_advances_check": advances, "fnet_cache_hits_check": hits,
+            "held_batches": held1,
+            "weight_version": version, "launches": got1,
+            "flow_graph_replays": flow_replays,
+            "launches_by_replay": replayed1,
+            "compile_hits": eng.compile_hits}
+        print(f"S1 f32 main: (a) 8 sequential requests bitwise the direct "
+              f"call; (b) 4 clients x 8: mean device batch {mean_batch:.2f}, "
+              f"every batch bitwise the direct call, every response its row; "
+              f"(c) 0 serve-time captures; (d) 3 sessions x 4 frames: "
+              f"{advances} advances warm, mean step width {width:.2f}, pool "
+              f"addresses unchanged; (e) reload -> version 2, no capture, "
+              f"bitwise the new weights; kernels held at the served batches "
+              f"{held1}; launches at capture + probe {got1}, by "
+              f"{flow_replays} graph replays {replayed1}; peak allocated "
+              f"{peak1:.0f} MiB")
+        print(f"S1 timings, 3 windows of 5 s each: 1 client "
+              f"{sum(w['requests'] for w in one1)} requests, HTTP median "
+              f"{http_ms:.2f} ms vs the captured factory {factory1:.2f} ms "
+              f"(serving overhead {http_ms - factory1:.2f} ms; server spans, "
+              f"medians { {k: round(v, 2) for k, v in spans1.items()} }); "
+              f"4 clients {sum(w['requests'] for w in four1)} requests, "
+              f"pairs/s by window {[round(w['per_s'], 2) for w in four1]}, "
+              f"mean device batch "
+              f"{[round(w['mean_device_batch'], 2) for w in four1]}; 3 "
+              f"sessions {timed_adv} advances, median {adv_ms:.2f} ms, "
+              f"advances/s {[round(w['per_s'], 2) for w in stream1]}, mean "
+              f"step width {[round(w['mean_step_width'], 2) for w in stream1]}")
+    finally:
+        server.stop(timeout=60)
+    add = {"f32": launches1}
+
+    # -- S2: BF, ragged ------------------------------------------------------
+    cfg2 = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                           compute_dtype="bfloat16", corr_precision="default",
+                           pallas_pack=True, pallas_p_select="window",
+                           pallas_p_blk=1024)
+    model2 = init_raft_torch(cfg2, generator=torch.Generator().manual_seed(0),
+                             device=dev)
+    # each crop's bucket: its sides rounded up to multiples of 8; the max
+    # box over them is phase 6's BOX
+    sc2 = ServeConfig(buckets=tuple((-(-h // 8) * 8, -(-w // 8) * 8)
+                                    for h, w in CROPS),
+                      max_batch=4, max_sessions=0, ragged=True, port=0,
+                      default_deadline_ms=60_000.0)
+    server, warm2 = start("S2 BF ragged", cfg2, model2, sc2)
+    try:
+        eng = server.engine
+        url = server.url
+        box = sc2.max_box
+        st2 = _watch(eng, "run", lambda a, kw, out, pre: (
+            (a[1].copy(), a[2].copy(), np.asarray(
+                a[3] if len(a) > 3 else kw["sizes"]).copy()), np.array(out)))
+        # (a) sequential: a lone request is a batch of one
+        seq = [(frame(*CROPS[i % 3]), frame(*CROPS[i % 3])) for i in range(9)]
+        seq_out = [flow_call(url, a, b)[0] for a, b in seq]
+        n_seq = len(st2["kept"])
+        # (b) 3 clients x 6 mixed requests
+        conc = [[(frame(*CROPS[(c + i) % 3]), frame(*CROPS[(c + i) % 3]))
+                 for i in range(6)] for c in range(3)]
+        conc_out = _clients(3, lambda c: [flow_call(url, a, b)[0]
+                                          for a, b in conc[c]])
+        mean_batch = 18 / (len(st2["kept"]) - n_seq)
+        st2["keep_all"] = False
+        pools = [[(frame(*CROPS[(c + i) % 3]), frame(*CROPS[(c + i) % 3]))
+                  for i in range(8)] for c in range(3)]
+        one2, http_ms, spans2, three2 = timed_flows(url, pools, st2)
+        finish("S2", server, warm2)
+        launches2 = _launches(*kernels)
+        flow_replays2 = st2["calls"]
+        peak2 = torch.cuda.max_memory_allocated() / 2 ** 20
+        direct = make_ragged_inference_fn(cfg2, iters=iters, device=dev)
+
+        def embedded(im):
+            bucket = sc2.route(*im.shape[:2])
+            padded, pads = pad_to_shape(im[None], bucket)
+            return embed_to_shape(padded, box)[0], pads
+
+        inputs = []
+        for (a, b), got in zip(seq, seq_out):
+            (ea, (t, _, l, _)), (eb, _) = embedded(a), embedded(b)
+            inputs.append((ea[None], eb[None], np.asarray(
+                [sc2.route(*a.shape[:2])], np.int32)))
+            want = direct(model2, *inputs[-1])[0].cpu().numpy()
+            if not np.array_equal(got, want[t:t + a.shape[0],
+                                            l:l + a.shape[1]]):
+                raise AssertionError("S2: a sequential response is not "
+                                     "bitwise the direct call")
+        check_batches("S2", st2["kept"], lambda ims: direct(model2, *ims))
+        for (a, b), got in zip([p for c in conc for p in c],
+                               [f for c in conc_out for f in c]):
+            ea, (t, _, l, _) = embedded(a)
+            for (ims, out) in st2["kept"][n_seq:]:
+                hit = [j for j in range(ims[0].shape[0])
+                       if np.array_equal(ims[0][j], ea)]
+                if hit:
+                    row = out[hit[0]][t:t + a.shape[0], l:l + a.shape[1]]
+                    if not np.array_equal(got, row):
+                        raise AssertionError("S2: a response is not its "
+                                             "row of the batch")
+                    break
+            else:
+                raise AssertionError("S2: a request in no batch")
+        held2 = []
+        for ims in first_of_each_size(st2["kept"]):
+            hold_pair(f"S2 served ragged batch, live {ims[2].tolist()}", cfg2,
+                      model2, *ims)
+            held2.append((ims[0].shape[0], ims[2].tolist()))
+        factory2 = factory_ms(direct, model2, inputs, rounds=4)
+        got2 = {k: v for k, v in launches2.items() if v}
+        want2 = {"corr_ragged": 2 * 3 * iters,
+                 "sep_conv_gru": 2 * 3 * iters * gru_cuda.LAUNCHES_PER_CALL}
+        if got2 != want2 or warm2["captures"] != 3:
+            raise AssertionError(f"S2 launches {got2} != {want2}")
+        if not mean_batch > 1:
+            raise AssertionError(f"S2: mean device batch {mean_batch:.2f}")
+        replayed2 = {"corr_ragged": flow_replays2 * iters,
+                     "sep_conv_gru": flow_replays2 * iters
+                     * gru_cuda.LAUNCHES_PER_CALL}
+        rec["s2"] = {
+            "warmup_s": warm2["warmup_s"], "keys": warm2["keys"],
+            "captures": warm2["captures"],
+            "graph_pool_mib": warm2["graph_pool_mib"],
+            "warmup_reserved_mib": warm2["reserved_mib"],
+            "allocated_before_mib": warm2["allocated_before_mib"],
+            "peak_allocated_mib": peak2,
+            "http_ms_median_1_client": http_ms,
+            "factory_ms_median": factory2,
+            "serving_overhead_ms": http_ms - factory2,
+            "spans_ms_median_1_client": spans2,
+            "one_client": report(one2),
+            "three_clients": report(three2),
+            "mean_device_batch_3x6_check": mean_batch,
+            "held_batches": held2,
+            "launches": got2,
+            "flow_graph_replays": flow_replays2,
+            "launches_by_replay": replayed2,
+            "compile_hits": eng.compile_hits}
+        print(f"S2 BF ragged ({box[0]}x{box[1]} box; Sintel, KITTI, "
+              f"FlyingChairs): 9 sequential + 3 clients x 6, every batch "
+              f"bitwise the direct ragged call, every response its row, "
+              f"mean device batch {mean_batch:.2f}; 0 serve-time captures; "
+              f"kernels held at the served batches {held2}; launches at "
+              f"capture {got2} (B4-bf16 {got2.get('corr_ragged', 0)}, "
+              f"B2-bf16 {got2.get('sep_conv_gru', 0)}), by {flow_replays2} "
+              f"graph replays {replayed2}; peak allocated {peak2:.0f} MiB")
+        print(f"S2 timings, 3 windows of 5 s each: 1 client "
+              f"{sum(w['requests'] for w in one2)} requests, HTTP median "
+              f"{http_ms:.2f} ms vs the captured factory {factory2:.2f} ms "
+              f"(overhead {http_ms - factory2:.2f} ms; spans "
+              f"{ {k: round(v, 2) for k, v in spans2.items()} }); 3 clients "
+              f"{sum(w['requests'] for w in three2)} requests, pairs/s by "
+              f"window {[round(w['per_s'], 2) for w in three2]}, mean device "
+              f"batch {[round(w['mean_device_batch'], 2) for w in three2]}")
+    finally:
+        server.stop(timeout=60)
+    add["bf16"] = launches2
+    rec["launches"] = add
+    return rec
 
 
 def main() -> int:
@@ -2473,6 +3187,39 @@ def main() -> int:
           f"{hb}x{cudnn_ms[True][0]} {cudnn_ms[True][1]:.3f} ms/call")
     def both(key):
         return {"captured": cap_med[key], "eager": eag_med[key]}
+
+    # -- 8. serving ----------------------------------------------------
+    def hold_served(label, cfg_s, mdl, im1, im2, sizes=None):
+        """A served device batch's kernels at that batch, on its own
+        frames: every iteration's kernel step held to the plain step from
+        the same state, as in phase 4 (float32) and phase 6c (bfloat16:
+        within the plain bf16 step's own distance from the plain f32
+        step); ``sizes``: the rows' live extents (ragged)."""
+        t1, t2 = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                  for x in (im1, im2))
+        sz = crops_ = None
+        if sizes is not None:
+            sz = torch.from_numpy(np.asarray(sizes, np.int32)).to(dev)
+            crops_ = [tuple(x) for x in np.asarray(sizes).tolist()]
+        with torch.no_grad():
+            if cfg_s.compute_dtype == "bfloat16":
+                worst = bf16_step_parity(cfg_s, t1, t2, sz, crops_, mdl_bf=mdl)
+                what = f"{worst[1]} (ratio {worst[0]:.3f})"
+            else:
+                worst = step_parity(cfg_s, cfg_p, t1, t2, sz, crops_, mdl=mdl)
+                what = worst[1]
+        print(f"{label}, batch of {t1.shape[0]}: every iteration vs the "
+              f"plain step from the same state, worst {what}")
+        if not worst[0] <= 1.0:
+            raise AssertionError(f"{label}, batch of {t1.shape[0]}: a kernel "
+                                 f"step disagrees with the plain step")
+
+    serving = serving_phases(dev, kernels, ITERS, np.random.RandomState(8),
+                             hold_served, kernel_vs_plain)
+    for dtype_key, got in serving.pop("launches").items():
+        add_launches(dtype_key, got)
+    serving["device"] = smi
+    print(json.dumps({"serving": serving}))
 
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall time {wall_s:.1f} s")

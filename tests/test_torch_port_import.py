@@ -25,6 +25,9 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch\n"
             "import raft_tpu_torch.ops.corr_cuda, raft_tpu_torch.ops.gru_cuda\n"
             "import raft_tpu_torch._build\n"
+            "import raft_tpu_torch.serving, raft_tpu_torch.serving.__main__\n"
+            "import raft_tpu_torch.telemetry, raft_tpu_torch.lint\n"
+            "import raft_tpu_torch.lint.budget, raft_tpu_torch.lint.concurrency\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
