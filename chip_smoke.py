@@ -217,7 +217,39 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    launch from the graph, uncounted, and are reported apart), which join
    the kernels' record.
 
-Before the last two lines the serving and e2e JSON records (PERF.md §2
+9. training (``training_phases``, run right after phase 2, before any
+   profiler session): the chairs stage
+   (``TrainConfig.for_stage('chairs')``: batch 10, 368x496, AdamW, lr
+   4e-4, weight decay 1e-4, one-cycle, clip 1.0) of
+   ``RAFTConfig.full(corr_impl='pallas', gru_impl='pallas', iters=12)``,
+   ``remat_iters`` on, float32, TF32 off, on C1 weights (6d), fed by the
+   port's synthetic dataset at 368x496 (samples made by 8 threads) through
+   ``PrefetchLoader``: 2 warm-up and 10 timed steps, every loss finite, the
+   launch counters set to 0 before the timed steps and read after
+   (corr_lookup 24 and sep_conv_gru 96 a step: each iteration's forward
+   and its recompute under remat; the backward runs the plain twins' vjp,
+   no kernel), every BN statistic moved; 20 steps on one fixed batch (the
+   chairs lr held constant) lower its loss.  Then, at 3 iterations on the
+   same weights and batch, the gradients of the kernel path against the
+   plain path (``corr_impl='blockwise'``, 'onehot', ``gru_impl='xla'``)
+   under 'all', 'window', ``pallas_pack=True`` and for raft-small (r = 3):
+   each leaf within 3e-2 of its L2 norm, the whole gradient within 1e-2, a
+   bias feeding a normalization (exact gradient 0) below 1e-5 of the
+   largest |g| (tests/torch_train_parity.py says why not elementwise);
+   freeze_bn (statistics bitwise, affines moved); a NaN batch skipped
+   (params, moments, statistics bitwise, notfinite_count + 1); a
+   checkpoint at step k restored into a fresh model and optimizer, step
+   k+1 bitwise equal to the uninterrupted one (deterministic algorithms
+   on); ``python -m raft_tpu_torch.training`` (raft-small, 64x96) sent
+   SIGTERM exits 17 with a readable checkpoint, and a rerun resumes it.
+   Times: step ms, samples/s, the forward / backward split, the twins'
+   backward alone per iteration (lookup and GRU, bound: their products at
+   the FP32 rate), the step's peak allocated memory above what was
+   allocated before it, remat on and off, the device idle share of two
+   steps under the profiler, and 3 steps timed again after that profiler
+   window.  Its launches join the kernels' record.
+
+Before the last lines the serving, train and e2e JSON records (PERF.md §2
 says what each key means); the line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
@@ -235,6 +267,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1136,8 +1169,495 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
     return rec
 
 
+# -- 9. training: the chairs stage on the card --------------------------------
+
+TRAIN_HW, TRAIN_B = (368, 496), 10      # TrainConfig.for_stage('chairs')
+TIMED_STEPS, FIT_STEPS = 10, 20
+LEAF_RTOL, GRAD_RTOL, ZERO_ATOL = 3e-2, 1e-2, 1e-5
+
+
+def c1_weights(model, seed: int = 1000) -> None:
+    """C1 (phase 6d) in place: every conv bias and batch-norm beta from
+    U(-0.25, 0.25), every gamma from U(0.75, 1.25), the running statistics
+    away from identity, with numpy from ``seed``."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            leaf = name.rsplit(".", 1)[1]
+            if "norm" in name or "downsample.1" in name:
+                lo, hi = {"weight": (0.75, 1.25), "bias": (-0.25, 0.25),
+                          "running_mean": (-0.05, 0.05),
+                          "running_var": (0.9, 1.1)}[leaf]
+            elif leaf == "bias":
+                lo, hi = -0.25, 0.25
+            else:
+                continue
+            t.copy_(torch.from_numpy(rng.uniform(lo, hi, tuple(t.shape))
+                                     .astype(np.float32)))
+
+
+def _zero_grad_leaf(name: str, small: bool, frozen: bool) -> bool:
+    """A conv bias feeding a normalization over batch or sample statistics:
+    its exact gradient is 0 (tests/torch_train_parity.py)."""
+    top, leaf = name.split(".")[0], name.rsplit(".", 1)[1]
+    normed = top == "fnet" or (top == "cnet" and not small and not frozen)
+    return normed and leaf == "bias" and name.split(".")[1] != "conv2" \
+        and "norm" not in name and "downsample.1" not in name
+
+
+def hold_grads(label: str, gk: dict, gp: dict, small: bool,
+               frozen: bool = False) -> dict:
+    """The kernel path's gradients against the plain path's, leaf by leaf
+    (tests/torch_train_parity.py says why the bound is per leaf in L2, not
+    elementwise): each leaf's ||gk - gp|| <= LEAF_RTOL ||gp||, the whole
+    gradient at GRAD_RTOL, a zero-gradient bias below ZERO_ATOL of the
+    largest |g|; prints the worst leaf and the worst max|diff| / max|g|
+    of a leaf (the measure of the per-element bound, printed, not held)."""
+    gscale = max(float(g.abs().max()) for g in gp.values())
+    num = den = 0.0
+    worst, worst_max = (0.0, ""), (0.0, "")
+    for k, p in gp.items():
+        d = (gk[k] - p).double()
+        if _zero_grad_leaf(k, small, frozen):
+            top = max(float(gk[k].abs().max()), float(p.abs().max()))
+            if top > ZERO_ATOL * gscale:
+                raise AssertionError(f"{label}: {k} should be ~0, |g| {top:.3e}")
+            continue
+        n, e = float(p.double().norm()), float(d.norm())
+        num, den = num + e * e, den + n * n
+        if e / max(n, 1e-30) > worst[0]:
+            worst = (e / max(n, 1e-30), k)
+        r = float(d.abs().max()) / max(float(p.abs().max()), 1e-30)
+        if r > worst_max[0]:
+            worst_max = (r, k)
+    total = (num / den) ** 0.5
+    print(f"{label}: whole gradient rel L2 {total:.3e} (bound {GRAD_RTOL:g}); "
+          f"worst leaf rel L2 {worst[0]:.3e} {worst[1]} (bound {LEAF_RTOL:g}); "
+          f"worst max|diff|/max|g_plain| {worst_max[0]:.3e} {worst_max[1]}")
+    if total > GRAD_RTOL or worst[0] > LEAF_RTOL:
+        raise AssertionError(f"{label}: the kernel path's gradient disagrees "
+                             f"with the plain path's")
+    return {"rel_l2": total, "worst_leaf_rel_l2": worst[0],
+            "worst_leaf": worst[1], "worst_max_rel": worst_max[0]}
+
+
+def training_phases(dev, smi: str, kernels) -> dict:
+    """Phase 9: training on the card (the module docstring), returns the
+    ``train`` record and, under ``launches``, the main path's launches."""
+    import copy
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from raft_tpu_torch import RAFTConfig, init_raft_torch
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.data.datasets import make_training_dataset
+    from raft_tpu_torch.data.pipeline import PrefetchLoader
+    from raft_tpu_torch.models.raft import raft_forward
+    from raft_tpu_torch.ops import corr_cuda, gru_cuda
+    from raft_tpu_torch.ops.coords import coords_grid
+    from raft_tpu_torch.ops.corr import fmap2_pyramid, lookup_blockwise_onehot
+    from raft_tpu_torch.ops.gru_cuda import fuse_gru_weights, sep_conv_gru_plain
+    from raft_tpu_torch.training import (TrainState, make_optimizer,
+                                         make_train_step, restore_checkpoint,
+                                         save_checkpoint, sequence_loss)
+    from raft_tpu_torch.training.checkpoint import (checkpoint_readable,
+                                                    list_checkpoints)
+    from raft_tpu_torch.training.resilience import PREEMPT_EXIT_CODE
+    from raft_tpu_torch.training.step import precision
+
+    t_phase = time.perf_counter()
+    cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=ITERS)
+    cfg_plain = dataclasses.replace(cfg, corr_impl="blockwise",
+                                    corr_lookup="onehot", gru_impl="xla")
+    tc = TrainConfig.for_stage("chairs")
+    assert (tc.batch_size, tuple(tc.image_size)) == (TRAIN_B, TRAIN_HW)
+    corr_k, gru_k = corr_cuda.corr_lookup_cuda, gru_cuda.sep_conv_gru_cuda
+    per_step = {"corr_lookup": 2 * ITERS,            # forward + remat recompute
+                "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}
+
+    def fresh(config=cfg, seed=0):
+        m = init_raft_torch(config, generator=torch.Generator().manual_seed(seed),
+                            device=dev)
+        c1_weights(m)
+        return m
+
+    # the synthetic dataset at the stage's shape, samples made by 8 threads
+    # (numpy releases the GIL), batched on the host, staged by PrefetchLoader
+    ds = make_training_dataset("synthetic", None, tc.image_size)
+    pool = ThreadPoolExecutor(8)
+
+    def host_batches(start=0):
+        i = start
+        while True:
+            samples = list(pool.map(ds.__getitem__, range(i, i + TRAIN_B)))
+            i += TRAIN_B
+            yield tuple(np.stack([s[j] for s in samples]) for j in range(4))
+
+    # -- 9.1 the chairs stage: 2 warm-up steps, 10 timed ---------------------
+    tx = make_optimizer(tc)
+    state = TrainState.create(fresh(), tx)
+    step_fn = make_train_step(cfg, tc, tx)
+    bn0 = {k: v.clone() for k, v in state.bn_state.items()}
+    loader = PrefetchLoader(host_batches(), dev, buffer_size=2)
+    losses, step_ms, wait_ms = [], [], []
+    try:
+        for i in range(2):
+            state, m = step_fn(state, next(loader), i)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mem_base = torch.cuda.memory_allocated(dev)
+        _reset(*kernels)
+        for i in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            batch = next(loader)
+            wait_ms.append((time.perf_counter() - t0) * 1e3)
+            state, m = step_fn(state, batch, 2 + i)
+            loss = float(m["loss"])                 # the step's one sync
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        main_launches = _launches(*kernels)
+        peak_remat = torch.cuda.max_memory_allocated(dev) - mem_base
+        fixed = next(loader)
+    finally:
+        loader.close()
+    print(f"train: chairs stage, {TRAIN_B} x {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
+          f"{ITERS} iterations, remat on: losses {[round(x, 3) for x in losses]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("train: a non-finite loss")
+    want = {k: v * TIMED_STEPS for k, v in per_step.items()}
+    got = {k: main_launches.get(k, 0) for k in want}
+    others = {k: v for k, v in main_launches.items() if k not in want and v}
+    print(f"train: launches over {TIMED_STEPS} steps {main_launches} (per "
+          f"step: {ITERS} forward + {ITERS} in the remat recompute; the "
+          f"backward runs the twins, no kernel)")
+    if got != want or others:
+        raise AssertionError(f"train launches {main_launches}, want {want}")
+    moved = sum(not torch.equal(bn0[k], v) for k, v in state.bn_state.items())
+    if moved != len(bn0):
+        raise AssertionError(f"train: {len(bn0) - moved} BN statistics "
+                             f"did not move")
+
+    # 20 steps on one fixed batch lower its loss (the chairs lr held
+    # constant: the one-cycle schedule starts 25x lower)
+    tc_fit = dataclasses.replace(tc, schedule="constant")
+    tx_fit = make_optimizer(tc_fit)
+    fit = TrainState.create(fresh(), tx_fit)
+    fit_fn = make_train_step(cfg, tc_fit, tx_fit)
+    fit_losses = []
+    for i in range(FIT_STEPS):
+        fit, m = fit_fn(fit, fixed, 0)
+        fit_losses.append(float(m["loss"]))
+    print(f"train: {FIT_STEPS} steps on one batch (lr {tc_fit.lr:g} constant): "
+          f"loss {fit_losses[0]:.3f} -> {fit_losses[-1]:.3f}")
+    if not fit_losses[-1] < fit_losses[0]:
+        raise AssertionError("train: 20 steps did not lower a fixed batch's loss")
+    del fit, fit_fn
+
+    # -- 9.2 gradients, kernel path against plain path, 3 iterations --------
+    def grads(config, model, batch, frozen=False):
+        mdl = copy.deepcopy(model)
+        with precision(config):
+            out = raft_forward(mdl, batch[0], batch[1], config, iters=3,
+                               train=True, freeze_bn=frozen)
+            loss, _ = sequence_loss(out.flow_iters, batch[2], batch[3],
+                                    gamma=tc.gamma, max_flow=tc.max_flow)
+            g = torch.autograd.grad(loss, list(mdl.parameters()))
+        return {n: x for (n, _), x in zip(mdl.named_parameters(), g)}
+
+    base = fresh()
+    gparity = {}
+    for label, over in (("all", {}), ("window", dict(pallas_p_select="window")),
+                        ("pack", dict(pallas_pack=True))):
+        ck = dataclasses.replace(cfg, **over)
+        _reset(*kernels)
+        gk = grads(ck, base, fixed)
+        gparity[label] = hold_grads(f"train grads {label} vs plain",
+                                    gk, grads(cfg_plain, base, fixed), False)
+        gparity[label]["launches"] = _launches(*kernels)
+    small = RAFTConfig.small_model(corr_impl="pallas")
+    small_plain = dataclasses.replace(small, corr_impl="blockwise")
+    base_small = fresh(small)
+    _reset(*kernels)
+    gk = grads(small, base_small, fixed)
+    gparity["small"] = hold_grads("train grads raft-small vs plain", gk,
+                                  grads(small_plain, base_small, fixed), True)
+    gparity["small"]["launches"] = _launches(*kernels)
+    del base, base_small
+
+    # -- 9.3 freeze_bn: statistics bitwise, affines move --------------------
+    tc_fz = dataclasses.replace(tc, freeze_bn=True)
+    tx_fz = make_optimizer(tc_fz)
+    fz = TrainState.create(fresh(), tx_fz)
+    stats0 = {k: v.clone() for k, v in fz.bn_state.items()}
+    aff0 = {k: v.detach().clone() for k, v in fz.model.named_parameters()
+            if k.startswith("cnet") and ("norm" in k or "downsample.1" in k)}
+    fz, _ = make_train_step(cfg, tc_fz, tx_fz)(fz, fixed, 0)
+    same = all(torch.equal(stats0[k], v) for k, v in fz.bn_state.items())
+    params_now = dict(fz.model.named_parameters())
+    moved_aff = sum(not torch.equal(v, params_now[k]) for k, v in aff0.items())
+    print(f"train freeze_bn: statistics bitwise unchanged {same}; "
+          f"{moved_aff}/{len(aff0)} affines moved")
+    if not same or moved_aff != len(aff0):
+        raise AssertionError("train freeze_bn: statistics moved or affines did not")
+    del fz
+
+    # -- 9.4 a NaN batch is skipped ------------------------------------------
+    snap = ([p.detach().clone() for p in state.params],
+            [t.clone() for t in state.opt_state.mu + state.opt_state.nu],
+            {k: v.clone() for k, v in state.bn_state.items()},
+            int(state.opt_state.notfinite_count))
+    nan_batch = (torch.full_like(fixed[0], float("nan")),) + tuple(fixed[1:])
+    state, m = step_fn(state, nan_batch, 99)
+    ok = (all(torch.equal(a, b) for a, b in zip(snap[0], state.params))
+          and all(torch.equal(a, b) for a, b in
+                  zip(snap[1], state.opt_state.mu + state.opt_state.nu))
+          and all(torch.equal(snap[2][k], v) for k, v in state.bn_state.items())
+          and int(state.opt_state.notfinite_count) == snap[3] + 1)
+    print(f"train NaN batch: loss {float(m['loss'])}, params, moments and BN "
+          f"statistics bitwise unchanged and notfinite_count +1: {ok}")
+    if not ok:
+        raise AssertionError("train: a non-finite batch changed the state")
+
+    # -- 9.5 checkpoint at step k, restore, step k+1 -------------------------
+    ckdir = Path(tempfile.mkdtemp(prefix="chip_train_", dir="build"))
+    save_checkpoint(ckdir / f"ckpt_{state.step}.npz", state)
+    tx_r = make_optimizer(tc)
+    restored = restore_checkpoint(ckdir / f"ckpt_{state.step}.npz",
+                                  TrainState.create(fresh(seed=5), tx_r))
+    step_r = make_train_step(cfg, tc, tx_r)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        state, m_a = step_fn(state, fixed, 7)
+        restored, m_b = step_r(restored, fixed, 7)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        cudnn.deterministic, cudnn.benchmark = saved
+    a_leaves = state.params + list(state.bn_state.values()) \
+        + state.opt_state.mu + state.opt_state.nu
+    b_leaves = restored.params + list(restored.bn_state.values()) \
+        + restored.opt_state.mu + restored.opt_state.nu
+    bitwise = all(torch.equal(a, b) for a, b in zip(a_leaves, b_leaves)) \
+        and float(m_a["loss"]) == float(m_b["loss"])
+    print(f"train checkpoint: step {restored.step} after a restore of step "
+          f"{restored.step - 1} bitwise equal to the uninterrupted step, "
+          f"deterministic algorithms on: {bitwise}")
+    if not bitwise:
+        raise AssertionError("train checkpoint: the resumed step differs")
+
+    # -- 9.6 preemption: SIGTERM -> exit 17, readable checkpoint, resume -----
+    run_dir = ckdir / "cli"
+    cmd = [sys.executable, "-m", "raft_tpu_torch.training", "--small",
+           "--iters", "2", "--batch", "2", "--train-size", "64", "96",
+           "--num-steps", "1000", "--ckpt-every", "1000", "--log-every", "1",
+           "--out", str(run_dir)]
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "[train] step 2 " in line:
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    ckpts = list_checkpoints(run_dir / "checkpoints")
+    readable = bool(ckpts) and checkpoint_readable(ckpts[-1][1])
+    print(f"train preemption: exit {proc.returncode}, checkpoints "
+          f"{[s for s, _ in ckpts]}, readable {readable}")
+    if proc.returncode != PREEMPT_EXIT_CODE or not readable:
+        raise AssertionError("train preemption: " + "".join(lines) + rest)
+    resumed = subprocess.run(cmd[:cmd.index("--num-steps") + 1]
+                             + [str(ckpts[-1][0] + 1)]
+                             + cmd[cmd.index("--num-steps") + 2:],
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+    ok = resumed.returncode == 0 and f"at step {ckpts[-1][0]}" in resumed.stdout
+    print(f"train preemption: the rerun resumed from step {ckpts[-1][0]}: {ok}")
+    if not ok:
+        raise AssertionError("train resume: " + resumed.stdout + resumed.stderr)
+
+    # -- 9.7 numbers ----------------------------------------------------------
+    def ev_pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    # forward / backward split of one step's gradient (no optimizer)
+    split = {"forward": [], "backward": []}
+    mdl = state.model
+    params = list(mdl.parameters())
+    for _ in range(3):
+        (s0, s1), (s2, s3) = ev_pair(), ev_pair()
+        with precision(cfg):
+            s0.record()
+            out = raft_forward(mdl, fixed[0], fixed[1], cfg, train=True)
+            loss, _ = sequence_loss(out.flow_iters, fixed[2], fixed[3],
+                                    gamma=tc.gamma, max_flow=tc.max_flow)
+            s1.record()
+            s2.record()
+            torch.autograd.grad(loss, params)
+            s3.record()
+        torch.cuda.synchronize()
+        split["forward"].append(s0.elapsed_time(s1))
+        split["backward"].append(s2.elapsed_time(s3))
+    fwd_ms = statistics.median(split["forward"])
+    bwd_ms = statistics.median(split["backward"])
+
+    # the twins' backward alone, per iteration, at the stage's shapes
+    h8, w8 = TRAIN_HW[0] // 8, TRAIN_HW[1] // 8
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f1 = torch.randn(TRAIN_B, h8, w8, 256, device=dev, generator=gen)
+    lv = [x.contiguous() for x in fmap2_pyramid(
+        torch.randn(TRAIN_B, h8, w8, 256, device=dev, generator=gen), 4)]
+    co = (coords_grid(TRAIN_B, h8, w8, device=dev)
+          + 4.0 * torch.randn(TRAIN_B, h8, w8, 2, device=dev, generator=gen))
+    gout = torch.randn(TRAIN_B, h8, w8, 324, device=dev, generator=gen)
+
+    def lookup_bwd():
+        leaves = [f1.requires_grad_(True)] + [x.requires_grad_(True) for x in lv]
+        out = lookup_blockwise_onehot(leaves[0], leaves[1:], co, 4)
+        return torch.autograd.grad(out, leaves, gout)
+
+    gru = state.model.update_block.gru
+    hg, mg, ctxg = gru_inputs(np.random.RandomState(4), dev, TRAIN_B, h8, w8)
+    gh = torch.randn(TRAIN_B, h8, w8, 128, device=dev, generator=gen)
+
+    def gru_bwd():
+        fw = fuse_gru_weights(gru, 128, 128)
+        leaves = [hg.requires_grad_(True), mg.requires_grad_(True),
+                  ctxg[0].requires_grad_(True), ctxg[1].requires_grad_(True)]
+        out = sep_conv_gru_plain(fw, leaves[0], leaves[1], tuple(leaves[2:]))
+        return torch.autograd.grad(out, leaves + [getattr(gru, g + s).weight
+                                                  for s in "12"
+                                                  for g in ("convz", "convr",
+                                                            "convq")], gh)
+    with precision(cfg):
+        lk_ms = _time_ms(lookup_bwd, 2, 5)
+        gr_ms = _time_ms(gru_bwd, 2, 5)
+    # bounds: the twins' products at the FP32 rate (TF32 off), recompute +
+    # backward (the f1 . f2 product three times, the one-hot products
+    # twice), and the bytes of the inputs and the gradients
+    q = h8 * w8
+    dots = onehot = 0
+    for lvl in range(4):
+        h2, w2 = lv[lvl].shape[1:3]
+        dots += 2 * TRAIN_B * q * 256 * h2 * w2
+        onehot += 2 * TRAIN_B * q * 9 * (h2 * w2 + w2 * 9)
+    lk_bound = _bound_ms(2 * 4 * (f1.numel() + sum(x.numel() for x in lv))
+                         + 4 * gout.numel(),
+                         {"fp32": 3 * dots + 2 * onehot})
+    gflops = _gru_flops(TRAIN_B, h8, w8, 128, 128, False)
+    gr_bound = _bound_ms(4 * 2 * (hg.numel() * 2 + mg.numel()
+                                  + ctxg[0].numel() * 2),
+                         {"fp32": 3 * gflops["f32xf32"] + gflops["fp32"]})
+    print(f"train backward twins per iteration, {TRAIN_B} x {h8}x{w8}: lookup "
+          f"{lk_ms:.3f} ms (bound {lk_bound[0]:.3f}, {lk_bound[1]}), GRU "
+          f"{gr_ms:.3f} ms (bound {gr_bound[0]:.3f}, {gr_bound[1]})")
+
+    # peak memory with remat off, if it fits
+    cfg_nr = dataclasses.replace(cfg, remat_iters=False)
+    tx_nr = make_optimizer(tc)
+    nr = TrainState.create(fresh(), tx_nr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_nr = torch.cuda.memory_allocated(dev)
+    peak_no_remat, nr_note = None, "fits"
+    try:
+        nr, _ = make_train_step(cfg_nr, tc, tx_nr)(nr, fixed, 0)
+        torch.cuda.synchronize()
+        peak_no_remat = torch.cuda.max_memory_allocated(dev) - base_nr
+    except torch.cuda.OutOfMemoryError as e:
+        nr_note = f"does not fit: {str(e).splitlines()[0]}"
+    del nr
+    torch.cuda.empty_cache()
+
+    # the device idle share of two steps under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s0, s1 = ev_pair()
+        s0.record()
+        for i in range(2):
+            state, m = step_fn(state, fixed, 50 + i)
+        s1.record()
+        torch.cuda.synchronize()
+    window = s0.elapsed_time(s1)
+    kern = [k for k in prof.key_averages()
+            if k.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(k.self_device_time_total for k in kern) / 1e3
+    idle_share = 1 - busy / window if busy > 0 else None
+    # the same step timed again once a profiler session has run in the
+    # process (the host's time per launch after it, which phases 7 and 8
+    # would leave to a phase run after them)
+    after_prof = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, fixed, 60 + i)
+        float(m["loss"])
+        after_prof.append((time.perf_counter() - t0) * 1e3)
+    for k in sorted(kern, key=lambda k: -k.self_device_time_total)[:8]:
+        print(f"  {k.self_device_time_total / 2e3:8.3f} ms/step "
+              f"{k.count / 2:6.1f} launches/step  {k.key[:90]}")
+
+    med = statistics.median(step_ms)
+    rec = {
+        "device": smi, "config": "RAFTConfig.full(corr_impl='pallas', "
+        "gru_impl='pallas', iters=12), remat_iters on, float32, TF32 off",
+        "stage": "chairs", "batch": TRAIN_B, "accum_steps": tc.accum_steps,
+        "image": list(TRAIN_HW), "data": "synthetic, PrefetchLoader",
+        "step_ms_median": med, "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "step_ms_all": step_ms,
+        "samples_per_s": TRAIN_B * 1e3 / med,
+        "data_wait_ms_all": wait_ms,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "forward_ms_all": split["forward"], "backward_ms_all": split["backward"],
+        "lookup_bwd_ms_per_iter": lk_ms, "lookup_bwd_bound_ms": lk_bound[0],
+        "lookup_bwd_bound_by": lk_bound[1],
+        "gru_bwd_ms_per_iter": gr_ms, "gru_bwd_bound_ms": gr_bound[0],
+        "gru_bwd_bound_by": gr_bound[1],
+        "step_peak_alloc_mib_remat": peak_remat / 2 ** 20,
+        "step_peak_alloc_mib_no_remat": (None if peak_no_remat is None
+                                         else peak_no_remat / 2 ** 20),
+        "no_remat": nr_note, "idle_share": idle_share,
+        "step_ms_after_profiler": after_prof,
+        "profiled_window_ms": window, "profiled_busy_ms": busy,
+        "losses": losses, "fit_losses": fit_losses,
+        "launches_per_step": per_step, "grad_parity": gparity,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"train: step {med:.1f} ms median ({min(step_ms):.1f}-"
+          f"{max(step_ms):.1f}), {rec['samples_per_s']:.2f} samples/s, "
+          f"forward {fwd_ms:.1f} / backward {bwd_ms:.1f} ms, the step's peak "
+          f"{rec['step_peak_alloc_mib_remat']:.0f} MiB remat on, "
+          f"{'%.0f MiB' % rec['step_peak_alloc_mib_no_remat'] if peak_no_remat else nr_note}"
+          f" off, idle {idle_share}, after the profiler "
+          f"{[round(x, 1) for x in after_prof]} ms; {smi}")
+    pool.shutdown(wait=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    rec["launches"] = main_launches
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    # cuBLAS's deterministic mode (phase 9.5) needs its workspace fixed
+    # before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # -- 1. device -----------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1205,6 +1725,11 @@ def main() -> int:
     secs = _build.build_all()
     print(f"build: {secs:.1f} s into {_build.build_dir()}")
     print(_build.compiler_report())
+
+    # -- 9. training, first: its host-bound eager step is timed before any
+    # profiler session of phases 7 and 8 (9.7 times it after one too)
+    train = training_phases(dev, smi, kernels)
+    train_launches = train.pop("launches")
 
     # -- 3. kernels vs plain at the main paths' shapes --------------------
     rng = np.random.RandomState(0)
@@ -3221,6 +3746,8 @@ def main() -> int:
     serving["device"] = smi
     print(json.dumps({"serving": serving}))
 
+    print(json.dumps({"train": train}))
+
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall time {wall_s:.1f} s")
     print(json.dumps({"e2e": {"latency_ms_median": med_k, "pairs_per_s": 1e3 / med_k,
@@ -3278,11 +3805,13 @@ def main() -> int:
         entry("corr_lookup", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:349",
               launches["corr_lookup"] + launches_s["corr_lookup"]
-              + new_launches["f32"].get("corr_lookup", 0),
+              + new_launches["f32"].get("corr_lookup", 0)
+              + train_launches["corr_lookup"],
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242",
-              launches["sep_conv_gru"] + new_launches["f32"].get("sep_conv_gru", 0),
+              launches["sep_conv_gru"] + new_launches["f32"].get("sep_conv_gru", 0)
+              + train_launches["sep_conv_gru"],
               gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
         entry("corr_window", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:342", launches_w["corr_window"],

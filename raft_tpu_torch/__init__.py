@@ -9,7 +9,11 @@ or int8 rows); in float32 or under the bf16 compute policy, with the dense
 correlation volume, the plain lookups or hand-written CUDA kernels for the
 correlation lookups (``ops/corr_cuda.py``) and the SepConvGRU iteration
 (``ops/gru_cuda.py``).  On CUDA the factories' functions replay captured
-CUDA graphs (``models/capture.py``).
+CUDA graphs (``models/capture.py``).  It trains them too
+(``training/``, ``python -m raft_tpu_torch.training``): the train-mode
+forward, the kernels' backward as the JAX package defines it, an
+optimizer with optax's semantics and checkpoints in the JAX package's
+format.
 
     model = init_raft_torch(RAFTConfig.full(), device="cuda")
     cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")

@@ -1,11 +1,13 @@
-"""Model configuration of the PyTorch/CUDA port.
+"""Model and training configuration of the PyTorch/CUDA port.
 
-The port keeps its own copy of the JAX package's ``RAFTConfig`` (same knob
-names, same defaults, same validation), so one configuration value means
-the same thing in both packages.  ``TrainConfig`` is not ported yet
-(ROADMAP Queue A item 7): the port has no training entry, so the training
-knobs (``dropout``, ``remat_iters``, ``scan_unroll``) are validated and
-change no inference value, as in the JAX package at ``train=False``.
+The port keeps its own copies of the JAX package's ``RAFTConfig`` and
+``TrainConfig`` (same knob names, same defaults, same validation, the same
+``TrainConfig.for_stage`` curriculum presets), so one configuration value
+means the same thing in both packages.  The training knobs of
+``RAFTConfig`` act as in JAX: ``dropout`` (channel dropout on the encoders'
+outputs) and ``remat_iters`` (each iteration recomputed in the backward)
+change the training forward only; ``scan_unroll`` is validated and changes
+nothing (the port's loop is a Python loop).
 
 :func:`check_port_support` validates a configuration as the JAX package
 does; every value of every field runs in the port.
@@ -14,6 +16,7 @@ does; every value of every field runs in the port.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 
 def parse_iters_policy(spec: str):
@@ -215,3 +218,61 @@ def check_port_support(config: RAFTConfig) -> None:
     if config.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
                          f"got {config.compute_dtype!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training recipe: the JAX package's ``TrainConfig``, field for
+    field (``optimizer``: adam | adamw | sgd | sgd_cyclic | sgd_1cycle;
+    ``schedule``: one_cycle | constant | cyclic; ``loss_normalization``:
+    'total' | 'valid'; see ``training/``)."""
+
+    num_steps: int = 100_000
+    batch_size: int = 6
+    accum_steps: int = 1
+    image_size: Tuple[int, int] = (368, 496)
+    lr: float = 4e-4
+    weight_decay: float = 1e-5
+    adamw_eps: float = 1e-8
+    clip_norm: float = 1.0
+    gamma: float = 0.8
+    loss_normalization: str = "total"
+    optimizer: str = "adamw"
+    schedule: str = "one_cycle"
+    pct_start: float = 0.05
+    max_flow: float = 400.0
+    freeze_bn: bool = False
+    skip_nonfinite_updates: bool = True
+    halt_on_nonfinite: bool = True
+    seed: int = 0
+    log_every: int = 100
+    ckpt_every: int = 5000
+    ckpt_dir: str = "checkpoints"
+    keep_checkpoints: Optional[int] = None
+    async_checkpointing: bool = True
+    max_rollbacks: int = 3
+
+    @staticmethod
+    def for_stage(stage: str, **overrides) -> "TrainConfig":
+        """The official RAFT curriculum presets (chairs -> things ->
+        sintel/kitti) and the synthetic smoke stage, as in the JAX
+        package; explicit overrides win."""
+        presets = {
+            "chairs":    dict(num_steps=100_000, lr=4e-4, batch_size=10,
+                              image_size=(368, 496), weight_decay=1e-4),
+            "things":    dict(num_steps=100_000, lr=1.25e-4, batch_size=6,
+                              image_size=(400, 720), weight_decay=1e-4,
+                              freeze_bn=True),
+            "sintel":    dict(num_steps=100_000, lr=1.25e-4, batch_size=6,
+                              image_size=(368, 768), weight_decay=1e-5,
+                              gamma=0.85, freeze_bn=True),
+            "kitti":     dict(num_steps=50_000, lr=1e-4, batch_size=6,
+                              image_size=(288, 960), weight_decay=1e-5,
+                              gamma=0.85, freeze_bn=True),
+            "synthetic": dict(image_size=(96, 128), batch_size=4,
+                              log_every=10, ckpt_every=100),
+        }
+        if stage not in presets:
+            raise ValueError(f"unknown stage {stage!r}; "
+                             f"options: {sorted(presets)}")
+        return TrainConfig(**{**presets[stage], **overrides})

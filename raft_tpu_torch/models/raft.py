@@ -1,4 +1,5 @@
-"""RAFT (``raft-things`` and ``raft-small``), eval-mode inference.
+"""RAFT (``raft-things`` and ``raft-small``): inference, and the training
+forward.
 
 The port of the JAX package's ``models/raft.py``, every entry point:
 
@@ -13,7 +14,10 @@ The port of the JAX package's ``models/raft.py``, every entry point:
   pool's buffers, ``buf[slots]``) and their ragged twins;
 * the storage formats of ``quant``: :func:`cast_encoder_weights`
   (``'bf16w'``), :func:`quantize_rows` and :func:`dequantize_rows`
-  (``'int8'`` slot rows).
+  (``'int8'`` slot rows);
+* training: :func:`raft_forward` with ``train=True`` (autograd on,
+  training-mode batch norm, dropout, every iteration's flow, remat), what
+  ``training/step.py`` differentiates.
 
 Images are float [0, 1], NHWC, as in JAX, and so are the streaming
 entries' features (``[B, h, w, C]`` rows a slot pool stores).  Inside,
@@ -228,17 +232,40 @@ def split_context(cnet: torch.Tensor, config: RAFTConfig):
     return net, to_nchw(torch.relu(cnet[..., hid:]).contiguous())
 
 
+def channel_dropout(y: torch.Tensor, rate: float,
+                    generator: torch.Generator) -> torch.Tensor:
+    """Channel dropout of an encoder's NCHW output (``nn.Dropout2d``, as
+    the JAX package's ``apply_encoder`` applies it in training): whole
+    channels of each sample are zeroed with probability ``rate``, the rest
+    divided by ``1 - rate``.  The keep mask is drawn on the CPU from
+    ``generator`` (so one seed gives one mask on every device) and moved
+    to ``y``'s device.  JAX draws its mask from its own PRNG, so the two
+    packages agree only at ``rate = 0``, where nothing is drawn."""
+    keep = 1.0 - rate
+    mask = torch.rand((y.shape[0], y.shape[1], 1, 1),
+                      generator=generator) < keep
+    mask = mask.to(y.device)
+    return torch.where(mask, y, torch.zeros((), dtype=y.dtype,
+                                            device=y.device)) / keep
+
+
 def encode_pair(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
-                config: RAFTConfig):
+                config: RAFTConfig, generator: Optional[torch.Generator] = None):
     """The encoders: one fnet pass over both frames (batch 2B), one cnet
     pass over frame 1, in ``config.compute_dtype``.  Returns fmap1, fmap2,
-    inp (NCHW) and the initial net [B, h, w, hidden] (NHWC)."""
+    inp (NCHW) and the initial net [B, h, w, hidden] (NHWC).  With a
+    ``generator`` and ``config.dropout > 0`` (training), each encoder's
+    output takes :func:`channel_dropout`, fnet's mask drawn first."""
     B = image1.shape[0]
     cdt = compute_dtype(config)
     x1 = _preprocess(image1.float(), cdt)
     x2 = _preprocess(image2.float(), cdt)
     fmaps = _encode(model.fnet, torch.cat([x1, x2], dim=0), config)
-    net, inp = split_context(to_nhwc(_encode(model.cnet, x1, config)), config)
+    cnet = _encode(model.cnet, x1, config)
+    if generator is not None and config.dropout > 0.0:
+        fmaps = channel_dropout(fmaps, config.dropout, generator)
+        cnet = channel_dropout(cnet, config.dropout, generator)
+    net, inp = split_context(to_nhwc(cnet), config)
     return fmaps[:B], fmaps[B:], net, inp
 
 
@@ -276,7 +303,8 @@ class Core(NamedTuple):
 
 
 def _pair_core(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
-               config: RAFTConfig, flow_init=None, sizes=None) -> Core:
+               config: RAFTConfig, flow_init=None, sizes=None,
+               generator=None) -> Core:
     """The encoders of a pairwise request; a ragged batch's images are
     masked to zero outside the crops first, so each item's flow depends
     only on its crop."""
@@ -285,7 +313,8 @@ def _pair_core(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
         image1 = mask_ragged_rows(image1, sizes)
         image2 = mask_ragged_rows(image2, sizes)
         sizes8 = sizes // 8
-    fmap1, fmap2, net, inp = encode_pair(model, image1, image2, config)
+    fmap1, fmap2, net, inp = encode_pair(model, image1, image2, config,
+                                         generator)
     return Core(fmap1, fmap2, net, inp, flow_init, None, sizes8)
 
 
@@ -298,32 +327,147 @@ def _features_core(fmap1: torch.Tensor, fmap2: torch.Tensor,
                 inp, flow_init, active, sizes8)
 
 
-@torch.no_grad()
 def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
                  config: RAFTConfig, iters: Optional[int] = None,
-                 all_flows: bool = False,
+                 all_flows: Optional[bool] = None,
                  flow_init: Optional[torch.Tensor] = None,
-                 sizes: Optional[torch.Tensor] = None) -> RAFTOutput:
-    """Eval-mode RAFT on the device of the inputs (``train=False`` of the
-    JAX function).  image1/image2 [B, H, W, 3] float32 in [0, 1], H and W
-    multiples of 8; ``flow_init`` [B, H/8, W/8, 2] or None.  ``config``
-    selects the paths and the iteration policy; ``model`` holds the
-    weights.
+                 sizes: Optional[torch.Tensor] = None, train: bool = False,
+                 freeze_bn: bool = False,
+                 generator: Optional[torch.Generator] = None) -> RAFTOutput:
+    """RAFT on the device of the inputs, the JAX package's ``raft_forward``.
+    image1/image2 [B, H, W, 3] float32 in [0, 1], H and W multiples of 8;
+    ``flow_init`` [B, H/8, W/8, 2] or None.  ``config`` selects the paths
+    and the iteration policy; ``model`` holds the weights.  ``all_flows``
+    (default: ``train``) also returns every iteration's upsampled flow
+    (``flow_iters``).
 
     ``sizes`` (integer [B, 2], optional) makes the batch ragged: item b is
     a corner-anchored ``sizes[b] = (h, w)`` crop of the ``H x W`` max box
     (need not be multiples of 8).  The images are masked to zero outside
     the crops, the correlation runs on each crop alone, and the flow is
-    valid on ``[:h, :w]`` of each item."""
+    valid on ``[:h, :w]`` of each item.
+
+    ``train=False`` (eval mode) runs under ``torch.no_grad``.  ``train=True``
+    is the training forward (:func:`_train_iterations`): autograd on, the
+    context encoder's batch norm in training mode (its running statistics
+    updated in place) unless ``freeze_bn`` (running statistics used and
+    left untouched, the affine parameters still trained), channel dropout
+    at ``config.dropout`` drawn from ``generator`` (see
+    :func:`channel_dropout`), and under ``config.remat_iters`` each
+    iteration recomputed in the backward (``torch.utils.checkpoint``).  The
+    loop set-up (the lookup's pyramid, the hoisted context terms, the fused
+    GRU weights) is built inside this call, with autograd on, so the
+    gradient reaches the encoders and every gate conv through it; nothing
+    is cached across calls.  Under ``compute_dtype='bfloat16'`` it raises
+    (ROADMAP item 7b)."""
+    all_flows = train if all_flows is None else all_flows
     check_port_support(config)
+    if train and config.compute_dtype != "float32":
+        raise NotImplementedError(
+            "training under compute_dtype='bfloat16' needs float32 master "
+            "weights under a bfloat16 forward: ROADMAP item 7b")
     _check_model_dtype(model, config)
     B = check_images(image1, image2)[0]
     if sizes is not None:
         sizes = check_sizes(torch.as_tensor(sizes, device=image1.device), B)
-    core = _pair_core(model, image1, image2, config, flow_init, sizes)
-    return _iterate_flow(model, *core[:4], config,
-                         config.iters if iters is None else iters, all_flows,
-                         flow_init, core.sizes8)
+    iters = config.iters if iters is None else iters
+    if not train:
+        with torch.no_grad():
+            core = _pair_core(model, image1, image2, config, flow_init, sizes)
+            return _iterate_flow(model, *core[:4], config, iters, all_flows,
+                                 flow_init, core.sizes8)
+    with bn_training(model, not freeze_bn):
+        core = _pair_core(model, image1, image2, config, flow_init, sizes,
+                          generator)
+    return _train_iterations(model, core, config, iters, all_flows)
+
+
+@contextlib.contextmanager
+def bn_training(model: nn.Module, on: bool):
+    """Every batch norm of ``model`` on its batch's statistics (``on``) or
+    on its running ones inside the block (``ops/norm.py::BatchNorm.
+    batch_stats``), each module's setting restored after it."""
+    from ..ops.norm import BatchNorm
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    saved = [m.batch_stats for m in norms]
+    for m in norms:
+        m.batch_stats = on
+    try:
+        yield
+    finally:
+        for m, t in zip(norms, saved):
+            m.batch_stats = t
+
+
+def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
+                      iters: int, all_flows: bool) -> RAFTOutput:
+    """The recurrent core of the training forward (``train=True`` of the
+    JAX package's ``_iterate_flow``): ``coords1`` detached at the top of
+    each iteration (JAX's ``stop_gradient``), each iteration's upsampled
+    flow emitted from inside it, and under ``config.remat_iters`` each
+    iteration wrapped in ``torch.utils.checkpoint(use_reentrant=False)``
+    (JAX's ``jax.checkpoint`` of the scan step): its activations are
+    recomputed in the backward, so the kernels launch again there, once
+    per iteration (the CUDA lookup once, the GRU kernel's four launches),
+    and a training step counts twice an eager forward's launches; their
+    gradients are the plain twins' vjps, which launch no kernel.  A
+    ``converge:*`` policy runs masked over all ``iters`` iterations (the
+    differentiable form of JAX's masked scan): a frozen row keeps its net,
+    coords and mask."""
+    policy, eps, min_iters = parse_iters_policy(config.iters_policy)
+    adaptive = policy == "converge"
+    loop = prepare_loop(model, core.fmap1, core.fmap2, core.inp, config,
+                        core.sizes8)
+    coords0 = loop.coords0
+    B, h, w, _ = coords0.shape
+    coords1 = (coords0 if core.flow_init is None
+               else coords0 + core.flow_init.float())
+    mask = None if config.small else torch.zeros(
+        (B, h, w, 64 * 9), dtype=compute_dtype(config), device=coords0.device)
+    converged = torch.zeros(B, dtype=torch.bool, device=coords0.device)
+    nused = torch.zeros(B, dtype=torch.int32, device=coords0.device)
+
+    def step(i, net, coords1, mask, converged, nused):
+        net2, delta, mask2 = _update(model, config, loop, net,
+                                     coords1.detach())
+        coords2 = coords1.detach() + delta
+        if adaptive:
+            act = ~converged
+            a = act[:, None, None, None]
+            dn = delta.square().sum(dim=-1).sqrt().mean(dim=(1, 2))
+            net2 = torch.where(a, net2, net)
+            coords2 = torch.where(a, coords2, coords1)
+            if mask2 is not None:
+                mask2 = torch.where(a, mask2, mask)
+            converged = converged | (act & (dn < eps) & (i + 1 >= min_iters))
+            nused = nused + act.to(torch.int32)
+        flow = (upsample_flow(config, coords2 - coords0, mask2)
+                if all_flows else None)
+        return net2, coords2, mask2, converged, nused, flow
+
+    net, flows = core.net, []
+    for i in range(iters):
+        args = (i, net, coords1, mask, converged, nused)
+        if config.remat_iters:
+            out = torch.utils.checkpoint.checkpoint(
+                step, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            out = step(*args)
+        net, coords1, mask, converged, nused, flow = out
+        if all_flows:
+            flows.append(flow)
+    flow_lr = coords1 - coords0
+    if all_flows:
+        flow_iters = torch.stack(flows)
+        final = flow_iters[-1]
+    else:
+        flow_iters = None
+        final = upsample_flow(config, flow_lr, mask)
+    if not adaptive:
+        nused = torch.full((B,), iters, dtype=torch.int32,
+                           device=coords0.device)
+    return RAFTOutput(flow=final, flow_iters=flow_iters, flow_lr=flow_lr,
+                      iters_used=nused)
 
 
 @torch.no_grad()

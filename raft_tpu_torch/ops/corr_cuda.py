@@ -303,19 +303,51 @@ corr_packed_cuda.launches = 0
 class _Lookup(torch.autograd.Function):
     """``plain`` on CPU tensors, ``kernel`` on CUDA tensors, both called as
     ``fn(fmap1, f2_levels, coords, [sizes8,] radius)``.  The f2 levels are
-    separate arguments so that autograd sees them."""
+    separate arguments so that autograd sees them.
+
+    The backward is the JAX package's (``_fused_lookup_bwd`` and
+    ``_ragged_fused_lookup_bwd``, ``raft_tpu/ops/corr_pallas.py``): the vjp
+    of the matmul-only twin :func:`~raft_tpu_torch.ops.corr.
+    lookup_blockwise_onehot`, recomputed from the saved residuals (fmap1,
+    the f2 levels, coords), whatever entry ran the forward ('all',
+    'window', packed or ragged: one vjp, as JAX's ``fused_lookup`` carries
+    one whatever its ``p_select`` and ``pack_rows``); ``sizes8`` gets no
+    gradient.  Its products are plain matrix products (cuBLAS on CUDA):
+    under a float32 configuration the caller holds TF32 off across the
+    backward too (``training/step.py``), since the switches are
+    process-wide and the backward runs after the forward's context has
+    exited.  bfloat16 operands (``corr_precision='default'``) are upcast
+    to float32 in the twin, as in its forward, and their gradients cast
+    back to bfloat16."""
 
     @staticmethod
     def forward(ctx, plain, kernel, radius, fmap1, coords, sizes8, *f2_levels):
+        ctx.radius = radius
+        ctx.save_for_backward(fmap1, coords, *f2_levels)
         fn = plain if fmap1.device.type == "cpu" else kernel
         extra = () if sizes8 is None else (sizes8,)
         return fn(fmap1, list(f2_levels), coords, *extra, radius)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the correlation lookups have no backward yet: training is "
-            "ROADMAP Queue A item 7")
+        fmap1, coords, *levels = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        wanted = [needs[3], needs[4]] + list(needs[6:])
+        inputs = [t.detach().float().requires_grad_(w) for t, w in
+                  zip([fmap1, coords] + levels, wanted)]
+        grads = [None] * len(inputs)
+        live = [i for i, w in enumerate(wanted) if w]
+        if live:
+            with torch.enable_grad():
+                out = lookup_blockwise_onehot(inputs[0], inputs[2:], inputs[1],
+                                              ctx.radius)
+                got = torch.autograd.grad(out, [inputs[i] for i in live],
+                                          grad.float(), allow_unused=True)
+            for i, g in zip(live, got):
+                src = ([fmap1, coords] + levels)[i]
+                grads[i] = (torch.zeros_like(src) if g is None
+                            else g.to(src.dtype))
+        return (None, None, None, grads[0], grads[1], None, *grads[2:])
 
 
 def _supported(t: torch.Tensor) -> None:

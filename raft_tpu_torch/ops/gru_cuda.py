@@ -69,7 +69,9 @@ def fuse_gru_weights(gru: nn.Module, hidden: int, ctx_dim: int
 
     The hx channel layout is [h, inp, motion]; the inp block (columns
     ``[hidden, hidden+ctx_dim)``) is dropped.  Biases are not included:
-    they ride the hoisted context terms.  Float32, contiguous.
+    they ride the hoisted context terms.  Float32, contiguous, and
+    differentiable: a training forward's gradient reaches the convs'
+    weights through them.
     """
     lo, hi = hidden, hidden + ctx_dim
     out = {}
@@ -87,7 +89,7 @@ def fuse_gru_weights(gru: nn.Module, hidden: int, ctx_dim: int
                                     loop_cols(taps("convr"))], dim=2)
         out["wqh" + s] = wq[:, :lo]
         out["wqm" + s] = wq[:, hi:]
-    return {k: v.detach().float().contiguous() for k, v in out.items()}
+    return {k: v.float().contiguous() for k, v in out.items()}
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -243,8 +245,18 @@ sep_conv_gru_cuda.launches = 0
 
 
 class _SepConvGRU(torch.autograd.Function):
+    """The kernel on CUDA tensors, :func:`sep_conv_gru_plain` on CPU
+    tensors.  The backward is the JAX package's ``_gru_fused_bwd``
+    (``raft_tpu/ops/gru_pallas.py``): the vjp of the plain version
+    (``sep_conv_gru_xla`` there), recomputed from the saved ``(h, motion,
+    c1, c2, fw)``; the gradient reaches the module's weights through the
+    fused weights ``fw``, so the kernel's prepared weights ``kw`` get
+    none.  Its convolutions run on cuDNN (TF32 held off by the caller
+    under a float32 configuration, ``training/step.py``)."""
+
     @staticmethod
     def forward(ctx_, kw, h, motion, c1, c2, *weights):
+        ctx_.save_for_backward(h, motion, c1, c2, *weights)
         if h.device.type == "cpu":
             return sep_conv_gru_plain(dict(zip(_WEIGHTS, weights)), h, motion,
                                       (c1, c2))
@@ -255,9 +267,21 @@ class _SepConvGRU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx_, grad):
-        raise NotImplementedError(
-            "the SepConvGRU kernel has no backward yet: training is ROADMAP "
-            "Queue A item 7")
+        saved = ctx_.saved_tensors
+        wanted = ctx_.needs_input_grad[1:]
+        inputs = [t.detach().requires_grad_(w) for t, w in zip(saved, wanted)]
+        grads = [None] * len(inputs)
+        live = [i for i, w in enumerate(wanted) if w]
+        if live:
+            with torch.enable_grad():
+                h, motion, c1, c2, *weights = inputs
+                out = sep_conv_gru_plain(dict(zip(_WEIGHTS, weights)), h,
+                                         motion, (c1, c2))
+                got = torch.autograd.grad(out, [inputs[i] for i in live],
+                                          grad, allow_unused=True)
+            for i, g in zip(live, got):
+                grads[i] = torch.zeros_like(saved[i]) if g is None else g
+        return (None, *grads)
 
 
 def sep_conv_gru(fw: Dict[str, torch.Tensor], h: torch.Tensor,

@@ -225,7 +225,7 @@ def test_gru_bf16_matches_jax_bf16_kernel():
     got = gru_cuda.sep_conv_gru(fw, _to_torch(h), _to_torch(motion), ctx)
     assert got.dtype == torch.bfloat16
     w = np.asarray(want.astype(jnp.float32))
-    assert np.abs(got.float().numpy() - w).max() <= _ulp(w)
+    assert np.abs(got.detach().float().numpy() - w).max() <= _ulp(w)
 
 
 @pytest.fixture(scope="module", params=[False, True],

@@ -81,14 +81,19 @@ def test_cpu_tensor_takes_plain_path_and_counter_stays():
 
 
 def test_kernel_entry_refuses_cpu_tensors_and_backward_raises():
+    """The kernel entry refuses CPU tensors; the wrapper's backward (which
+    raised before training was ported, hence the name) is the vjp of
+    ``lookup_blockwise_onehot``, as the JAX package defines it."""
     f1, f2, coords = _case(3, 4, 4, 8, 1, 1.0)
     t = torch.from_numpy
     with pytest.raises(ValueError, match="CUDA"):
         corr_cuda.corr_lookup_cuda(t(f1), [t(f2)], t(coords), 4)
     f1g = t(f1).requires_grad_(True)
     out = corr_cuda.fused_lookup(f1g, [t(f2)], t(coords), 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        out.sum().backward()
+    out.sum().backward()
+    f1w = t(f1).requires_grad_(True)
+    lookup_blockwise_onehot(f1w, [t(f2)], t(coords), 1).sum().backward()
+    torch.testing.assert_close(f1g.grad, f1w.grad, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("wrapper", ["corr_lookup_cuda", "corr_window_cuda",

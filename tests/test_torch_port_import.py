@@ -28,6 +28,9 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch.serving, raft_tpu_torch.serving.__main__\n"
             "import raft_tpu_torch.telemetry, raft_tpu_torch.lint\n"
             "import raft_tpu_torch.lint.budget, raft_tpu_torch.lint.concurrency\n"
+            "import raft_tpu_torch.training, raft_tpu_torch.training.__main__\n"
+            "import raft_tpu_torch.training.loop, raft_tpu_torch.training.faults\n"
+            "import raft_tpu_torch.data.synthetic, raft_tpu_torch.data.datasets\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -60,6 +63,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
             rt.make_inference_fn(cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             rt.init_raft_torch(cfg)
+        from raft_tpu_torch.training.__main__ import main as train_main
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train_main(["--small", "--iters", "1", "--num-steps", "1"])
     model = rt.init_raft_torch(cfg, device="cpu")
     im = np.random.RandomState(0).rand(2, 1, 16, 24, 3).astype(np.float32)
     flow = rt.make_inference_fn(cfg, device="cpu")(model, im[0], im[1])

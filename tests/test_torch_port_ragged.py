@@ -19,7 +19,8 @@ from raft_tpu.ops.corr_pallas import (
     make_ragged_fused_lookup as jax_make_ragged_lookup)
 import raft_tpu_torch as rt
 from raft_tpu_torch.ops import corr_cuda
-from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_ragged_plain,
+from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
+                                     lookup_ragged_plain,
                                      lookup_window_plain, mask_ragged_rows,
                                      ragged_pyramid)
 from test_torch_port_model import BIASED, _jax_params
@@ -239,6 +240,9 @@ def test_ragged_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_ragged_kernel_entries_refuse_cpu_tensors_and_backward_raises():
+    """The kernel entries refuse CPU tensors; the wrappers' backward (which
+    raised before training was ported, hence the name) is the vjp of
+    ``lookup_blockwise_onehot``, as the JAX package defines it."""
     f1, f2, coords = _ragged_case([(8, 8)], 8, 8, 8)
     t = torch.from_numpy
     s8 = torch.tensor([[8, 8]], dtype=torch.int32)
@@ -246,9 +250,11 @@ def test_ragged_kernel_entries_refuse_cpu_tensors_and_backward_raises():
         corr_cuda.corr_window_cuda(t(f1), [t(f2)], t(coords), 4)
     with pytest.raises(ValueError, match="CUDA"):
         corr_cuda.corr_ragged_cuda(t(f1), [t(f2)], t(coords), s8, 4)
-    for out in (corr_cuda.window_lookup(t(f1).requires_grad_(True), [t(f2)],
-                                        t(coords), 1),
-                corr_cuda.ragged_lookup(t(f1).requires_grad_(True), [t(f2)],
-                                        t(coords), s8, 1)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            out.sum().backward()
+    f1w = t(f1).requires_grad_(True)
+    lookup_blockwise_onehot(f1w, [t(f2)], t(coords), 1).sum().backward()
+    for lookup in (lambda a: corr_cuda.window_lookup(a, [t(f2)], t(coords), 1),
+                   lambda a: corr_cuda.ragged_lookup(a, [t(f2)], t(coords),
+                                                     s8, 1)):
+        f1g = t(f1).requires_grad_(True)
+        lookup(f1g).sum().backward()
+        torch.testing.assert_close(f1g.grad, f1w.grad, rtol=0, atol=0)
