@@ -199,8 +199,10 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    3 /v1/stream sessions x 4 frames advanced together (mean step width >
    1, fnet cache hits == advances, each advance its row of the engine's
    batch step, the slot pool's addresses unchanged across commits and a
-   reset); /admin/reload of seed-1 weights (version 2, no capture, the
-   next response bitwise the direct call on them); no serve-time capture.
+   reset); /admin/reload of seed-1 weights while one client sends
+   requests (version 2, no capture, each response meanwhile the old or
+   the new weights' flow, their latency recorded; the next response
+   bitwise the direct call on them); no serve-time capture.
    S2, BF with ragged=True over the Sintel, KITTI and FlyingChairs
    buckets (box 440x1248): 9 sequential and 3 clients x 6 mixed requests,
    each device batch bitwise make_ragged_inference_fn on it, each
@@ -213,9 +215,11 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    batch steps from the pool rows they gathered) has its kernels held to
    the plain step at that batch from its own features, as in phases 4 and
    6c, and every kept batch bitwise to the direct call.  Both hold their
-   launch counts (the warmup's captures and the reload's probe; replays
+   launch counts (the warmup's captures, the probe thread's warm-up
+   forward at warmup and the reload's probe; replays
    launch from the graph, uncounted, and are reported apart), which join
-   the kernels' record.
+   the kernels' record.  A failing client first prints what ROADMAP's
+   fault C4 asks for (the clock, the live threads, the accept queues).
 
 9. training (``training_phases``, run right after phase 2, before any
    profiler session): the chairs stage
@@ -248,8 +252,37 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    allocated before it, remat on and off, the device idle share of two
    steps under the profiler, and 3 steps timed again after that profiler
    window.  Its launches join the kernels' record.
+10. data and evaluation (``data_phases``, right after phase 9): fabricated
+   trees in a temporary directory, written with the port's own writers
+   from seeded numpy at the datasets' frame sizes (FlyingChairs 24 pairs
+   at 384x512, one Sintel scene of 6 frames at 436x1024, KITTI 2 pairs at
+   375x1242 and 2 at 370x1224).  The chairs stage as ``python -m
+   raft_tpu_torch.training --dataset chairs --data ROOT --workers 4``
+   builds it (``MPSampleLoader``, 4 workers, shm), with the host
+   augmentor and then with ``--device-aug``: 2 warm-up and 5 timed steps
+   each, every loss finite, corr_lookup 24 and sep_conv_gru 96 launches a
+   step.  The device augmentor on a decoded batch of 10, card against
+   CPU on the same ``params_from_host`` params, within 1e-4 x (1 +
+   max|value|) (a resize on the card may round otherwise).  A worker
+   SIGKILLed mid-stream under each transport: respawns 1, 10 more samples
+   within 60 s.  Evaluation of ``RAFTConfig.full(corr_impl='pallas',
+   gru_impl='pallas')`` (32 iterations, C1 weights): Sintel with the warm
+   start (bucket 8), KITTI at bucket 64, pixel weighting, batches of 2;
+   both launch B1 and B2 in every iteration, their metrics are finite and
+   equal those of direct eval-step calls on the same padded inputs in the
+   harness's order and batches (each Sintel pair's EPE from its dumped
+   .flo; KITTI's dumped 16-bit PNGs within 1/64 px of the direct flows,
+   clipped to the format's range); the kernels at each evaluation shape
+   and batch held to the plain step (``hold_eval``): Sintel's cold start
+   and first warm start at 440x1024 (batch 1, from the seed the harness
+   gave) and both KITTI batches of 2 at 384x1280, every one of the 32
+   iterations from the same state at phase 4's bound; ``-m val`` on the Sintel tree
+   (``--max-samples 2``) exits 0.  Times: PNG decode per frame, loader
+   samples/s at 1, 2 and 4 workers per transport, device augmentation
+   per batch, the steps and data waits, evaluation per pair (a second,
+   warm pass).  Its launches join the kernels' record.
 
-Before the last lines the serving, train and e2e JSON records (PERF.md §2
+Before the last lines the serving, train, data and e2e JSON records (PERF.md §2
 says what each key means); the line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
@@ -271,6 +304,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -288,6 +322,9 @@ N_WINDOW = 2                 # phase 5, 6b and 6c requests
 BOX = (440, 1248)            # phase 6 max box and its live crops
 CROPS = ((436, 1024), (375, 1242), (384, 512))   # Sintel, KITTI, FlyingChairs
 TOL = 1e-5
+T_START = time.perf_counter()   # the script's clock (fault reports)
+STALL_S = 10.0               # phase 8: no answer for this long dumps stacks
+_CONNS = threading.local()   # _http's keep-alive connections, per thread
 
 
 def _time_ms(fn, warmup: int, reps: int) -> float:
@@ -487,15 +524,48 @@ def _reset(*wrappers) -> None:
 def _http(url: str, body: bytes = b"", ctype: str = "application/octet-stream",
           timeout: float = 60.0, headers: dict = None):
     """POST ``body`` (GET when None) and return (status, body bytes);
-    with ``headers`` (a dict) the response's headers are put in it."""
-    import urllib.request
-    req = urllib.request.Request(
-        url, data=body, headers={"Content-Type": ctype,
-                                 "Accept": "application/octet-stream"})
-    with urllib.request.urlopen(req, timeout=timeout) as r:
-        if headers is not None:
-            headers.update(r.headers.items())
-        return r.status, r.read()
+    with ``headers`` (a dict) the response's headers are put in it.  A
+    status of 400 or more raises ``urllib.error.HTTPError``.
+
+    Each thread keeps one HTTP/1.1 connection per server open across its
+    calls, as a load generator's client does, until :func:`_drop_conns`
+    (or the thread's end) closes them.  With a new connection per request
+    (thousands in the timed windows) a connect was seen to go unanswered
+    for 60 s while the server sat idle in ``select`` with an empty accept
+    queue (ROADMAP's fault C4)."""
+    import http.client
+    import urllib.error
+    import urllib.parse
+    u = urllib.parse.urlsplit(url)
+    conns = _CONNS.__dict__.setdefault("by_server", {})
+    conn = conns.get(u.netloc)
+    if conn is None:
+        conn = conns[u.netloc] = http.client.HTTPConnection(
+            u.hostname, u.port, timeout=timeout)
+    try:
+        conn.request("GET" if body is None else "POST",
+                     u.path + (f"?{u.query}" if u.query else ""), body=body,
+                     headers={"Content-Type": ctype,
+                              "Accept": "application/octet-stream"})
+        r = conn.getresponse()
+        data = r.read()
+    except BaseException:
+        conns.pop(u.netloc).close()
+        raise
+    if r.will_close:
+        conns.pop(u.netloc).close()
+    if r.status >= 400:
+        raise urllib.error.HTTPError(url, r.status, r.reason, r.headers, None)
+    if headers is not None:
+        headers.update(r.headers.items())
+    return r.status, data
+
+
+def _drop_conns() -> None:
+    """Close the calling thread's connections of :func:`_http` (a server's
+    ``server_close`` waits for the handler thread of each open one)."""
+    for conn in _CONNS.__dict__.pop("by_server", {}).values():
+        conn.close()
 
 
 def _npz(**arrays) -> bytes:
@@ -531,17 +601,53 @@ def _graph_pool_mib(fns):
                if tuple(s["segment_pool_id"]) in pools) / 2 ** 20
 
 
+def _client_fault_report(err: BaseException) -> None:
+    """What ROADMAP's fault C4 (a client's connect to the localhost server
+    timing out) asks to record when a client fails, on standard error: the
+    script's clock, every live thread's innermost frames, and each
+    listening TCP socket's accept queue (``/proc/net/tcp``: a full queue
+    means the server stopped accepting; an empty one, that the connect was
+    lost elsewhere)."""
+    import traceback
+
+    def say(line):
+        print(f"client fault: {line}", file=sys.stderr, flush=True)
+    say(f"at {time.perf_counter() - T_START:.1f} s of the script: {err!r}")
+    frames = sys._current_frames()
+    for th in threading.enumerate():
+        fr = frames.get(th.ident)
+        where = (" <- ".join(f"{os.path.basename(f.filename)}:{f.lineno} "
+                             f"{f.name}" for f in
+                             reversed(traceback.extract_stack(fr)[-4:]))
+                 if fr is not None else "?")
+        say(f"thread {th.name}: {where}")
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            rows = open(table).read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            f = row.split()
+            if f[3] == "0A":                        # LISTEN
+                tx, rx = f[4].split(":")
+                say(f"{table} listening port {int(f[1].split(':')[1], 16)}: "
+                    f"accept queue {int(rx, 16)}")
+
+
 def _clients(n: int, work):
     """Run ``work(i)`` on ``n`` threads at once; returns the results in
-    order, re-raising the first failure; every thread joined."""
-    import threading
+    order, re-raising the first failure (reported first by
+    :func:`_client_fault_report`); every thread joined."""
     out, errors = [None] * n, []
 
     def run(i):
         try:
             out[i] = work(i)
         except BaseException as e:      # noqa: BLE001 — re-raised below
+            _client_fault_report(e)
             errors.append(e)
+        finally:
+            _drop_conns()
     threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
     for t in threads:
         t.start()
@@ -582,10 +688,17 @@ def _windows(n_clients: int, request, calls=None, n_win: int = 3,
     """``n_clients`` clients, each calling ``request(c, i)`` (returns its
     ms) back to back, over ``n_win`` windows of ``secs`` seconds each.
     Per window: requests, requests/s (requests over the time until the
-    last one returned), their median and p90 ms and, with ``calls`` (a
-    _watch record of the device entry they reach), the device calls and
-    the mean device batch (requests per call).  Returns (windows, every
-    latency)."""
+    last one returned), their median, p90 and largest ms and, with
+    ``calls`` (a _watch record of the device entry they reach), the device
+    calls and the mean device batch (requests per call).  Returns
+    (windows, every latency).
+
+    While a window runs, ``faulthandler``'s watchdog (a C thread, so it
+    runs even when another thread holds the interpreter lock) is re-armed
+    by every answered request: when no request has been answered for
+    STALL_S seconds it dumps every thread's stack on standard error, while
+    the stall lasts (ROADMAP's fault C4)."""
+    import faulthandler
     out, every = [], []
     for _ in range(n_win):
         c0 = calls["calls"] if calls is not None else 0
@@ -596,13 +709,19 @@ def _windows(n_clients: int, request, calls=None, n_win: int = 3,
             lat, i = [], 0
             while time.perf_counter() < end:
                 lat.append(request(c, i))
+                faulthandler.dump_traceback_later(STALL_S, repeat=True)
                 i += 1
             return lat
-        lats = [ms for x in _clients(n_clients, client) for ms in x]
+        faulthandler.dump_traceback_later(STALL_S, repeat=True)
+        try:
+            lats = [ms for x in _clients(n_clients, client) for ms in x]
+        finally:
+            faulthandler.cancel_dump_traceback_later()
         dt = time.perf_counter() - t0
         rec = {"requests": len(lats), "s": dt, "per_s": len(lats) / dt,
                "ms_median": statistics.median(lats),
-               "ms_p90": float(np.percentile(lats, 90))}
+               "ms_p90": float(np.percentile(lats, 90)),
+               "ms_max": max(lats)}
         if calls is not None:
             rec["device_calls"] = calls["calls"] - c0
             rec["mean_device_batch"] = len(lats) / rec["device_calls"]
@@ -816,7 +935,6 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
         conc_batches = pairs_st["kept"][n_seq:]
         mean_batch = 32 / len(conc_batches)
         # (d) 3 sessions x 4 frames, advanced together round by round
-        import threading
         barrier = threading.Barrier(3)
         vids = [[frame(H_IMG, W_IMG) for _ in range(4)] for _ in range(3)]
         pool0 = [t.data_ptr() for t in buffer_tensors(eng.pool.buffers(
@@ -955,14 +1073,62 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
                                                for a, b in seq])
         torch.cuda.synchronize()
         compared = _launches(*kernels)
-        # (e) reload a second seeded weight set
+        # (e) reload a second seeded weight set, while one client sends
+        # requests one after another: the batches' latency across a reload
+        # (each of those responses is the old or the new weights' flow)
         model1b = init_raft_torch(cfg1, generator=torch.Generator().manual_seed(1),
                                   device=dev)
+        import copy
         import io
+        model1_old = copy.deepcopy(model1)   # the reload overwrites model1
         buf = io.BytesIO()
         save_params_npz(model1b.state_dict(), buf)
-        _, body = _http(url + "/admin/reload", buf.getvalue())
-        version = json.loads(body)["weights"]["version"]
+        reloaded = {}
+
+        def push():
+            t0 = time.perf_counter()
+            try:
+                reloaded["body"] = _http(url + "/admin/reload",
+                                         buf.getvalue())[1]
+            finally:
+                _drop_conns()
+            reloaded["s"] = time.perf_counter() - t0
+
+        class TimedLock:
+            """The engine's device lock with each hold logged: (thread,
+            s waited, s held)."""
+
+            def __init__(self, lock):
+                self.lock, self.log = lock, []
+
+            def __enter__(self):
+                t0 = time.perf_counter()
+                self.lock.__enter__()
+                self.t = (t0, time.perf_counter())
+                return self
+
+            def __exit__(self, *exc):
+                t0, t1 = self.t
+                self.log.append((threading.current_thread().name, t1 - t0,
+                                 time.perf_counter() - t1))
+                return self.lock.__exit__(*exc)
+
+        timed = TimedLock(eng._device_lock)
+        eng._device_lock = timed
+        pusher = threading.Thread(target=push, name="reload-client")
+        try:
+            pusher.start()
+            during = []
+            while pusher.is_alive() and len(during) < 200:
+                ims = (frame(H_IMG, W_IMG), frame(H_IMG, W_IMG))
+                during.append((ims, *flow_call(url, *ims)))
+                during[-1] += (spans_ms[-1],)
+            pusher.join(300)
+        finally:
+            eng._device_lock = timed.lock
+        if pusher.is_alive() or "body" not in reloaded:
+            raise AssertionError("S1 reload: /admin/reload did not answer")
+        version = json.loads(reloaded["body"])["weights"]["version"]
         if version != 2 or eng.weight_info()["version"] != 2:
             raise AssertionError(f"S1 reload: version {version}")
         after = (frame(H_IMG, W_IMG), frame(H_IMG, W_IMG))
@@ -977,9 +1143,28 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
             raise AssertionError("S1 (e): the response after the reload is "
                                  "not bitwise the direct call on the new "
                                  "weights")
+        for i, ((a, b), got, _, _) in enumerate(during):
+            if not any(np.array_equal(got, direct(m, a[None], b[None])[0]
+                                      .cpu().numpy())
+                       for m in (model1_old, model1b)):
+                raise AssertionError(f"S1 (e): response {i} during the "
+                                     f"reload is neither weights' flow")
+        del model1_old
+        during_ms = [ms for _, _, ms, _ in during]
+        reload_rec = {
+            "reload_s": reloaded["s"], "requests_during": len(during),
+            "http_ms_during": during_ms,
+            "spans_ms_during": [sp for *_, sp in during],
+            "device_lock_ms": [(name, wait * 1e3, held * 1e3)
+                               for name, wait, held in timed.log],
+            "http_ms_during_median": (statistics.median(during_ms)
+                                      if during_ms else None),
+            "http_ms_during_max": max(during_ms, default=None)}
+        # each captured key's eager warm-up and capture, the probe
+        # thread's warm-up forward at warmup, the reload's probe
         captured_flow = 7                        # pair x3, stream, sbatch x3
-        want1 = {"corr_lookup": (2 * captured_flow + 1) * iters,
-                 "sep_conv_gru": (2 * captured_flow + 1) * iters
+        want1 = {"corr_lookup": (2 * captured_flow + 2) * iters,
+                 "sep_conv_gru": (2 * captured_flow + 2) * iters
                  * gru_cuda.LAUNCHES_PER_CALL}
         got1 = {k: v for k, v in launches1.items() if v}
         if got1 != want1 or warm1["captures"] != 8:
@@ -1010,7 +1195,8 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
             "stream_mean_step_width_check": width,
             "stream_advances_check": advances, "fnet_cache_hits_check": hits,
             "held_batches": held1,
-            "weight_version": version, "launches": got1,
+            "weight_version": version, "reload": reload_rec,
+            "launches": got1,
             "flow_graph_replays": flow_replays,
             "launches_by_replay": replayed1,
             "compile_hits": eng.compile_hits}
@@ -1020,8 +1206,17 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"(c) 0 serve-time captures; (d) 3 sessions x 4 frames: "
               f"{advances} advances warm, mean step width {width:.2f}, pool "
               f"addresses unchanged; (e) reload -> version 2, no capture, "
-              f"bitwise the new weights; kernels held at the served batches "
-              f"{held1}; launches at capture + probe {got1}, by "
+              f"bitwise the new weights; during the reload's "
+              f"{reloaded['s'] * 1e3:.0f} ms, {len(during)} requests, each "
+              f"the old or the new weights' flow, HTTP "
+              f"{reload_rec['http_ms_during_median']} ms median, "
+              f"{reload_rec['http_ms_during_max']} ms max (one client "
+              f"{http_ms:.2f} ms median), their spans "
+              f"{reload_rec['spans_ms_during']}, the device lock's holds "
+              f"(thread, ms waited, ms held) {reload_rec['device_lock_ms']}; "
+              f"kernels held at the served batches "
+              f"{held1}; launches at capture + probe warm-up + probe "
+              f"{got1}, by "
               f"{flow_replays} graph replays {replayed1}; peak allocated "
               f"{peak1:.0f} MiB")
         print(f"S1 timings, 3 windows of 5 s each: 1 client "
@@ -1037,6 +1232,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"advances/s {[round(w['per_s'], 2) for w in stream1]}, mean "
               f"step width {[round(w['mean_step_width'], 2) for w in stream1]}")
     finally:
+        _drop_conns()
         server.stop(timeout=60)
     add = {"f32": launches1}
 
@@ -1118,8 +1314,9 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
             held2.append((ims[0].shape[0], ims[2].tolist()))
         factory2 = factory_ms(direct, model2, inputs, rounds=4)
         got2 = {k: v for k, v in launches2.items() if v}
-        want2 = {"corr_ragged": 2 * 3 * iters,
-                 "sep_conv_gru": 2 * 3 * iters * gru_cuda.LAUNCHES_PER_CALL}
+        want2 = {"corr_ragged": (2 * 3 + 1) * iters,   # + the probe warm-up
+                 "sep_conv_gru": (2 * 3 + 1) * iters
+                 * gru_cuda.LAUNCHES_PER_CALL}
         if got2 != want2 or warm2["captures"] != 3:
             raise AssertionError(f"S2 launches {got2} != {want2}")
         if not mean_batch > 1:
@@ -1151,7 +1348,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"bitwise the direct ragged call, every response its row, "
               f"mean device batch {mean_batch:.2f}; 0 serve-time captures; "
               f"kernels held at the served batches {held2}; launches at "
-              f"capture {got2} (B4-bf16 {got2.get('corr_ragged', 0)}, "
+              f"capture + probe warm-up {got2} (B4-bf16 {got2.get('corr_ragged', 0)}, "
               f"B2-bf16 {got2.get('sep_conv_gru', 0)}), by {flow_replays2} "
               f"graph replays {replayed2}; peak allocated {peak2:.0f} MiB")
         print(f"S2 timings, 3 windows of 5 s each: 1 client "
@@ -1163,6 +1360,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"window {[round(w['per_s'], 2) for w in three2]}, mean device "
               f"batch {[round(w['mean_device_batch'], 2) for w in three2]}")
     finally:
+        _drop_conns()
         server.stop(timeout=60)
     add["bf16"] = launches2
     rec["launches"] = add
@@ -1653,6 +1851,381 @@ def training_phases(dev, smi: str, kernels) -> dict:
     return rec
 
 
+# -- 10. data and evaluation: the readers, augmentors, loader, evaluation ---
+
+CHAIRS_HW, CHAIRS_PAIRS = (384, 512), 24          # FlyingChairs' frames
+SINTEL_HW, SINTEL_FRAMES = (436, 1024), 6          # one scene
+KITTI_SIZES = ((375, 1242), (375, 1242), (370, 1224), (370, 1224))
+DATA_STEPS = 5                                     # timed, after 2 warm-up
+KILL_DEADLINE_S = 60.0
+AUG_ATOL = 1e-4
+
+
+def _expect_launches(label: str, got: dict, want: dict) -> None:
+    """``got`` (the launch counters) must hold ``want`` exactly and no
+    other kernel may have launched."""
+    extra = {k: v for k, v in got.items() if k not in want and v}
+    if any(got.get(k, 0) != v for k, v in want.items()) or extra:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    print(f"{label}: launches {want} as expected")
+
+
+def hold_eval(label: str, mdl, cfg_k, t1, t2, init) -> float:
+    """Evaluation's kernels at its own shape and batch: from the encoders'
+    features of the padded frames and the seed ``init`` the harness gave
+    (NHWC [B, h, w, 2]; zeros at a scene start), every one of the
+    ``cfg_k.iters`` iterations' kernel step held to the plain step from the
+    same state at phase 4's float32 bound (:func:`_within`).  Returns the
+    worst ratio."""
+    from raft_tpu_torch import RAFTConfig
+    from raft_tpu_torch.models.raft import (encode_pair, gru_step,
+                                            prepare_loop, upsample_flow)
+    cfg_p = RAFTConfig.full(corr_impl="blockwise", corr_lookup="onehot",
+                            gru_impl="xla")
+    with torch.no_grad():
+        fm1, fm2, net, inp = encode_pair(mdl, t1, t2, cfg_k)
+        loop_k = prepare_loop(mdl, fm1, fm2, inp, cfg_k)
+        loop_p = prepare_loop(mdl, fm1, fm2, inp, cfg_p)
+        c0, worst = loop_k.coords0, (0.0, "")
+        coords1 = c0 + init.float()
+        for it in range(cfg_k.iters):
+            net_k, ck, mk = gru_step(mdl, cfg_k, loop_k, net, coords1)
+            _, cp, mp = gru_step(mdl, cfg_p, loop_p, net, coords1)
+            worst = max(worst, _within(
+                f"iteration {it}", upsample_flow(cfg_k, ck - c0, mk),
+                upsample_flow(cfg_p, cp - c0, mp)))
+            net, coords1 = net_k, ck
+    print(f"{label}, batch of {t1.shape[0]} at {t1.shape[1]}x{t1.shape[2]}, "
+          f"seed max |flow| {float(init.abs().max()):.3g}: every one of "
+          f"{cfg_k.iters} iterations vs the plain step from the same state, "
+          f"worst {worst[1]}")
+    if not worst[0] <= 1.0:
+        raise AssertionError(f"{label}: a kernel step disagrees with the "
+                             f"plain step")
+    return worst[0]
+
+
+def data_phases(dev, smi: str, kernels) -> dict:
+    """Phase 10 (the module docstring): file-fed training, the device
+    augmentor against the CPU, the loader's kill drill, evaluation.
+    Returns the ``data`` record and, under ``launches``, its launches."""
+    import argparse
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from raft_tpu_torch import RAFTConfig, init_raft_torch
+    from raft_tpu_torch import imageio
+    from raft_tpu_torch.data import fabricate
+    from raft_tpu_torch.data.augment import STAGE_SCALES, FlowAugmentor
+    from raft_tpu_torch.data.augment_device import (DecodeOnlyDataset,
+                                                    make_batch_augment_fn,
+                                                    make_device_augmentor,
+                                                    params_from_host)
+    from raft_tpu_torch.data.datasets import FlyingChairs, Kitti, MpiSintel
+    from raft_tpu_torch.data.loader_bench import mp_rate
+    from raft_tpu_torch.data.mp_loader import MPSampleLoader
+    from raft_tpu_torch.data.pipeline import pad_to_multiple
+    from raft_tpu_torch.ops import gru_cuda
+    from raft_tpu_torch.ops.warmstart import warm_start_seed
+    from raft_tpu_torch.training import (TrainState, epe_metrics,
+                                         make_eval_step, make_optimizer,
+                                         make_train_step,
+                                         make_warm_eval_step)
+    from raft_tpu_torch.training.__main__ import (build_parser, make_batches,
+                                                  make_train_config)
+    from raft_tpu_torch.training.evaluate import evaluate_dataset
+    from raft_tpu_torch.utils.flow_io import read_flo, read_kitti_flow
+
+    t_phase = time.perf_counter()
+    rec = {"device": smi}
+    tmp = Path(tempfile.mkdtemp(prefix="raft_data_"))
+    try:
+        t0 = time.perf_counter()
+        chairs = fabricate.chairs_tree(tmp / "chairs", CHAIRS_PAIRS,
+                                       CHAIRS_HW, seed=1)
+        sintel = fabricate.sintel_tree(tmp / "sintel", n_frames=SINTEL_FRAMES,
+                                       size=SINTEL_HW, seed=2)
+        kitti = fabricate.kitti_tree(tmp / "kitti", KITTI_SIZES, seed=3)
+        print(f"data: trees written in {time.perf_counter() - t0:.1f} s "
+              f"(chairs {CHAIRS_PAIRS} x {CHAIRS_HW}, sintel "
+              f"{SINTEL_FRAMES} frames x {SINTEL_HW}, kitti {KITTI_SIZES})")
+        frames = sorted((sintel / "training" / "clean").rglob("*.png"))
+        t0 = time.perf_counter()
+        for p in frames * 3:
+            imageio.read_image(p)
+        rec["png_decode_ms_per_frame"] = ((time.perf_counter() - t0) * 1e3
+                                          / (3 * len(frames)))
+        cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                              iters=ITERS)
+        per_step = {"corr_lookup": 2 * ITERS,
+                    "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}
+        launches = {k: 0 for k in per_step}
+
+        # -- 10.1 the chairs stage from files: host, then device augmentation
+        for tag, extra in (("host_aug", []), ("device_aug", ["--device-aug"])):
+            args = build_parser().parse_args(
+                ["--dataset", "chairs", "--data", str(chairs),
+                 "--workers", "4", *extra])
+            tc = make_train_config(args)
+            assert (tc.batch_size, tuple(tc.image_size)) == (TRAIN_B, TRAIN_HW)
+            tx = make_optimizer(tc)
+            model = init_raft_torch(cfg, torch.Generator().manual_seed(0),
+                                    device=dev)
+            state = TrainState.create(model, tx)
+            step_fn = make_train_step(cfg, tc, tx)
+            batches, loader = make_batches(args, tc, dev, None)
+            losses, step_ms, wait_ms = [], [], []
+            try:
+                for i in range(2 + DATA_STEPS):
+                    if i == 2:
+                        torch.cuda.synchronize()
+                        _reset(*kernels)
+                    t0 = time.perf_counter()
+                    batch = next(batches)
+                    t1 = time.perf_counter()
+                    state, m = step_fn(state, batch, i)
+                    losses.append(float(m["loss"]))
+                    if i >= 2:
+                        wait_ms.append((t1 - t0) * 1e3)
+                        step_ms.append((time.perf_counter() - t0) * 1e3)
+                got = _launches(*kernels)
+            finally:
+                batches.close()
+                loader.close()
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"data {tag}: a non-finite loss {losses}")
+            _expect_launches(f"data {tag}: {DATA_STEPS} chairs steps from "
+                             f"files", got,
+                             {k: v * DATA_STEPS for k, v in per_step.items()})
+            for k in launches:
+                launches[k] += got[k]
+            rec[f"step_ms_{tag}"] = step_ms
+            rec[f"step_ms_median_{tag}"] = statistics.median(step_ms)
+            rec[f"data_wait_ms_{tag}"] = wait_ms
+            print(f"data {tag}: chairs from files, 4 workers (shm): step "
+                  f"{statistics.median(step_ms):.1f} ms median "
+                  f"({min(step_ms):.1f}-{max(step_ms):.1f}), data wait "
+                  f"{statistics.median(wait_ms):.2f} ms median, losses "
+                  f"{[round(x, 3) for x in losses]}")
+            del state, model, step_fn
+
+        # -- 10.2 the device augmentor on the card vs the CPU, same params
+        dec = DecodeOnlyDataset(FlyingChairs(chairs))
+        raw = [dec[i] for i in range(TRAIN_B)]
+        host = [np.stack([r[j] for r in raw]) for j in range(3)]
+        lo, hi = STAGE_SCALES["chairs"]
+        params = [FlowAugmentor(TRAIN_HW, min_scale=lo, max_scale=hi,
+                                rng=np.random.RandomState(s)
+                                ).sample_params(*CHAIRS_HW)
+                  for s in range(TRAIN_B)]
+        aug = make_device_augmentor("chairs", TRAIN_HW)
+        on_card = aug.apply_params(params_from_host(params, dev),
+                                   *(torch.from_numpy(x).to(dev)
+                                     for x in host))
+        on_cpu = aug.apply_params(params_from_host(params),
+                                  *(torch.from_numpy(x) for x in host))
+        errs = {}
+        for name, a, b in zip(("im1", "im2", "flow", "valid"), on_card,
+                              on_cpu):
+            err = float((a.cpu() - b).abs().max())
+            bound = AUG_ATOL * (1 + float(b.abs().max()))
+            errs[name] = err
+            if not err <= bound:
+                raise AssertionError(f"device augmentor {name}: card vs CPU "
+                                     f"{err:.3e} > {bound:.3e}")
+        rec["device_aug_card_vs_cpu_max_abs"] = errs
+        fn = make_batch_augment_fn(aug, hw=CHAIRS_HW)
+        staged = tuple(torch.from_numpy(x).to(dev) for x in host)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rec["device_aug_ms_per_batch"] = _time_ms(lambda: fn(staged, gen), 3, 20)
+        print(f"data: device augmentor, a batch of {TRAIN_B} at "
+              f"{CHAIRS_HW} -> {TRAIN_HW}, card vs CPU on the same params "
+              f"max |diff| {errs} (bound {AUG_ATOL:g} x (1 + max|value|)); "
+              f"{rec['device_aug_ms_per_batch']:.3f} ms a batch")
+
+        # -- 10.3 the loader under a kill, both transports
+        aug_ds = FlyingChairs(chairs, augmentor=FlowAugmentor(
+            TRAIN_HW, min_scale=lo, max_scale=hi))
+        for transport in ("pickle", "shm"):
+            ld = MPSampleLoader(aug_ds, num_workers=4, seed=0,
+                                transport=transport)
+            it = iter(ld)
+            try:
+                for _ in range(5):
+                    next(it)
+                os.kill(ld._workers[1].proc.pid, signal.SIGKILL)
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    next(it)
+                    if time.perf_counter() - t0 > KILL_DEADLINE_S:
+                        raise AssertionError(f"loader ({transport}): over "
+                                             f"{KILL_DEADLINE_S} s after "
+                                             f"a kill")
+                secs = time.perf_counter() - t0
+            finally:
+                ld.close()
+            if ld.respawns != 1:
+                raise AssertionError(f"loader ({transport}): respawns "
+                                     f"{ld.respawns}, want 1")
+            rec[f"kill_recovery_s_{transport}"] = secs
+            print(f"data: loader ({transport}, 4 workers) SIGKILL of a "
+                  f"worker mid-stream: respawns 1, 10 more samples in "
+                  f"{secs:.2f} s (deadline {KILL_DEADLINE_S:g} s)")
+        rec["loader_samples_per_s"] = {
+            f"{transport}_{w}": mp_rate(aug_ds, w, 16, transport)
+            for w in (1, 2, 4) for transport in ("pickle", "shm")}
+        print(f"data: loader samples/s (chairs host recipe, 384x512 -> "
+              f"368x496): {rec['loader_samples_per_s']}")
+
+        # -- 10.4 evaluation: Sintel (warm start), KITTI (bucket 64, pixel)
+        ecfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")
+        model = init_raft_torch(ecfg, torch.Generator().manual_seed(4),
+                                device=dev)
+        c1_weights(model)
+        n_it = ecfg.iters
+        for name, ds, kw, n_calls in (
+                ("sintel", MpiSintel(sintel),
+                 dict(warm_start=True, bucket=8, pad_mode="sintel"),
+                 SINTEL_FRAMES - 1),
+                ("kitti", Kitti(kitti),
+                 dict(bucket=64, pad_mode="kitti", weighting="pixel",
+                      batch_size=2), len(KITTI_SIZES) // 2)):
+            dump = tmp / f"dump_{name}"
+            torch.cuda.synchronize()
+            _reset(*kernels)
+            got_m = evaluate_dataset(model, ecfg, ds, dump_dir=str(dump),
+                                     verbose=False, **kw)
+            torch.cuda.synchronize()
+            got = _launches(*kernels)
+            _expect_launches(
+                f"data eval {name}: {n_calls} forwards of {n_it} iterations",
+                got, {"corr_lookup": n_it * n_calls,
+                      "sep_conv_gru": n_it * n_calls
+                      * gru_cuda.LAUNCHES_PER_CALL})
+            for k in launches:
+                launches[k] += got[k]
+            if not all(np.isfinite(v) for v in got_m.values()):
+                raise AssertionError(f"eval {name}: non-finite {got_m}")
+            # the same padded inputs through the eval step directly, in the
+            # harness's order and batches (the random-weight recurrence
+            # turns any other rounding into pixels of flow)
+            items = []
+            for idx in range(len(ds)):
+                im1, im2, gt, valid = ds[idx]
+                p1, pads = pad_to_multiple(im1[None], kw["bucket"],
+                                           kw["pad_mode"])
+                p2, _ = pad_to_multiple(im2[None], kw["bucket"],
+                                        kw["pad_mode"])
+                items.append((p1, p2, pads, gt, valid))
+            # ``to_hold``: the device calls whose kernels are held to the
+            # plain step below (label, image1, image2, seed), after the
+            # direct calls, so that nothing runs between those
+            flows, prev, to_hold = [], None, []
+            if name == "sintel":
+                warm = make_warm_eval_step(ecfg)
+                for idx, (p1, p2, _, _, _) in enumerate(items):
+                    init = warm_start_seed(prev, (p1.shape[1] // 8,
+                                                  p1.shape[2] // 8),
+                                           reset=ds.is_scene_start(idx))
+                    args = tuple(torch.from_numpy(x).to(dev)
+                                 for x in (p1, p2, init))
+                    flow, lr = warm(model, *args)
+                    prev = lr.cpu().numpy()
+                    flows.append(flow[0])
+                    if idx < 2:      # the scene's cold start, a warm start
+                        to_hold.append((f"eval sintel frame {idx}", *args))
+            else:
+                if len({it[0].shape for it in items}) != 1:
+                    raise AssertionError("kitti: bucket 64 left several "
+                                         "padded shapes")
+                step = make_eval_step(ecfg)
+                for k in range(0, len(items), kw["batch_size"]):
+                    group = items[k:k + kw["batch_size"]]
+                    args = tuple(torch.from_numpy(np.concatenate(
+                        [g[j] for g in group])).to(dev) for j in (0, 1))
+                    flows.extend(step(model, *args))
+                    to_hold.append((f"eval kitti batch {k // 2}", *args,
+                                    torch.zeros(args[0].shape[0],
+                                                args[0].shape[1] // 8,
+                                                args[0].shape[2] // 8, 2,
+                                                device=dev)))
+            direct = []
+            for flow, (_, _, pads, gt, valid) in zip(flows, items):
+                t, _, l, _ = pads
+                h, w = gt.shape[:2]
+                flow = flow[t:t + h, l:l + w]
+                m = epe_metrics(flow, torch.from_numpy(gt).to(dev),
+                                torch.from_numpy(np.asarray(valid, np.float32)
+                                                 ).to(dev), reduce="sum")
+                direct.append((flow.cpu().numpy(),
+                               {k: float(v) for k, v in m.items()}))
+            if name == "sintel":
+                want_epe = statistics.fmean(m["epe"] / max(m["valid_px"], 1)
+                                            for _, m in direct)
+                for idx, (flow, m) in enumerate(direct):
+                    dumped = read_flo(dump / (ds.dump_name(idx)
+                                              .rsplit(".", 1)[0] + ".flo"))
+                    e_dump = float(np.sqrt(((dumped - items[idx][3]) ** 2)
+                                           .sum(-1)).mean())
+                    e_dir = m["epe"] / m["valid_px"]
+                    if not abs(e_dump - e_dir) <= 1e-5 * (1 + e_dir):
+                        raise AssertionError(f"eval sintel pair {idx}: EPE "
+                                             f"{e_dump} vs direct {e_dir}")
+            else:
+                want_epe = (sum(m["epe"] for _, m in direct)
+                            / sum(m["valid_px"] for _, m in direct))
+                for idx, (flow, m) in enumerate(direct):
+                    back, ok = read_kitti_flow(dump / ds.dump_name(idx))
+                    # the format holds [-512, 512) px in steps of 1/64
+                    held = np.clip(flow, -2 ** 15 / 64,
+                                   (2 ** 16 - 1 - 2 ** 15) / 64)
+                    q = float(np.abs(back - held).max())
+                    if not (ok.all() and q <= 1 / 64 + 1e-4):
+                        raise AssertionError(f"eval kitti pair {idx}: the "
+                                             f"PNG read back is {q} px off")
+            if not abs(got_m["epe"] - want_epe) <= 1e-5 * (1 + want_epe):
+                raise AssertionError(f"eval {name}: harness EPE "
+                                     f"{got_m['epe']} vs direct {want_epe}")
+            rec[f"eval_kernel_vs_plain_worst_ratio_{name}"] = max(
+                hold_eval(label, model, ecfg, *args)
+                for label, *args in to_hold)
+            # timed again, warm (the first run paid cuDNN's benchmark of
+            # the new shapes)
+            torch.cuda.synchronize()
+            again = evaluate_dataset(model, ecfg, ds, verbose=False, **kw)
+            rec[f"eval_{name}"] = got_m
+            rec[f"eval_ms_per_pair_{name}"] = (again["seconds"] * 1e3
+                                               / again["samples"])
+            rec[f"eval_ms_per_pair_first_{name}"] = (
+                got_m["seconds"] * 1e3 / got_m["samples"])
+            print(f"data eval {name} ({'warm start' if name == 'sintel' else 'bucket 64, pixel, batch 2'}"
+                  f", seeded random weights: these EPEs measure an "
+                  f"untrained model): {got_m}; held to {len(direct)} "
+                  f"direct eval-step calls")
+        del model
+
+        # -- 10.5 -m val as a user runs it
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raft_tpu_torch.training", "-m", "val",
+             "--dataset", "sintel", "--data", str(sintel), "--max-samples",
+             "2"], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        print(proc.stdout.strip().splitlines()[-1] if proc.stdout.strip()
+              else proc.stderr[-2000:])
+        if proc.returncode != 0:
+            raise AssertionError(f"-m val exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        rec["val_cli_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["launches"] = launches
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # cuBLAS's deterministic mode (phase 9.5) needs its workspace fixed
@@ -1730,6 +2303,9 @@ def main() -> int:
     # profiler session of phases 7 and 8 (9.7 times it after one too)
     train = training_phases(dev, smi, kernels)
     train_launches = train.pop("launches")
+    # -- 10. data and evaluation, right after it
+    data = data_phases(dev, smi, kernels)
+    data_launches = data.pop("launches")
 
     # -- 3. kernels vs plain at the main paths' shapes --------------------
     rng = np.random.RandomState(0)
@@ -3747,6 +4323,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
 
     print(json.dumps({"train": train}))
+    print(json.dumps({"data": data}))
 
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall time {wall_s:.1f} s")
@@ -3806,12 +4383,12 @@ def main() -> int:
               "raft_tpu/ops/corr_pallas.py:349",
               launches["corr_lookup"] + launches_s["corr_lookup"]
               + new_launches["f32"].get("corr_lookup", 0)
-              + train_launches["corr_lookup"],
+              + train_launches["corr_lookup"] + data_launches["corr_lookup"],
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242",
               launches["sep_conv_gru"] + new_launches["f32"].get("sep_conv_gru", 0)
-              + train_launches["sep_conv_gru"],
+              + train_launches["sep_conv_gru"] + data_launches["sep_conv_gru"],
               gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
         entry("corr_window", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:342", launches_w["corr_window"],
@@ -3845,5 +4422,60 @@ def main() -> int:
     return 0
 
 
+def _descendants() -> list:
+    """Pids of every live process below this one (``/proc``)."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+            kids.setdefault(ppid, []).append(int(d))
+    out, todo = [], [os.getpid()]
+    while todo:
+        for k in kids.get(todo.pop(), []):
+            out.append(k)
+            todo.append(k)
+    return out
+
+
+def stop_children() -> list:
+    """Stop every process the script started that is still running, on
+    every way out: multiprocessing's forkserver (phase 10's loaders start
+    it) and resource tracker are asked to stop and are waited for, then
+    whatever is left below this process is killed and, where it is a
+    child, reaped.  Returns the pids that had to be killed."""
+    import multiprocessing.forkserver as mp_fs
+    import multiprocessing.resource_tracker as mp_rt
+    import signal
+    for helper in (getattr(mp_fs, "_forkserver", None),
+                   getattr(mp_rt, "_resource_tracker", None)):
+        try:
+            helper._stop()
+        except Exception as e:          # noqa: BLE001 — killed below
+            print(f"stop_children: {type(helper).__name__}: {e!r}",
+                  file=sys.stderr)
+    left = _descendants()
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for pid in left:
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:       # a grandchild: init reaps it
+            pass
+    if left:
+        print(f"stop_children: killed {left}", file=sys.stderr)
+    return left
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

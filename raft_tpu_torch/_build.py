@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host image codec.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  Libraries go to ``build/raft_tpu_torch/<hash>/`` at
-the root of the checkout, keyed by a hash of every source and of the
-compiler flags; a file lock keeps concurrent processes from building the
-same directory at once.  Nothing is built at import: the first call of a
-kernel wrapper on a CUDA tensor builds (or loads) its library.
+a build takes seconds).  ``csrc/imageio.cpp``, the PNG codec of
+``raft_tpu_torch/imageio.py``, is host code: the host C++ compiler builds
+it, linked to zlib, with no ``nvcc`` and no GPU (so it builds on the CPU
+too).  Libraries go to ``build/raft_tpu_torch/<hash>/`` at the root of the
+checkout, keyed by a hash of every source and of the compiler flags; a
+file lock keeps concurrent processes from building the same directory at
+once.  Nothing is built at import: the first call of a kernel wrapper on a
+CUDA tensor, or of the codec, builds (or loads) its library.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "raft_tpu_torch"
 SOURCES = ("corr_lookup.cu", "sep_conv_gru.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+CXX_LIBS = ("-lz",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -44,9 +49,27 @@ def find_nvcc() -> str:
                        "raft_tpu_torch cannot be built")
 
 
+def find_cxx() -> str:
+    """The host C++ compiler on PATH (``g++``, else ``c++``)."""
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++ or c++) on PATH: the "
+                       "image codec of raft_tpu_torch cannot be built")
+
+
+def _command(source: str, out: Path) -> list:
+    if source.endswith(".cpp"):
+        return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(CSRC / source),
+                *CXX_LIBS]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / source)]
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")):
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + CXX_FLAGS + CXX_LIBS).encode())
+    for name in sorted(p.name for p in CSRC.iterdir()
+                       if p.suffix in (".cu", ".cuh", ".cpp")):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -57,7 +80,7 @@ def build_dir() -> Path:
 
 
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every source not built yet, all ``nvcc`` processes started
+    """Compile every source not built yet, all compiler processes started
     together; returns ``{source: library path}``.  Raises with the
     compiler's output when a build fails."""
     out_dir = build_dir()
@@ -67,12 +90,11 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
         fcntl.flock(lock, fcntl.LOCK_EX)
         todo = [s for s in sources if not libs[s].exists()]
         if todo:
-            nvcc = find_nvcc()
             procs = []
             for s in todo:
                 tmp = libs[s].with_suffix(f".so.tmp{os.getpid()}")
+                cmd = _command(s, tmp)
                 log = open(out_dir / (Path(s).stem + ".log"), "w")
-                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / s)]
                 procs.append((s, tmp, log, subprocess.Popen(
                     cmd, stdout=log, stderr=subprocess.STDOUT)))
             failed = []
@@ -87,7 +109,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
                 logs = "\n".join(
                     (out_dir / (Path(s).stem + ".log")).read_text()
                     for s in failed)
-                raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+                raise RuntimeError(f"the build failed for {failed}:\n{logs}")
     return libs
 
 

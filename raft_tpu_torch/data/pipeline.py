@@ -1,16 +1,19 @@
 """The input pipeline: padding and embedding frames on the host (numpy),
 batching samples, and staging batches onto the device.
 
-The port's copies of ``pad_to_shape``, ``embed_to_shape``, ``unpad``,
-``batch_samples``, ``BatchBuffers``, ``batched``, ``PrefetchLoader`` and
-``synthetic_batches`` from the JAX package's ``data/pipeline.py``.
-:class:`PrefetchLoader` stages each batch in pinned host memory and copies
-it to the CUDA device on a side stream (``non_blocking``), handing the
-consumer the copy's event, so a train step is ordered after its batch's
-copy and the copy overlaps the step before it.  The serving stack pads each
-request to its resolution bucket with :func:`pad_to_shape` (replicate
-padding, split between both sides), and under ragged serving embeds the
-padded frame corner-anchored into the shared max box with
+The port's copies of ``pad_to_multiple``, ``pad_to_shape``,
+``embed_to_shape``, ``unpad``, ``batch_samples``, ``BatchBuffers``,
+``batched``, ``PrefetchLoader`` and ``synthetic_batches`` from the JAX
+package's ``data/pipeline.py``.  :class:`PrefetchLoader` stages each batch
+in pinned host memory and copies it to the CUDA device on a side stream
+(``non_blocking``), optionally augments it there (``augment_fn``, the
+device augmentor), and hands the consumer the side stream's event, so a
+train step is ordered after its batch's copy and augmentation, which
+overlap the step before it.  The evaluation harness pads each frame to a
+multiple of its bucket with :func:`pad_to_multiple`.  The serving stack
+pads each request to its resolution bucket with :func:`pad_to_shape`
+(replicate padding, split between both sides), and under ragged serving
+embeds the padded frame corner-anchored into the shared max box with
 :func:`embed_to_shape`; :func:`unpad` recovers the request's own
 resolution from the flow.  Callers of ``make_ragged_inference_fn`` build
 their batches with :func:`embed_to_shape` too.
@@ -21,7 +24,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Iterable, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +41,17 @@ def _apply_pads(image: np.ndarray, ph: int, pw: int,
     t, b, l, r = pads
     width = [(0, 0)] * (image.ndim - 3) + [(t, b), (l, r), (0, 0)]
     return np.pad(image, width, mode="edge"), pads
+
+
+def pad_to_multiple(image: np.ndarray, multiple: int = 8,
+                    mode: str = "sintel"
+                    ) -> Tuple[np.ndarray, Tuple[int, int, int, int]]:
+    """Replicate-pad [..., H, W, C] so H and W divide ``multiple``: mode
+    'sintel' splits the padding between both sides, 'kitti' pads top and
+    right only.  Returns (padded, (top, bottom, left, right)), which
+    :func:`unpad` inverts."""
+    h, w = image.shape[-3], image.shape[-2]
+    return _apply_pads(image, (-h) % multiple, (-w) % multiple, mode)
 
 
 def pad_to_shape(image: np.ndarray, target_hw: Tuple[int, int],
@@ -188,15 +202,26 @@ class PrefetchLoader:
     copy, while the next batch's copy overlaps it.  On the CPU the arrays
     are copied into fresh tensors (the collation buffers are reused).
 
+    ``augment_fn(batch, generator) -> batch`` runs on each staged batch
+    (device tensors) on the side stream, after its copy, with a
+    ``torch.Generator`` on the device seeded from ``augment_seed`` and the
+    batch's index (deterministic per run): the device-side augmentation
+    hook (``data/augment_device.py::make_batch_augment_fn``), overlapping
+    the consumer's step as the copy does.
+
     Iterate to exhaustion, or :meth:`close` (also a context manager) on
     early exit: it stops the thread, drops what is staged and joins the
     thread with a timeout.  Telemetry (process-default registry):
     ``raft_data_wait_seconds``, ``raft_data_queue_depth``,
     ``raft_data_batches_total``."""
 
-    def __init__(self, batch_iter: Iterable, device, buffer_size: int = 2):
+    def __init__(self, batch_iter: Iterable, device, buffer_size: int = 2,
+                 augment_fn: Optional[Callable] = None,
+                 augment_seed: int = 0):
         self._iter = iter(batch_iter)
         self._device = torch.device(device)
+        self._augment_fn = augment_fn
+        self._augment_seed = augment_seed
         self._q: queue.Queue = queue.Queue(maxsize=max(1, buffer_size))
         self._cuda = self._device.type == "cuda"
         self._stream = torch.cuda.Stream(self._device) if self._cuda else None
@@ -210,9 +235,17 @@ class PrefetchLoader:
                                         name="prefetch")
         self._thread.start()
 
+    def _augment(self, staged, index: int):
+        if self._augment_fn is None:
+            return staged
+        gen = torch.Generator(device=self._device).manual_seed(
+            (self._augment_seed * 1_000_003 + index) % (2 ** 63))
+        return tuple(self._augment_fn(staged, gen))
+
     def _stage(self, batch, index: int):
         if not self._cuda:
-            return tuple(torch.tensor(np.asarray(x)) for x in batch), None
+            staged = tuple(torch.tensor(np.asarray(x)) for x in batch)
+            return self._augment(staged, index), None
         k = index % len(self._pinned)
         if self._events[k] is not None:
             self._events[k].synchronize()       # its last copy has landed
@@ -226,6 +259,7 @@ class PrefetchLoader:
             b.numpy()[...] = x
         with torch.cuda.stream(self._stream):
             staged = tuple(b.to(self._device, non_blocking=True) for b in bufs)
+            staged = self._augment(staged, index)
             event = torch.cuda.Event()
             event.record(self._stream)
         self._events[k] = event

@@ -141,8 +141,8 @@ class SyntheticFlowDataset(FlowDataset):
     """Endless-by-index procedural (im1, im2, flow, valid) samples."""
 
     def __init__(self, size: Tuple[int, int] = (96, 128), length: int = 1000,
-                 max_flow: float = 6.0, seed: int = 0):
-        super().__init__()
+                 max_flow: float = 6.0, seed: int = 0, augmentor=None):
+        super().__init__(augmentor)
         self.size = tuple(size)
         self.length = int(length)
         self.max_flow = float(max_flow)

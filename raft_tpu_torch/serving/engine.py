@@ -22,8 +22,12 @@ move — the stream batch step's graphs read them by address.
 One device caller at a time: a CUDA graph is not re-entrant, and warmup,
 ``reload`` and direct callers run beside the batcher thread, so every
 device call of the engine (a capture or a replay, the copy of its output
-to the host, a commit, a reload's probe and weight copy) holds
-``_device_lock``, a watched lock placed in the serving lock hierarchy.
+to the host, a commit, a reload's weight copy and, on CUDA, its probe's
+move to the device and forward) holds ``_device_lock``, a watched lock
+placed in the serving lock hierarchy.  A reload builds and loads its probe
+model on the host with no lock held, and runs the probe's device work on
+the engine's one probe thread, whose cuDNN choices warmup makes (see
+:meth:`InferenceEngine._on_probe_thread`).
 
 On CUDA the engine turns ``torch.backends.cudnn.benchmark`` on before it
 captures anything: a graph keeps the cuDNN algorithms it was captured
@@ -33,6 +37,8 @@ is hundreds of times slower than the benchmarked one.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import time
 from typing import Dict, Optional, Tuple
@@ -85,8 +91,11 @@ class InferenceEngine:
     configuration's compute dtype.
 
     Thread model (SERVING.md "Threading model"): ``_device_lock`` is held
-    across every device call; ``_lock`` guards the key set and the
-    counters.  The slot pool's bookkeeping has its own leaf lock."""
+    across every device call and a reload's in-place copy (a reload's
+    probe builds its model on the host unlocked; its move to the device and
+    its forward run on the engine's probe thread, under the lock on CUDA);
+    ``_lock`` guards the key set and the counters.  The slot pool's
+    bookkeeping has its own leaf lock."""
 
     _exec = guarded_by("_lock")
     compile_hits = guarded_by("_lock")
@@ -162,6 +171,8 @@ class InferenceEngine:
         self._device_lock = watched_lock("InferenceEngine._device_lock",
                                          budget_s=None)
         self._lock = watched_lock("InferenceEngine._lock")
+        self._probe_exec = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="raft-reload-probe")
         self._exec: Dict[Tuple[str, int, int, int, str], str] = {}
         self.compile_hits = 0
         self.compile_misses = 0
@@ -286,6 +297,14 @@ class InferenceEngine:
             if verbose:
                 _log.info(f"warmed {kind} bucket {h}x{w} batch {b} "
                           f"({time.monotonic() - t0:.1f}s elapsed)")
+        probe_key = self._probe_key()
+        if self._cuda and probe_key is not None:
+            # the probe thread's cuDNN choices, made now: one eager forward
+            # of the live weights at the probe's shape
+            def warm():
+                with self._device_lock:
+                    self._eager_finite(self.model, *probe_key)
+            self._on_probe_thread(warm)
         self.warmup_seconds = time.monotonic() - t0
         return n
 
@@ -360,27 +379,65 @@ class InferenceEngine:
                     f"{list(new.shape)}")
         return {k: params[k] for k in template}
 
+    def _probe_key(self) -> Optional[Tuple[int, int, int]]:
+        """(b, h, w) of the smallest warm pair key, the probe's shape; None
+        when no pair key is warm."""
+        pair_keys = [k for k in self.keys() if k[0] == "pair"]
+        if not pair_keys:
+            return None
+        _, h, w, b, _ = min(pair_keys, key=lambda k: k[1] * k[2] * k[3])
+        return b, h, w
+
+    def _on_probe_thread(self, fn):
+        """``fn()`` run on the engine's one probe thread: its result, or its
+        exception raised here.  cuDNN keeps its benchmark-mode choices per
+        thread, and a reload arrives on a new HTTP handler thread each
+        time: there the probe's forward benchmarked every convolution
+        anew under the device lock, and a batch waited about 1.7 s for it
+        (432x1024, H100 80GB HBM3).  Warmup makes the probe thread's
+        choices once."""
+        return self._probe_exec.submit(fn).result()
+
+    def _eager_finite(self, model, b: int, h: int, w: int) -> bool:
+        """One eager forward of ``model`` on zero frames [b, h, w, 3]:
+        whether its flow is finite everywhere."""
+        from ..models.raft import raft_forward
+        img = self._zeros((b, h, w, 3))
+        sizes = (torch.as_tensor(self._sizes_arg(b, None), device=self.device)
+                 if self.ragged else None)
+        out = raft_forward(model, img, img, self.config, iters=self.iters,
+                           sizes=sizes)
+        return bool(torch.isfinite(out.flow).all())
+
     def _probe(self, staged: Dict[str, torch.Tensor]) -> bool:
         """Run the staged weights once, eager, on a separate model at the
         smallest warm pair key's shape; raise ReloadMismatch on non-finite
         flow.  False when no pair key is warm yet (nothing probed).
-        Device lock held by the caller."""
+
+        The probe model is built and loaded on the host with no lock held,
+        so batches go on being served meanwhile.  Its move to the device,
+        its inputs and its forward run on the probe thread and, on CUDA,
+        take the device lock: they read no graph and no live weight, but
+        each allocates device memory or copies to the device, and
+        PyTorch's default capture mode rejects such work from another
+        thread while a graph is being captured (a serve-time miss captures
+        under that lock)."""
         from ..models.raft import RAFT, cast_encoder_weights, compute_dtype
-        from ..models.raft import raft_forward
-        pair_keys = [k for k in self.keys() if k[0] == "pair"]
-        if not pair_keys:
+        key = self._probe_key()
+        if key is None:
             return False
-        _, h, w, b, _ = min(pair_keys, key=lambda k: k[1] * k[2] * k[3])
         probe = RAFT(self.config).eval()
         probe.load_state_dict({k: v.float() for k, v in staged.items()})
-        probe = cast_encoder_weights(
-            probe.to(self.device, compute_dtype(self.config)), self.config)
-        img = self._zeros((b, h, w, 3))
-        sizes = (torch.as_tensor(self._sizes_arg(b, None), device=self.device)
-                 if self.ragged else None)
-        out = raft_forward(probe, img, img, self.config, iters=self.iters,
-                           sizes=sizes)
-        if not bool(torch.isfinite(out.flow).all()):
+
+        def on_device():
+            with (self._device_lock if self._cuda
+                  else contextlib.nullcontext()):
+                moved = cast_encoder_weights(
+                    probe.to(self.device, compute_dtype(self.config)),
+                    self.config)
+                return self._eager_finite(moved, *key)
+
+        if not self._on_probe_thread(on_device):
             raise ReloadMismatch("probe produced non-finite flow; "
                                  "rejecting swap")
         return True
@@ -395,11 +452,15 @@ class InferenceEngine:
         eager model, then ``copy_``'d into the live parameters and
         buffers.  The graphs read the weights by address, so the next
         replay computes with the new ones and no key is captured again
-        (``models/capture.py``).  All of it runs under the device lock: a
-        replay never sees half a copy."""
+        (``models/capture.py``).  Only the copy runs under the device lock
+        (a replay never sees half a copy) and, on CUDA, the probe's device
+        work (:meth:`_probe` says why); the staging and the probe's host
+        build run off the serving path, as in the JAX package's engine.  A
+        rejected probe raises before any copy: the old weights go on
+        serving."""
         staged = self._staged_state(params)
+        probed = probe and self._probe(staged)
         with self._device_lock:
-            probed = probe and self._probe(staged)
             with torch.no_grad():
                 live = self.model.state_dict(keep_vars=True)
                 for name, t in live.items():

@@ -1,8 +1,8 @@
 """Training: the port of the JAX package's ``training/`` (the loss, the
 optimizer with optax's semantics, the train state, the train and eval
-steps, checkpoints in the JAX package's npz format, the resilience layer
-and the loop); ``python -m raft_tpu_torch.training`` runs it.  The JAX
-package's ``evaluate.py`` is ROADMAP item 7c."""
+steps, checkpoints in the JAX package's npz format, the resilience layer,
+the loop and the evaluation harness, ``evaluate.py``); ``python -m
+raft_tpu_torch.training`` runs it (``-m val`` evaluates)."""
 
 from .checkpoint import (latest_checkpoint, restore_checkpoint,
                          save_checkpoint)

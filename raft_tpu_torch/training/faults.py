@@ -1,9 +1,8 @@
 """Deterministic fault injection for the TRAINING plane (chaos harness).
 
 A copy of the JAX package's ``training/faults.py``.  The ``worker_kill``
-and ``worker_stall`` arms act on the multi-process data loader, which the
-port does not have yet (ROADMAP item 8): armed, they raise
-NotImplementedError.
+and ``worker_stall`` arms act on the multi-process data loader
+(``data/mp_loader.py::MPSampleLoader``), as in the JAX package.
 
 The serving plane has a seeded injector (``serving/faults.py``); this
 is the training-side twin, armed
@@ -62,13 +61,6 @@ _log = get_logger("train")
 
 ARMS = ("worker_kill", "worker_stall", "nan_loss", "torn_ckpt", "preempt")
 RATE_ARMS = ("worker_kill", "worker_stall", "nan_loss", "torn_ckpt")
-LOADER_ARMS = ("worker_kill", "worker_stall")
-
-
-def _no_loader(arm: str):
-    raise NotImplementedError(
-        f"the {arm} arm acts on the multi-process data loader, which is "
-        f"not ported yet: ROADMAP item 8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,9 +144,6 @@ class TrainFaultInjector:
     injected = guarded_by("_lock")
 
     def __init__(self, spec: TrainChaosSpec, counter=None, run_log=None):
-        for arm in LOADER_ARMS:
-            if getattr(spec, arm) > 0:
-                _no_loader(arm)
         self.spec = spec
         self.run_log = run_log            # telemetry.events.RunLog or None
         self._lock = threading.Lock()
@@ -205,8 +194,6 @@ class TrainFaultInjector:
         ``preempt`` fires regardless of the configured step."""
         if arm not in ARMS:
             raise ValueError(f"unknown arm {arm!r}")
-        if arm in LOADER_ARMS:
-            _no_loader(arm)
         with self._lock:
             self._forced.setdefault(arm, deque()).extend(
                 bool(o) for o in outcomes)

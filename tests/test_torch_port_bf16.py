@@ -38,6 +38,8 @@ from raft_tpu_torch.models.raft import _iterate_flow as port_iterate
 from raft_tpu_torch.models.update import precompute_gru_ctx
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16 = jnp.bfloat16
 

@@ -21,6 +21,8 @@ import raft_tpu_torch as rt
 from raft_tpu_torch.models import capture as capture_mod
 from raft_tpu_torch.models import raft as port_raft
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 
 class _StandInGraph:
     def __init__(self, fn, out):

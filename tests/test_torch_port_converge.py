@@ -36,6 +36,8 @@ from test_torch_port_capture import stand_in  # noqa: F401 (a fixture)
 from test_torch_port_model import BIASED
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 ITERS = 3
 KW = dict(corr_impl="pallas", gru_impl="pallas", iters=ITERS)
 

@@ -13,6 +13,8 @@ from raft_tpu.ops.corr_pallas import fused_lookup as jax_fused_lookup
 from raft_tpu_torch.ops import corr_cuda
 from raft_tpu_torch.ops.corr import fmap2_pyramid, lookup_blockwise_onehot
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

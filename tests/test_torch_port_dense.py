@@ -22,6 +22,8 @@ from raft_tpu_torch.ops import corr
 from test_torch_port_model import BIASED
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 _jax_forward = jax.jit(jax_forward, static_argnames=("config", "all_flows"))

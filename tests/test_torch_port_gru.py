@@ -16,6 +16,8 @@ from raft_tpu_torch.convert import weights
 from raft_tpu_torch.models.update import SepConvGRU, precompute_gru_ctx
 from raft_tpu_torch.ops import gru_cuda
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: it imports with ``jax`` and ``raft_tpu``
-blocked, its sources import neither (nor ``cv2``), and its entry points
-run on CUDA unless the CPU is asked for."""
+"""The PyTorch port stands alone: it imports with ``jax``, ``raft_tpu`` and
+``cv2`` blocked, its sources import none of them and load nothing under
+``native/`` (the JAX package's I/O library), and its entry points run on
+CUDA unless the CPU is asked for."""
 
 import ast
 import os
@@ -14,6 +15,8 @@ import torch
 
 import raft_tpu_torch as rt
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "raft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -22,6 +25,7 @@ def test_imports_with_jax_and_raft_tpu_blocked():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['raft_tpu'] = None\n"
+            "sys.modules['cv2'] = None\n"
             "import raft_tpu_torch\n"
             "import raft_tpu_torch.ops.corr_cuda, raft_tpu_torch.ops.gru_cuda\n"
             "import raft_tpu_torch._build\n"
@@ -31,6 +35,13 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch.training, raft_tpu_torch.training.__main__\n"
             "import raft_tpu_torch.training.loop, raft_tpu_torch.training.faults\n"
             "import raft_tpu_torch.data.synthetic, raft_tpu_torch.data.datasets\n"
+            "import raft_tpu_torch.imageio, raft_tpu_torch.data.augment\n"
+            "import raft_tpu_torch.data.augment_device\n"
+            "import raft_tpu_torch.data.mp_loader, raft_tpu_torch.data.fabricate\n"
+            "import raft_tpu_torch.data.loader_bench\n"
+            "import raft_tpu_torch.utils.flow_io, raft_tpu_torch.utils.flow_viz\n"
+            "import raft_tpu_torch.utils.frame_utils\n"
+            "import raft_tpu_torch.training.evaluate\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -51,7 +62,12 @@ def test_sources_import_neither_jax_nor_raft_tpu(path):
             names = [node.module or ""]
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "raft_tpu", "cv2"), (path, name)
+            assert top not in ("jax", "jaxlib", "raft_tpu", "cv2",
+                               "native"), (path, name)
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert "libraftio" not in node.value, (path, node.value)
+            assert node.value != "native" and not node.value.startswith(
+                ("native/", "native\\")), (path, node.value)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

@@ -20,6 +20,8 @@ from raft_tpu.models import init_raft
 from raft_tpu.models.raft import raft_forward as jax_forward
 import raft_tpu_torch as rt
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 
 BIASED = pytest.mark.parametrize("biased", [False, True],
                                  ids=["zero_bias", "biased"])

@@ -32,6 +32,8 @@ from raft_tpu_torch.ops.grid_sample import grid_sample, grid_sample_normalized
 from test_torch_port_model import BIASED
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 t = torch.from_numpy
 

@@ -13,6 +13,8 @@ from raft_tpu.ops import norm as jnorm
 from raft_tpu.ops import upsample as jup
 from raft_tpu_torch.ops import conv, coords, corr, norm, upsample
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

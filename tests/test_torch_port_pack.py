@@ -26,6 +26,8 @@ from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
                                      lookup_packed_plain, pack_factor,
                                      packed_levels_from)
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

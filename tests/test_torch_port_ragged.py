@@ -25,6 +25,8 @@ from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
                                      ragged_pyramid)
 from test_torch_port_model import BIASED, _jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

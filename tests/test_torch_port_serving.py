@@ -43,6 +43,8 @@ from raft_tpu_torch.serving.metrics import (make_robustness_metrics,
                                             make_serving_metrics)
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TIMEOUT = 30
 BUCKET = (32, 48)
 ITERS = 2

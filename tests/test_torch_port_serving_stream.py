@@ -32,6 +32,8 @@ from raft_tpu_torch.serving.session import (SlotPool, buffer_tensors,
                                             zero_slot_buffers)
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TIMEOUT = 30
 BUCKET = (32, 48)
 ITERS = 2

@@ -37,6 +37,8 @@ from raft_tpu_torch.ops.upsample import upflow8
 from test_torch_port_bf16 import _bf16_params, _hold, _to_torch, _ulp
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 ENCODER_TOL = dict(rtol=5e-5, atol=5e-5)
 BF16 = jnp.bfloat16

@@ -14,6 +14,8 @@ import torch
 
 from raft_tpu_torch.ops import gru_cuda
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """Round float32 to tf32 as the kernels do: add half of the 13 dropped

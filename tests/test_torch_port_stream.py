@@ -39,6 +39,8 @@ from raft_tpu_torch.ops import warmstart as port_warmstart
 from test_torch_port_capture import stand_in  # noqa: F401 (a fixture)
 from test_torch_port_pack import seeded_jax_params
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 ITERS = 2
 KW = dict(corr_impl="pallas", gru_impl="pallas", iters=ITERS)
 ENCODER_TOL = dict(rtol=5e-5, atol=5e-5)

@@ -29,6 +29,10 @@ from raft_tpu_torch.serving.metrics import make_serving_metrics
 from raft_tpu_torch.telemetry import anomaly, events, registry, spans
 from raft_tpu_torch.telemetry import timeseries, trace, watchdogs
 
+import torch
+
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 
 def _drive(reg_mod):
     """One fixed sequence of metric operations on a fresh registry of

@@ -28,6 +28,8 @@ from raft_tpu_torch.training import TrainState, make_optimizer, make_train_step
 
 from torch_train_parity import make_batch, stage_kwargs
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 
 def _leaf(a, dtype=torch.float32):
     return torch.from_numpy(a).to(dtype).requires_grad_(True)

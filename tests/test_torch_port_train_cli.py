@@ -4,9 +4,9 @@ retention, a rerun that resumes from the newest checkpoint, and an
 external SIGTERM that finishes the step in flight, writes a readable
 emergency checkpoint and exits 17.  Each
 process is waited for with a timeout and killed if it overruns.  Also:
-the stages and checkpoint formats that are not ported raise, naming their
-ROADMAP items, and the preemption guard gives back the handlers it
-replaced."""
+the checkpoint formats that are not ported raise, naming their ROADMAP
+item, a file stage without its root raises, and the preemption guard
+gives back the handlers it replaced."""
 
 import json
 import os
@@ -23,6 +23,10 @@ from raft_tpu_torch.training.__main__ import main
 from raft_tpu_torch.training.checkpoint import (checkpoint_readable,
                                                 list_checkpoints)
 from raft_tpu_torch.training.resilience import PREEMPT_EXIT_CODE, PreemptionGuard
+
+import torch
+
+torch.set_num_threads(2)   # several test workers share the host's cores
 
 ROOT = Path(__file__).resolve().parents[1]
 ARGS = ["--cpu", "--small", "--iters", "2", "--batch", "2",
@@ -105,14 +109,14 @@ def test_cli_sigterm_exits_17_with_a_readable_checkpoint(tmp_path):
 
 
 def test_unported_stages_and_formats_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """The file stages are ported (they need their root), the other
+    checkpoint formats are not (item 14), and flags out of range exit 2."""
+    with pytest.raises(ValueError, match="--data"):
         main([*ARGS, "--dataset", "chairs", "--out", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 14"):
         main([*ARGS, "--load", "weights.pth", "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main([*ARGS, "--chaos-train", "seed=1,worker_kill=0.1",
-              "--out", str(tmp_path)])
     assert main([*ARGS, "--ckpt-every", "0", "--out", str(tmp_path)]) == 2
+    assert main([*ARGS, "--workers", "-1", "--out", str(tmp_path)]) == 2
 
 
 def test_preemption_guard_restores_the_handlers():

@@ -25,6 +25,8 @@ from raft_tpu_torch.config import TrainConfig
 from raft_tpu_torch.ops.norm import BatchNorm
 from raft_tpu_torch.training import epe_metrics, make_optimizer, sequence_loss
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 RTOL = 1e-6
 
 

@@ -14,6 +14,10 @@ from raft_tpu_torch.config import TrainConfig
 
 from torch_train_parity import JaxStep, check_variant, stage_kwargs
 
+import torch
+
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 
 @pytest.fixture(scope="module")
 def jax_step():

@@ -31,6 +31,10 @@ from torch_train_parity import (JaxStep, check_bn, check_first_update,
                                 make_batch, make_params, named, port_step,
                                 stage_kwargs)
 
+import torch
+
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 KERNELS = dict(corr_impl="pallas", gru_impl="pallas", iters=2)
 
 

@@ -19,6 +19,10 @@ from raft_tpu_torch.config import TrainConfig
 
 from torch_train_parity import JaxStep, check_variant, stage_kwargs
 
+import torch
+
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 CASES = {
     "default_accum2": (dict(accum_steps=2, batch_size=4), 4),
     "default_freeze_bn": (dict(freeze_bn=True), 2),

@@ -32,6 +32,8 @@ from raft_tpu_torch.convert.weights import (_jax_leaves, to_jax_params,
                                             to_jax_train_state)
 from raft_tpu_torch.training import TrainState, make_optimizer, make_train_step
 
+torch.set_num_threads(2)   # several test workers share the host's cores
+
 LOSS_RTOL = 1e-5          # the loss, relative
 LEAF_RTOL = 3e-2          # ||g_port - g_jax|| / ||g_jax|| per leaf
 GRAD_RTOL = 1e-2          # the same over the whole gradient
