@@ -2226,6 +2226,498 @@ def data_phases(dev, smi: str, kernels) -> dict:
     return rec
 
 
+# -- 11. the command line: python -m raft_tpu_torch.cli ------------------------
+
+def _cli(argv) -> str:
+    """``raft_tpu_torch.cli.main(argv)`` in this process; raises unless it
+    exits 0; returns what it printed (echoed with a ``cli:`` prefix)."""
+    import contextlib
+    import io
+    from raft_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    for ln in out.splitlines():
+        print(f"cli: {ln}")
+    if rc != 0:
+        raise AssertionError(f"cli {argv} exited {rc}")
+    return out
+
+
+def _official_checkpoint(tree) -> dict:
+    """A params tree as an official RAFT ``.pth`` holds it: torch names
+    under ``{"model": ...}`` with DataParallel's ``module.`` prefix, a
+    ``num_batches_tracked`` per batch norm, and each strided block's
+    shortcut norm also under its attribute alias (``norm3``, or ``norm4``
+    beside a ``conv3``)."""
+    from raft_tpu_torch.convert import to_state_dict
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in to_state_dict(tree).items()}
+    extra = {}
+    for name, t in sd.items():
+        parts = name.split(".")
+        if "downsample" in parts and parts[parts.index("downsample") + 1] == "1":
+            i = parts.index("downsample")
+            block = ".".join(parts[:i])
+            alias = "norm4" if f"{block}.conv3.weight" in sd else "norm3"
+            extra[".".join(parts[:i] + [alias] + parts[i + 2:])] = t.clone()
+        if parts[-1] == "running_mean":
+            extra[".".join(parts[:-1] + ["num_batches_tracked"])] = \
+                torch.tensor(0, dtype=torch.int64)
+    sd.update(extra)
+    return {"model": {f"module.{k}": v for k, v in sd.items()}}
+
+
+def _graph_ops(program) -> list:
+    """The ``raft_tpu_torch`` operators in an exported program's graphs."""
+    ops = set()
+    for mod in program.graph_module.modules():
+        if hasattr(mod, "graph"):
+            ops |= {str(n.target) for n in mod.graph.nodes
+                    if n.op == "call_function"
+                    and str(n.target).startswith("raft_tpu_torch.")}
+    return sorted(ops)
+
+
+def _device_kernels(fn) -> int:
+    """Kernels the device ran in one ``fn()`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def cli_phases(dev, smi: str, train_step_ms: float) -> dict:
+    """Phase 11: ``python -m raft_tpu_torch.cli`` on the card.  ``-m test``
+    as a subprocess (cold start, steady ms, its ``.flo`` against the
+    captured ``make_inference_fn`` flow in this process) and in process
+    (launch counts); every ``--load`` format made from the C1 weights; ``-m
+    export`` and its ``.pt2`` run on the card; ``-m flops`` against the
+    CPU's count; the NaN sentinel eager and captured, its cost on and off;
+    each kernel operator against its wrapper, bitwise; the eager cost of
+    the operators' dispatch.  Returns the ``cli`` record and the launches
+    of the in-process ``-m test``."""
+    import gc
+    import re
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from raft_tpu_torch import (RAFTConfig, RAFT, cli, init_raft_torch,
+                                make_inference_fn)
+    from raft_tpu_torch import convert as pconv
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.models.raft import raft_forward, tf32_off
+    from raft_tpu_torch.ops import corr_cuda, gru_cuda
+    from raft_tpu_torch.ops.coords import coords_grid
+    from raft_tpu_torch.telemetry import watchdogs
+    from raft_tpu_torch.training.checkpoint import save_checkpoint
+    from raft_tpu_torch.training.optim import make_optimizer
+    from raft_tpu_torch.training.state import TrainState
+    from raft_tpu_torch.utils.flow_io import read_flo
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    wrappers = (corr_cuda.corr_lookup_cuda, gru_cuda.sep_conv_gru_cuda)
+    rec = {"device": smi}
+    flags = ["--corr-impl", "pallas", "--gru-impl", "pallas", "--iters",
+             str(ITERS)]
+    # the CPU's FLOP counts, in processes of their own while the card works
+    flop_flags = {"raft_things": ["--corr-impl", "pallas", "--gru-impl",
+                                  "pallas"],
+                  "raft_small": ["--small", "--corr-impl", "pallas"]}
+    cpu_flops = {k: subprocess.Popen(
+        [sys.executable, "-m", "raft_tpu_torch.cli", "-m", "flops", "--cpu",
+         "--run-log", "none", *f], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for k, f in flop_flags.items()}
+    try:
+        # -- 11a. every --load format, from the C1 weights ----------------
+        cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=ITERS)
+        model = init_raft_torch(cfg, generator=torch.Generator().manual_seed(0),
+                                device=dev)
+        c1_weights(model)
+        state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        tree = pconv.to_jax_params(state)
+        files = {"params": tmp / "c1.npz", "pth": tmp / "c1.pth",
+                 "torch_npz": tmp / "c1_torch.npz",
+                 "tensorpack": tmp / "c1_reference.npz",
+                 "trainstate": tmp / "ckpt_1.npz",
+                 "params_swapped": tmp / "c1_swapped.npz"}
+        pconv.save_params_npz(state, files["params"])
+        torch.save(_official_checkpoint(tree), files["pth"])
+        np.savez(files["torch_npz"], **pconv.to_state_dict(tree))
+        pconv.to_reference_npz(tree, files["tensorpack"])
+        host = RAFT(cfg)
+        host.load_state_dict(state)
+        save_checkpoint(files["trainstate"], TrainState.create(
+            host, make_optimizer(TrainConfig.for_stage("chairs"))))
+        swapped = pconv.to_jax_params(state)
+        pconv.swap_rgb_bgr(swapped)
+        pconv.save_params_npz(pconv.from_jax_params(swapped),
+                              files["params_swapped"])
+        for fmt, path in files.items():
+            print(f"cli: {fmt} checkpoint {path.name}: detect_format "
+                  f"{pconv.detect_format(path)}")
+
+        def run_test(tag, load, *extra):
+            out_dir = tmp / tag
+            _cli(["-m", "test", *flags, "--save-flo", "--run-log", "none",
+                  "--load", str(load), "--out", str(out_dir), *extra])
+            flo = read_flo(out_dir / "raft_flow_raft-things.flo")
+            gc.collect()
+            torch.cuda.empty_cache()
+            return flo
+
+        _reset(*wrappers)
+        params_flo = run_test("params", files["params"])
+        test_launches = _launches(*wrappers)
+        want = {"corr_lookup": 2 * ITERS,
+                "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}
+        print(f"cli: -m test in process: launches {test_launches} (the "
+              f"capture's warm-up and captured forwards, replays none)")
+        if test_launches != want:
+            raise AssertionError(f"cli -m test launched {test_launches}, "
+                                 f"expected {want}")
+        # the captured factory on the same pair and weights, in process
+        args = cli.build_parser().parse_args(
+            ["--load", str(files["params"]), *flags])
+        im1, im2 = cli.read_pair(args)
+        loaded = cli.load_model(args, cfg)
+        direct = make_inference_fn(cfg)(loaded, im1, im2)[0].cpu().numpy()
+        same = bool(np.array_equal(direct, params_flo))
+        print(f"cli: in-process .flo bitwise equal to make_inference_fn's "
+              f"flow: {same}")
+        if not same:
+            raise AssertionError("the CLI's flow differs from the factory's")
+        rgb = {fmt: run_test(f"{fmt}_rgb", files[fmt], "--rgb")
+               for fmt in ("params", "pth", "torch_npz", "tensorpack",
+                           "trainstate")}
+        bgr_swapped = run_test("params_swapped", files["params_swapped"])
+        bgr = {fmt: run_test(fmt, files[fmt]) for fmt in ("pth", "torch_npz")}
+        formats = {}
+        for fmt, flo in rgb.items():
+            formats[f"{fmt} --rgb"] = bool(np.array_equal(flo, rgb["params"]))
+        for fmt, flo in bgr.items():
+            formats[f"{fmt} (swapped to BGR)"] = bool(
+                np.array_equal(flo, bgr_swapped))
+        print(f"cli: --load formats bitwise equal to the params npz run: {formats}")
+        if not all(formats.values()):
+            raise AssertionError(f"a --load format's flow differs: {formats}")
+        rec["load_formats_bitwise"] = formats
+        del loaded
+
+        # -- 11b. -m export, and its program on the card --------------------
+        t0 = time.perf_counter()
+        _cli(["-m", "export", *flags, "--load", str(files["params"]),
+              "--export-reference-npz", "--run-log", "none",
+              "--out", str(tmp / "export")])
+        rec["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = torch.export.load(str(tmp / "export" / "raft-things.pt2"))
+        rec["export_load_s"] = time.perf_counter() - t0
+        rec["export_ops"] = _graph_ops(program)
+        print(f"cli: .pt2 graph operators {rec['export_ops']}, exported in "
+              f"{rec['export_s']:.2f} s, loaded in {rec['export_load_s']:.2f} s")
+        if rec["export_ops"] != ["raft_tpu_torch.corr_lookup.default",
+                                 "raft_tpu_torch.sep_conv_gru.default"]:
+            raise AssertionError("the exported graph lacks the kernel operators")
+        t1, t2 = (torch.from_numpy(x).to(dev) for x in (im1, im2))
+        _reset(*wrappers)
+        with torch.no_grad(), tf32_off():
+            got = program.module()(t1, t2)
+            eager = raft_forward(model, t1, t2, cfg).flow
+        prog_launches = _launches(*wrappers)
+        worst, msg = _within("cli: the .pt2 program on the card vs the eager "
+                             "forward", got, eager)
+        rec["export_program_bitwise"] = bool(torch.equal(got, eager))
+        rec["export_program_worst"] = worst
+        print(f"{msg}; bitwise {rec['export_program_bitwise']}; launches of "
+              f"the program and the eager forward {prog_launches}")
+        if not worst <= 1.0 or prog_launches["corr_lookup"] != 2 * ITERS:
+            raise AssertionError("the .pt2 program disagrees or ran no kernel")
+        for name in ("raft-things.npz", "raft-things.reference.npz"):
+            back = pconv.from_jax_params(pconv.load_checkpoint_auto(
+                tmp / "export" / name))
+            if not all(torch.equal(back[k], v) for k, v in state.items()):
+                raise AssertionError(f"{name} does not reload bitwise")
+        print("cli: the exported npz and reference npz reload bitwise")
+        del program
+
+        # -- 11c. -m flops on the card and on the CPU -----------------------
+        rec["flops"] = {}
+        for key, f in flop_flags.items():
+            card = _cli(["-m", "flops", *f, "--run-log", "none"])
+            out, _ = cpu_flops[key].communicate(timeout=600)
+            if cpu_flops[key].returncode != 0:
+                raise AssertionError(f"-m flops --cpu {key}: {out[-2000:]}")
+
+            def counts(text):
+                n = int(text.split("trainable parameters:")[1].split()[0]
+                        .replace(",", ""))
+                fl = int(re.search(r"total flops: ([\d,]+)", text).group(1)
+                         .replace(",", ""))
+                return n, fl
+            (n, fl), (n_cpu, fl_cpu) = counts(card), counts(out)
+            rec["flops"][key] = {"params": n, "flops": fl, "cpu_flops": fl_cpu}
+            print(f"cli: -m flops {key} at 1x256x448: {n:,} parameters, "
+                  f"{fl:,} FLOPs on the card, {fl_cpu:,} on the CPU")
+            if (n, fl) != (n_cpu, fl_cpu):
+                raise AssertionError(f"-m flops {key}: card and CPU differ")
+
+        # -- 11d. each kernel operator against its wrapper, bitwise ---------
+        k_in = kernel_inputs(np.random.RandomState(0), dev)
+        f1, levels, coords = k_in["fmap1"], k_in["levels"], k_in["coords"]
+        rf1, rlevels, rcoords, s8 = (k_in[k] for k in
+                                     ("rf1", "rlevels", "rcoords", "sizes8"))
+        h, mot, ctx = k_in["gru"]
+        fw = gru_cuda.fuse_gru_weights(model.update_block.gru, 128, 128)
+        kw32 = gru_cuda.prepare_gru_weights(fw, torch.float32)
+        ops = torch.ops.raft_tpu_torch
+        same_ops = {}
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "" if dt == torch.float32 else "_bf16"
+            a, lv = f1.to(dt), [x.to(dt) for x in levels]
+            ra, rlv = rf1.to(dt), [x.to(dt) for x in rlevels]
+            pairs_ = {
+                "corr_lookup": (ops.corr_lookup(a, lv, coords, 4),
+                                corr_cuda.corr_lookup_cuda(a, lv, coords, 4)),
+                "corr_window": (ops.corr_window(a, lv, coords, 4),
+                                corr_cuda.corr_window_cuda(a, lv, coords, 4)),
+                "corr_packed": (ops.corr_packed(a, lv, coords, 4, "all"),
+                                corr_cuda.corr_packed_cuda(a, lv, coords, 4)),
+                "corr_ragged": (ops.corr_ragged(ra, rlv, rcoords, s8, 4),
+                                corr_cuda.corr_ragged_cuda(ra, rlv, rcoords, s8, 4))}
+            fw_d = {k: v.to(dt) for k, v in fw.items()}
+            kw = gru_cuda.prepare_gru_weights(fw_d, dt)
+            hd, md, cd = h.to(dt), mot.to(dt), tuple(c.to(dt) for c in ctx)
+            pairs_["sep_conv_gru"] = (
+                ops.sep_conv_gru(hd, md, *cd, [fw_d[k] for k in gru_cuda._WEIGHTS],
+                                 [kw[k] for k in gru_cuda._WEIGHTS]),
+                gru_cuda.sep_conv_gru_cuda(kw, hd, md, cd))
+            for name, (x, y) in pairs_.items():
+                same_ops[name + tag] = bool(torch.equal(x, y))
+        print(f"cli: each operator bitwise its kernel wrapper: {same_ops}")
+        if not all(same_ops.values()):
+            raise AssertionError("an operator differs from its wrapper")
+        rec["operators_bitwise"] = same_ops
+
+        # a NaN operand (CUDA's own NaN, 0x7fffffff) comes out NaN, on the
+        # MMA path and on the gather: one query's fmap1 row gives NaN in
+        # every window entry of that query at the levels where its window
+        # lies in the map (0-2), and nowhere else; one pixel of h gives NaN
+        # in the GRU's output there, and not far from it
+        cuda_nan = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(
+            torch.float32).item()
+        near = (coords_grid(1, H_IMG // 8, W_IMG // 8, device=dev)
+                + 0.37).contiguous()
+        f1_nan = f1.clone()
+        f1_nan[0, 20, 60] = cuda_nan
+        nan_same = {}
+        for how, ratio in (("MMA", float("inf")), ("gather", 0.0)):
+            got_nan = corr_cuda.corr_lookup_cuda(f1_nan, levels, near, 4,
+                                                 mma_ratio=ratio).isnan()
+            nan_same[f"corr_lookup {how}"] = bool(
+                got_nan[0, 20, 60, :3 * 81].all()
+                and int(got_nan.sum()) == int(got_nan[0, 20, 60].sum()))
+        h_nan = h.clone()
+        h_nan[0, 20, 60, 5] = cuda_nan
+        out_nan = gru_cuda.sep_conv_gru_cuda(kw32, h_nan, mot, ctx).isnan()
+        nan_same["sep_conv_gru"] = bool(out_nan[0, 20, 60].all()
+                                        and not out_nan[0, 40, 10].any())
+        print(f"cli: a NaN operand comes out NaN: {nan_same}")
+        if not all(nan_same.values()):
+            raise AssertionError("a kernel turns a NaN operand into a number")
+        rec["nan_propagates"] = nan_same
+
+        # host time to issue one call: the operator against the wrapper
+        def issue_us(fn, n=200):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            return 1e6 * t / n
+        fw_l = [fw[k] for k in gru_cuda._WEIGHTS]
+        kw_l = [kw32[k] for k in gru_cuda._WEIGHTS]
+        issue = {
+            "corr_lookup_op": issue_us(lambda: ops.corr_lookup(f1, levels, coords, 4)),
+            "corr_lookup_wrapper": issue_us(
+                lambda: corr_cuda.corr_lookup_cuda(f1, levels, coords, 4)),
+            "sep_conv_gru_op": issue_us(
+                lambda: ops.sep_conv_gru(h, mot, *ctx, fw_l, kw_l)),
+            "sep_conv_gru_wrapper": issue_us(
+                lambda: gru_cuda.sep_conv_gru_cuda(kw32, h, mot, ctx))}
+        rec["host_issue_us"] = issue
+        print(f"cli: host microseconds to issue one call: {issue}")
+
+        # the eager requests with the operators and, in turns, with their
+        # dispatch bypassed (the wrappers called as before the operators)
+        cfg_bf = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
+                                 compute_dtype="bfloat16",
+                                 corr_precision="default", pallas_pack=True,
+                                 pallas_p_select="window", pallas_p_blk=1024,
+                                 iters=ITERS)
+        model_bf = init_raft_torch(cfg_bf, generator=torch.Generator().manual_seed(0),
+                                   device=dev)
+        ops_now = (corr_cuda.corr_lookup_op, corr_cuda.corr_window_op,
+                   corr_cuda.corr_packed_op, corr_cuda.corr_ragged_op,
+                   gru_cuda.sep_conv_gru_op)
+        raw = (corr_cuda._lookup_kernel, corr_cuda._window_kernel,
+               corr_cuda._packed_kernel, corr_cuda._ragged_kernel,
+               gru_cuda._gru_kernel)
+
+        def dispatch(bypass: bool) -> None:
+            (corr_cuda.corr_lookup_op, corr_cuda.corr_window_op,
+             corr_cuda.corr_packed_op, corr_cuda.corr_ragged_op,
+             gru_cuda.sep_conv_gru_op) = raw if bypass else ops_now
+
+        def eager_ms(mdl, c):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with torch.no_grad():
+                raft_forward(mdl, t1, t2, c)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+
+        eager = {}
+        try:
+            for key, mdl, c in (("main", model, cfg), ("bf", model_bf, cfg_bf)):
+                for bypass in (False, True):
+                    dispatch(bypass)
+                    eager_ms(mdl, c)
+                runs = {False: [], True: []}
+                for _ in range(8):
+                    for bypass in (False, True):
+                        dispatch(bypass)
+                        runs[bypass].append(eager_ms(mdl, c))
+                eager[key] = {"ops_ms": statistics.median(runs[False]),
+                              "bypass_ms": statistics.median(runs[True]),
+                              "ops_ms_all": runs[False],
+                              "bypass_ms_all": runs[True]}
+        finally:
+            dispatch(False)
+        for key, v in eager.items():
+            print(f"cli: eager {key} request, {ITERS} iters: through the "
+                  f"operators median {v['ops_ms']:.2f} ms, their dispatch "
+                  f"bypassed {v['bypass_ms']:.2f} ms")
+        rec["eager_request"] = eager
+        rec["train_step_ms_median"] = train_step_ms
+
+        # -- 11e. the NaN/Inf sentinel, eager and captured --------------------
+        sick = RAFT(cfg).to(dev).eval()
+        sick.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            sick.fnet.conv1.weight[0, 0, 0, 0] = float("nan")
+        watchdogs.enable_nan_sentinel(True)
+        try:
+            with torch.no_grad():
+                raft_forward(sick, t1, t2, cfg)
+            ev_eager = list(watchdogs.nan_events())
+            fn_on = make_inference_fn(cfg)
+            ev_cap = []
+            for _ in range(2):
+                watchdogs.nan_events().clear()
+                fn_on(sick, im1, im2)
+                ev_cap.append(list(watchdogs.nan_events()))
+            stages = [e["stage"] for e in ev_eager]
+            print(f"cli: sentinel events eager {len(ev_eager)}, first "
+                  f"{ev_eager[:3]}; stages {sorted(set(stages))}; captured "
+                  f"(the capturing call, a replay) equal to eager: "
+                  f"{[ev == ev_eager for ev in ev_cap]}")
+            # the NaN reaches every stage after the encoder: no kernel turns
+            # it into a number
+            if (stages[0] != "raft/fnet" or "raft/fnet" in stages[1:]
+                    or {"raft/corr_lookup", "raft/update"} - set(stages)
+                    or any(ev != ev_eager for ev in ev_cap)):
+                raise AssertionError("the sentinel's events differ")
+            rec["sentinel_events"] = ev_eager[:3]
+            fn_on(model, im1, im2)
+            guards_on = fn_on.graphs.nan_guards()
+        finally:
+            watchdogs.enable_nan_sentinel(False)
+        fn_off = make_inference_fn(cfg)
+        watchdogs.nan_events().clear()
+        fn_off(model, im1, im2)
+        fn_off(model, im1, im2)
+        guards_off = fn_off.graphs.nan_guards()
+        if watchdogs.nan_events() or guards_off:
+            raise AssertionError("the sentinel off recorded events or guards")
+        kern = {"off": _device_kernels(lambda: fn_off(model, im1, im2)),
+                "on": _device_kernels(lambda: fn_on(model, im1, im2))}
+        cap = {"off": [], "on": []}
+        for _ in range(8):
+            for key, fn in (("off", fn_off), ("on", fn_on)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(model, im1, im2)
+                end.record()
+                torch.cuda.synchronize()
+                cap[key].append(start.elapsed_time(end))
+        rec["sentinel"] = {
+            "guards_per_graph": {"off": guards_off, "on": guards_on},
+            "device_kernels_per_request": kern,
+            "captured_ms_median": {k: statistics.median(v) for k, v in cap.items()},
+            "captured_ms_all": cap}
+        print(f"cli: captured f32 main with the sentinel off: "
+              f"{statistics.median(cap['off']):.2f} ms, {guards_off} guards, "
+              f"{kern['off']} device kernels; on: "
+              f"{statistics.median(cap['on']):.2f} ms, {guards_on} guards, "
+              f"{kern['on']} device kernels")
+        del fn_on, fn_off, sick
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 11f. the subprocess: a user's command line -----------------------
+        cmd = [sys.executable, "-m", "raft_tpu_torch.cli", "-m", "test",
+               *flags, "--save-flo", "--load", str(files["params"]),
+               "--out", str(tmp / "sub")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        rec["subprocess_wall_s"] = time.perf_counter() - t0
+        for ln in proc.stdout.splitlines():
+            print(f"cli subprocess: {ln}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        m = re.search(r"first call ([\d.]+)s  steady ([\d.]+) ms", proc.stdout)
+        rec["subprocess_first_call_s"] = float(m.group(1))
+        rec["subprocess_steady_ms"] = float(m.group(2))
+        png = tmp / "sub" / "raft_flow_raft-things.png"
+        sub = read_flo(tmp / "sub" / "raft_flow_raft-things.flo")
+        if not png.is_file():
+            raise AssertionError("the CLI wrote no PNG")
+        rec["subprocess_flo_bitwise"] = bool(np.array_equal(sub, direct))
+        worst, msg = _within("cli subprocess .flo vs the in-process factory",
+                             torch.from_numpy(sub)[None],
+                             torch.from_numpy(direct)[None])
+        rec["subprocess_flo_worst"] = worst
+        print(f"{msg}; bitwise {rec['subprocess_flo_bitwise']}"
+              + ("" if rec["subprocess_flo_bitwise"] else
+                 " (this process runs cuDNN in benchmark mode, the CLI's "
+                 "process with its default algorithms)"))
+        if not worst <= 1.0:
+            raise AssertionError("the CLI subprocess's flow disagrees")
+    finally:
+        for p in cpu_flops.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"cli: phase 11 took {rec['phase_s']:.1f} s")
+    return {"record": rec, "launches": test_launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # cuBLAS's deterministic mode (phase 9.5) needs its workspace fixed
@@ -4325,6 +4817,11 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"data": data}))
 
+    # -- 11. the command line
+    cli_out = cli_phases(dev, smi, train["step_ms_median"])
+    cli_launches = cli_out["launches"]
+    print(json.dumps({"cli": cli_out["record"]}))
+
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall time {wall_s:.1f} s")
     print(json.dumps({"e2e": {"latency_ms_median": med_k, "pairs_per_s": 1e3 / med_k,
@@ -4383,12 +4880,14 @@ def main() -> int:
               "raft_tpu/ops/corr_pallas.py:349",
               launches["corr_lookup"] + launches_s["corr_lookup"]
               + new_launches["f32"].get("corr_lookup", 0)
-              + train_launches["corr_lookup"] + data_launches["corr_lookup"],
+              + train_launches["corr_lookup"] + data_launches["corr_lookup"]
+              + cli_launches["corr_lookup"],
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242",
               launches["sep_conv_gru"] + new_launches["f32"].get("sep_conv_gru", 0)
-              + train_launches["sep_conv_gru"] + data_launches["sep_conv_gru"],
+              + train_launches["sep_conv_gru"] + data_launches["sep_conv_gru"]
+              + cli_launches["sep_conv_gru"],
               gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
         entry("corr_window", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:342", launches_w["corr_window"],

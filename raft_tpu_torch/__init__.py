@@ -13,7 +13,11 @@ CUDA graphs (``models/capture.py``).  It trains them too
 (``training/``, ``python -m raft_tpu_torch.training``): the train-mode
 forward, the kernels' backward as the JAX package defines it, an
 optimizer with optax's semantics and checkpoints in the JAX package's
-format.
+format.  ``python -m raft_tpu_torch.cli`` is the JAX package's command line
+(``-m test`` two frames to a flow PNG, ``export``, ``flops``, ``val``,
+``train``, ``serve``), and ``load_checkpoint_auto`` reads every checkpoint
+format the JAX package reads (torch ``.pth``, the reference's npz, training
+checkpoints, the native npz).
 
     model = init_raft_torch(RAFTConfig.full(), device="cuda")
     cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")
@@ -28,7 +32,8 @@ format.
 
 from .config import (RAFTConfig, adaptive_iters, check_port_support,
                      parse_iters_policy)
-from .convert.weights import from_jax_params, load_params_npz
+from .convert.weights import (from_jax_params, load_checkpoint_auto,
+                              load_params_npz)
 from .data.pipeline import embed_to_shape
 from .models.raft import (RAFT, RAFTOutput, cast_encoder_weights,
                           dequantize_rows, encode_frame, forward_from_features,
@@ -43,7 +48,8 @@ from .models.raft import (RAFT, RAFTOutput, cast_encoder_weights,
 from .ops.warmstart import warm_start_seed
 
 __all__ = ["RAFTConfig", "adaptive_iters", "check_port_support",
-           "parse_iters_policy", "from_jax_params", "load_params_npz",
+           "parse_iters_policy", "from_jax_params", "load_checkpoint_auto",
+           "load_params_npz",
            "embed_to_shape", "RAFT", "RAFTOutput", "cast_encoder_weights",
            "dequantize_rows", "encode_frame", "forward_from_features",
            "init_raft_torch", "make_counted_inference_fn", "make_encode_fn",

@@ -5,8 +5,9 @@
 // Products keep float32 accuracy on the tensor cores by splitting each
 // float32 operand into pieces whose products the tensor cores form exactly:
 //  * 3xTF32 (float32 x float32): hi = tf32(x), lo = tf32(x - hi), both
-//    rounded to nearest with ties away from zero (cvt.rna's rounding, done on
-//    the bits); x*y ~ lo*hi' + hi*lo' + hi*hi' on three m16n8k8 TF32 MMAs.  A
+//    rounded to nearest with ties away from zero (cvt.rna's rounding, done
+//    on the bits for hi and by cvt.rna for lo, which keeps a NaN);
+//    x*y ~ lo*hi' + hi*lo' + hi*hi' on three m16n8k8 TF32 MMAs.  A
 //    product of two tf32 values (11 significant bits each) is exact in the
 //    FP32 accumulator; what is dropped (lo*lo', lo's rounding) is about
 //    2^-22 of |x*y| at worst.
@@ -48,10 +49,15 @@ __device__ __forceinline__ uint32_t tf32_bits(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
+// hi rounded on the bits, lo = x - hi (exact) rounded by the hardware's
+// cvt.rna (the same rounding, its low bits ignored by the MMA), which keeps
+// a NaN: a NaN or infinite x makes x - hi a NaN, so its products stay
+// non-finite.  Rounding lo on the bits, as hi is, would carry CUDA's own
+// NaN (0x7fffffff) into the sign and give -0 (hi is -0 for that NaN too).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_bits(x);
-  lo = tf32_bits(x - __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
 // the three bfloat16 pieces of x, as floats (each exactly a bfloat16)

@@ -85,6 +85,34 @@ def resize_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
                       _linear_taps(img.shape[0], h))
 
 
+def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """[H, W, C] uint8 -> [h, w, C] uint8, ``size = (w, h)``: bitwise
+    ``cv2.resize(img, size)`` (INTER_LINEAR on 8-bit images), which works
+    in fixed point: weights rounded to 11 bits, each row pass exact in
+    int32, the column pass in OpenCV's vector form (16-bit multiply-high of
+    the row sums shifted right by 4, then a rounding shift by 2).  Source
+    rows outside the image are clamped with their weights kept; columns
+    outside it take the edge column at full weight."""
+    w, h = size
+    H, W, _ = img.shape
+    sx, fx = _src_positions(W, w)
+    edge = (sx < 0) | (sx >= W - 1)
+    fx[edge] = 0.0
+    sx = np.clip(sx, 0, W - 1)
+    one = np.float32(2048)
+    a0 = np.rint((np.float32(1) - fx) * one).astype(np.int32)
+    a1 = np.rint(fx * one).astype(np.int32)
+    src = img.astype(np.int32)
+    rows = (src[:, sx] * a0[None, :, None]
+            + src[:, np.minimum(sx + 1, W - 1)] * a1[None, :, None])
+    sy, fy = _src_positions(H, h)
+    b0 = np.rint((np.float32(1) - fy) * one).astype(np.int32)
+    b1 = np.rint(fy * one).astype(np.int32)
+    t0 = ((rows[np.clip(sy, 0, H - 1)] >> 4) * b0[:, None, None]) >> 16
+    t1 = ((rows[np.clip(sy + 1, 0, H - 1)] >> 4) * b1[:, None, None]) >> 16
+    return np.clip((t0 + t1 + 2) >> 2, 0, 255).astype(np.uint8)
+
+
 def resize_cubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """As :func:`resize_linear` with ``cv2.INTER_CUBIC`` (a = -0.75)."""
     w, h = size

@@ -64,6 +64,11 @@ Rules:
   in the order they were captured.
 * **Concurrency.** A graph is not re-entrant: replay one at a time per
   :class:`GraphedForward` (serving's locks are not this module's job).
+* **The NaN/Inf sentinel.** Each capture runs inside a
+  ``telemetry.watchdogs.nan_tally``: with the sentinel on, its guards'
+  counts are static outputs of the graph, reported after every replay
+  (after each iteration's replay for a converge key); a graph captured
+  with it off holds no guard and reports nothing.
 * **Counters.** The kernel wrappers count launches issued from Python, so
   a capture adds two forwards' launches (the warm-up's and the captured
   one's; for a converge key two iterations') and a replay adds none.
@@ -75,6 +80,8 @@ import weakref
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+
+from ..telemetry.watchdogs import nan_tally
 
 
 class _ByAddress:
@@ -145,12 +152,28 @@ def capture(fn: Callable[[], object], pool=None):
     return graph, out
 
 
+def _capture_tallied(fn: Callable[[], object], pool):
+    """:func:`capture` with each run of ``fn`` inside a ``nan_tally``;
+    returns ``(graph, out, tally)``, the tally the captured run filled."""
+    tallies = []
+
+    def run():
+        with nan_tally() as tally:
+            out = fn()
+        tallies.append(tally)
+        return out
+
+    graph, out = capture(run, pool)
+    return graph, out, tallies[-1]
+
+
 class _Entry(NamedTuple):
     graphs: tuple                  # one graph, or a converge key's three
     pointers: Tuple[int, ...]
     inputs: tuple                  # static buffers, or by-address arguments
     outputs: tuple                 # the forward's result
     carry: object = None           # a converge key's loop state
+    tallies: tuple = ()            # each graph's NaN tally
 
 
 class GraphedForward:
@@ -182,6 +205,12 @@ class GraphedForward:
         """Keys held now, over every live model."""
         return sum(len(v) for v in self._graphs.values())
 
+    def nan_guards(self) -> int:
+        """NaN guards captured in the graphs held now (0 when every one
+        was captured with the sentinel off)."""
+        return sum(len(t.entries) for per_model in self._graphs.values()
+                   for entry in per_model.values() for t in entry.tallies)
+
     def __call__(self, model: torch.nn.Module, *args):
         self._check(model)
         args = self._validate(*args)
@@ -197,11 +226,19 @@ class GraphedForward:
             self._load(entry.inputs, args)
         if self._staged is None:
             entry.graphs[0].replay()
+            entry.tallies[0].report()
         else:
             begin, step, end = entry.graphs
+            t_begin, t_step, t_end = entry.tallies
+
+            def one_step():
+                step.replay()
+                t_step.report()
             begin.replay()
-            self.step_replays = self._staged.iterate(entry.carry, step.replay)
+            t_begin.report()
+            self.step_replays = self._staged.iterate(entry.carry, one_step)
             end.replay()
+            t_end.report()
         clones = [None if t is None else t.clone() for t in entry.outputs]
         out = entry.outputs
         return type(out)(*clones) if hasattr(out, "_fields") else tuple(clones)
@@ -227,16 +264,19 @@ class GraphedForward:
         pool, staged = self._pool, self._staged
         with torch.cuda.device(dev):
             if staged is None:
-                graph, out = capture(lambda: self._eager(model, *inputs), pool)
-                graphs, carry = (graph,), None
+                graph, out, tally = _capture_tallied(
+                    lambda: self._eager(model, *inputs), pool)
+                graphs, carry, tallies = (graph,), None, (tally,)
             else:
                 carry = staged.new_carry()
-                begin, _ = capture(lambda: staged.begin(carry, model, *inputs),
-                                   pool)
+                begin, _, t_begin = _capture_tallied(
+                    lambda: staged.begin(carry, model, *inputs), pool)
                 begin.replay()           # the state the iteration's warm-up reads
-                step, _ = capture(lambda: staged.step(carry, model), pool)
-                end, out = capture(lambda: staged.end(carry), pool)
-                graphs = (begin, step, end)
+                step, _, t_step = _capture_tallied(
+                    lambda: staged.step(carry, model), pool)
+                end, out, t_end = _capture_tallied(lambda: staged.end(carry),
+                                                   pool)
+                graphs, tallies = (begin, step, end), (t_begin, t_step, t_end)
         self.captures += 1
         return _Entry(graphs, pointers, tuple(inputs), tuple(out) if not
-                      hasattr(out, "_fields") else out, carry)
+                      hasattr(out, "_fields") else out, carry, tallies)

@@ -93,6 +93,7 @@ from ..ops.corr_cuda import (make_fused_lookup, make_ragged_fused_lookup,
                              make_window_lookup)
 from ..ops.gru_cuda import fuse_gru_weights, prepare_gru_weights
 from ..ops.upsample import convex_upsample_flow, upflow8
+from ..telemetry.watchdogs import nan_guard, nan_tally
 from .capture import BY_ADDRESS, GraphedForward, as_inputs
 from .encoders import BasicEncoder, SmallEncoder
 from .update import (BasicUpdateBlock, SmallUpdateBlock, fuse_conv_gru_weights,
@@ -265,14 +266,15 @@ def encode_pair(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     if generator is not None and config.dropout > 0.0:
         fmaps = channel_dropout(fmaps, config.dropout, generator)
         cnet = channel_dropout(cnet, config.dropout, generator)
+    fmaps = nan_guard(fmaps, "raft/fnet")
     net, inp = split_context(to_nhwc(cnet), config)
     return fmaps[:B], fmaps[B:], net, inp
 
 
 def _encode_frame(model: RAFT, image: torch.Tensor, config: RAFTConfig):
     x = _preprocess(image.float(), compute_dtype(config))
-    return (to_nhwc(_encode(model.fnet, x, config)),
-            to_nhwc(_encode(model.cnet, x, config)))
+    fmap = nan_guard(_encode(model.fnet, x, config), "raft/fnet")
+    return to_nhwc(fmap), to_nhwc(_encode(model.cnet, x, config))
 
 
 @torch.no_grad()
@@ -575,12 +577,13 @@ def _update(model: RAFT, config: RAFTConfig, loop: LoopState,
             net: torch.Tensor, coords1: torch.Tensor):
     """One GRU iteration's new net, flow update (float32 NHWC) and mask."""
     cdt = compute_dtype(config)
-    corr = loop.lookup(coords1).to(cdt)
+    corr = nan_guard(loop.lookup(coords1).to(cdt), "raft/corr_lookup")
     flow = (coords1 - loop.coords0).to(cdt)
     net, mask, delta_flow = model.update_block(
         net, to_nchw(corr), to_nchw(flow), loop.gru_ctx, loop.gru_weights,
         gru_impl=config.gru_impl, gru_kernel_weights=loop.gru_kernel_weights,
         inp=loop.inp)
+    delta_flow = nan_guard(delta_flow, "raft/update")
     return (net, to_nhwc(delta_flow).float(),
             None if mask is None else to_nhwc(mask))
 
@@ -917,8 +920,11 @@ def _factory(config: RAFTConfig, device, entry: Entry):
     def run(model: RAFT, *args):
         check(model)
         args = validate(*args)
-        return forward(model, *as_inputs(args, spec,
-                                         next(model.parameters()).device))
+        with nan_tally() as tally:
+            out = forward(model, *as_inputs(args, spec,
+                                            next(model.parameters()).device))
+        tally.report()
+        return out
     return run
 
 

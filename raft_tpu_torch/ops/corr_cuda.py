@@ -62,8 +62,15 @@ What the TPU's window schedule selects, the f2 row blocks a query block's
 windows touch, is each tile's window box here: the window entries run the
 first lookup's kernel as it is too, and give its values bit for bit.
 
-On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises, never another kernel or the plain version.
+Each kernel is also a PyTorch operator, ``torch.ops.raft_tpu_torch.
+corr_lookup`` / ``corr_window`` / ``corr_packed`` / ``corr_ragged``
+(``torch.library``), which the model calls: its CPU
+implementation is the plain version and its CUDA one launches the kernel
+through the wrapper or raises, never another kernel or the plain version
+(device dispatch, no fallback).  Each has a fake implementation (the
+[B,H,W,L*(2r+1)^2] float32 output), so ``torch.export`` traces it as one
+node, and a FLOP formula, ``2*B*H*W*L*(2r+1)^2*C`` (the windows' dot
+products), which ``torch.utils.flop_counter.FlopCounterMode`` reads.
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .corr import (lookup_blockwise_onehot, lookup_operands,
                    lookup_packed_plain, lookup_ragged_plain,
@@ -300,10 +308,113 @@ def corr_packed_cuda(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
 corr_packed_cuda.launches = 0
 
 
+# -- the kernels as operators ------------------------------------------------
+
+def _lookup_fake(fmap1, f2_levels, radius):
+    B, H, W, _ = fmap1.shape
+    return fmap1.new_empty((B, H, W, len(f2_levels) * (2 * radius + 1) ** 2),
+                           dtype=torch.float32)
+
+
+# the operators' library fragment (ops/gru_cuda.py adds to it): registered
+# with torch.library's low-level API, which costs the host a few
+# microseconds a call (a torch.library.custom_op adds a Python autograd
+# layer to each, some four times that); autograd is _Lookup's
+LIB = torch.library.Library("raft_tpu_torch", "FRAGMENT")
+
+
+def _operator(name: str, schema: str, plain, kernel, radius_at: int = 3):
+    """``torch.ops.raft_tpu_torch.<name>`` (its default overload):
+    ``plain`` on CPU tensors, ``kernel`` on CUDA tensors, the fake output
+    for tracing (argument ``radius_at`` the radius); no other device has an
+    implementation."""
+    LIB.define(name + schema)
+    LIB.impl(name, plain, "CPU")
+    LIB.impl(name, kernel, "CUDA")
+    torch.library.register_fake(
+        f"raft_tpu_torch::{name}",
+        lambda *a: _lookup_fake(a[0], a[1], a[radius_at]), lib=LIB)
+    return getattr(torch.ops.raft_tpu_torch, name).default
+
+
+def _lookup_plain(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
+                  coords: torch.Tensor, radius: int) -> torch.Tensor:
+    return lookup_blockwise_onehot(fmap1, list(f2_levels), coords, radius)
+
+
+def _lookup_kernel(fmap1, f2_levels, coords, radius):
+    return corr_lookup_cuda(fmap1, list(f2_levels), coords, radius)
+
+
+def _window_plain(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
+                  coords: torch.Tensor, radius: int) -> torch.Tensor:
+    return lookup_window_plain(fmap1, list(f2_levels), coords, radius)
+
+
+def _window_kernel(fmap1, f2_levels, coords, radius):
+    return corr_window_cuda(fmap1, list(f2_levels), coords, radius)
+
+
+def _packed_plain(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
+                  coords: torch.Tensor, radius: int,
+                  p_select: str) -> torch.Tensor:
+    return lookup_packed_plain(fmap1, list(f2_levels), coords, radius,
+                               p_select=p_select)
+
+
+def _packed_kernel(fmap1, f2_levels, coords, radius, p_select):
+    return corr_packed_cuda(fmap1, list(f2_levels), coords, radius, p_select)
+
+
+def _ragged_plain(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
+                  coords: torch.Tensor, sizes8: torch.Tensor,
+                  radius: int) -> torch.Tensor:
+    return lookup_ragged_plain(fmap1, list(f2_levels), coords, sizes8, radius)
+
+
+def _ragged_kernel(fmap1, f2_levels, coords, sizes8, radius):
+    return corr_ragged_cuda(fmap1, list(f2_levels), coords, sizes8, radius)
+
+
+_SCHEMA = "(Tensor fmap1, Tensor[] f2_levels, Tensor coords, int radius"
+corr_lookup_op = _operator("corr_lookup", _SCHEMA + ") -> Tensor",
+                           _lookup_plain, _lookup_kernel)
+corr_window_op = _operator("corr_window", _SCHEMA + ") -> Tensor",
+                           _window_plain, _window_kernel)
+corr_packed_op = _operator("corr_packed", _SCHEMA + ", str p_select) -> Tensor",
+                           _packed_plain, _packed_kernel)
+corr_ragged_op = _operator(
+    "corr_ragged", "(Tensor fmap1, Tensor[] f2_levels, Tensor coords, "
+    "Tensor sizes8, int radius) -> Tensor", _ragged_plain, _ragged_kernel,
+    radius_at=4)
+
+
+def lookup_flops(fmap1_shape, f2_shapes, radius: int) -> int:
+    """The windows' dot products of one lookup: ``B*H*W`` queries, ``L``
+    levels, ``(2r+1)^2`` positions, ``C`` channels, 2 FLOPs a
+    multiply-add."""
+    B, H, W, C = fmap1_shape
+    return 2 * B * H * W * len(f2_shapes) * (2 * radius + 1) ** 2 * C
+
+
+@register_flop_formula([torch.ops.raft_tpu_torch.corr_lookup,
+                        torch.ops.raft_tpu_torch.corr_window,
+                        torch.ops.raft_tpu_torch.corr_packed])
+def _lookup_flop(fmap1_shape, f2_shapes, coords_shape, radius, *args,
+                 out_shape=None, **kwargs) -> int:
+    return lookup_flops(fmap1_shape, f2_shapes, radius)
+
+
+@register_flop_formula(torch.ops.raft_tpu_torch.corr_ragged)
+def _ragged_flop(fmap1_shape, f2_shapes, coords_shape, sizes8_shape, radius,
+                 *args, out_shape=None, **kwargs) -> int:
+    return lookup_flops(fmap1_shape, f2_shapes, radius)
+
+
 class _Lookup(torch.autograd.Function):
-    """``plain`` on CPU tensors, ``kernel`` on CUDA tensors, both called as
-    ``fn(fmap1, f2_levels, coords, [sizes8,] radius)``.  The f2 levels are
-    separate arguments so that autograd sees them.
+    """One of the four operators, called as ``op(fmap1, f2_levels, coords,
+    [sizes8,] radius)``.  The f2 levels are separate arguments so that
+    autograd sees them.
 
     The backward is the JAX package's (``_fused_lookup_bwd`` and
     ``_ragged_fused_lookup_bwd``, ``raft_tpu/ops/corr_pallas.py``): the vjp
@@ -321,18 +432,17 @@ class _Lookup(torch.autograd.Function):
     back to bfloat16."""
 
     @staticmethod
-    def forward(ctx, plain, kernel, radius, fmap1, coords, sizes8, *f2_levels):
+    def forward(ctx, op, radius, fmap1, coords, sizes8, *f2_levels):
         ctx.radius = radius
         ctx.save_for_backward(fmap1, coords, *f2_levels)
-        fn = plain if fmap1.device.type == "cpu" else kernel
         extra = () if sizes8 is None else (sizes8,)
-        return fn(fmap1, list(f2_levels), coords, *extra, radius)
+        return op(fmap1, list(f2_levels), coords, *extra, radius)
 
     @staticmethod
     def backward(ctx, grad):
         fmap1, coords, *levels = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        wanted = [needs[3], needs[4]] + list(needs[6:])
+        wanted = [needs[2], needs[3]] + list(needs[5:])
         inputs = [t.detach().float().requires_grad_(w) for t, w in
                   zip([fmap1, coords] + levels, wanted)]
         grads = [None] * len(inputs)
@@ -347,7 +457,7 @@ class _Lookup(torch.autograd.Function):
                 src = ([fmap1, coords] + levels)[i]
                 grads[i] = (torch.zeros_like(src) if g is None
                             else g.to(src.dtype))
-        return (None, None, None, grads[0], grads[1], None, *grads[2:])
+        return (None, None, grads[0], grads[1], None, *grads[2:])
 
 
 def _supported(t: torch.Tensor) -> None:
@@ -357,43 +467,46 @@ def _supported(t: torch.Tensor) -> None:
 
 def fused_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                  coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """The lookup of ``corr_impl='pallas'``: the CUDA kernel on CUDA
-    tensors, the plain version on CPU tensors.  Shapes as
-    :func:`corr_lookup_cuda`; returns [B, H, W, L*(2r+1)^2]."""
+    """The lookup of ``corr_impl='pallas'`` (``raft_tpu_torch::
+    corr_lookup``): the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors.  Shapes as :func:`corr_lookup_cuda`; returns [B, H, W,
+    L*(2r+1)^2]."""
     _supported(fmap1)
-    return _Lookup.apply(lookup_blockwise_onehot, corr_lookup_cuda, radius,
-                         fmap1, coords, None, *f2_levels)
+    return _Lookup.apply(corr_lookup_op, radius, fmap1, coords, None,
+                         *f2_levels)
 
 
 def window_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                   coords: torch.Tensor, radius: int) -> torch.Tensor:
-    """The lookup of ``pallas_p_select='window'``: :func:`corr_window_cuda`
-    on CUDA tensors, :func:`lookup_window_plain` on CPU tensors."""
+    """The lookup of ``pallas_p_select='window'`` (``corr_window``):
+    :func:`corr_window_cuda` on CUDA tensors, :func:`lookup_window_plain`
+    on CPU tensors."""
     _supported(fmap1)
-    return _Lookup.apply(lookup_window_plain, corr_window_cuda, radius,
-                         fmap1, coords, None, *f2_levels)
+    return _Lookup.apply(corr_window_op, radius, fmap1, coords, None,
+                         *f2_levels)
 
 
 def packed_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                   coords: torch.Tensor, radius: int,
                   p_select: str = "all") -> torch.Tensor:
-    """The lookup of ``pallas_pack=True``: :func:`corr_packed_cuda` on
-    CUDA tensors, :func:`lookup_packed_plain` on CPU tensors."""
+    """The lookup of ``pallas_pack=True`` (``corr_packed``):
+    :func:`corr_packed_cuda` on CUDA tensors, :func:`lookup_packed_plain`
+    on CPU tensors."""
     _supported(fmap1)
     return _Lookup.apply(
-        functools.partial(lookup_packed_plain, p_select=p_select),
-        functools.partial(corr_packed_cuda, p_select=p_select), radius,
+        functools.partial(corr_packed_op, p_select=p_select), radius,
         fmap1, coords, None, *f2_levels)
 
 
 def ragged_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                   coords: torch.Tensor, sizes8: torch.Tensor,
                   radius: int) -> torch.Tensor:
-    """The ragged lookup of ``corr_impl='pallas'``: :func:`corr_ragged_cuda`
-    on CUDA tensors, :func:`lookup_ragged_plain` on CPU tensors."""
+    """The ragged lookup of ``corr_impl='pallas'`` (``corr_ragged``):
+    :func:`corr_ragged_cuda` on CUDA tensors, :func:`lookup_ragged_plain`
+    on CPU tensors."""
     _supported(fmap1)
-    return _Lookup.apply(lookup_ragged_plain, corr_ragged_cuda, radius,
-                         fmap1, coords, sizes8, *f2_levels)
+    return _Lookup.apply(corr_ragged_op, radius, fmap1, coords, sizes8,
+                         *f2_levels)
 
 
 def make_fused_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,

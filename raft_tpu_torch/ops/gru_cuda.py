@@ -37,19 +37,28 @@ h1 between the two passes) are float32, so only the final h is rounded.
 On a CPU tensor the wrapper runs the plain version
 (:func:`sep_conv_gru_plain`); on a CUDA tensor it launches the kernel or
 raises.  ``sep_conv_gru_cuda.launches`` counts kernel launches (four per
-call).
+call).  The model reaches both through the operator
+``torch.ops.raft_tpu_torch.sep_conv_gru`` (``torch.library``):
+its CPU implementation is the plain version, its CUDA one the kernel (or a
+raise); its fake implementation gives h's shape and dtype, so
+``torch.export`` traces it as one node; its FLOP formula counts the gate
+convs' products, ``30*hidden*(hidden+motion)`` multiply-adds a pixel at 2
+FLOPs each (:func:`gru_flops`, from the fused weights' shapes).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from .conv import to_nchw, to_nhwc
+from .corr_cuda import LIB
 
 SOURCE = "sep_conv_gru.cu"
 LAUNCHES_PER_CALL = 4
@@ -99,6 +108,17 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def _split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (float32) as the kernels split their activations
+    (``csrc/tensor_core.cuh::split_tf32``): hi = tf32(x), lo = tf32(x - hi);
+    a NaN or infinite x leaves lo a NaN (rounding on the bits would carry
+    CUDA's NaN, 0x7fffffff, into the sign and give -0, as the kernels'
+    cvt.rna does not)."""
+    hi = _tf32(x)
+    rest = x - hi
+    return hi, torch.where(torch.isnan(rest), rest, _tf32(rest))
+
+
 def prepare_gru_weights(fw: Dict[str, torch.Tensor], dtype: torch.dtype
                         ) -> Dict[str, torch.Tensor]:
     """The fused weights of :func:`fuse_gru_weights` as the kernel's entry
@@ -108,7 +128,7 @@ def prepare_gru_weights(fw: Dict[str, torch.Tensor], dtype: torch.dtype
     MMA fragments:
 
     * float32: slabs of 8 channels; (hi[2t], hi[2t+1], lo[2t], lo[2t+1]),
-      hi = tf32(w) and lo = tf32(w - hi) (the 3xTF32 split), float32;
+      the 3xTF32 split of :func:`_split_tf32`, float32;
     * bfloat16: slabs of 16 channels; channels 4t..4t+3, bfloat16.  The
       weights must be bfloat16-exact: bfloat16 weights are by type; float32
       ones are checked on the host (a sync) and raise otherwise.
@@ -122,8 +142,7 @@ def prepare_gru_weights(fw: Dict[str, torch.Tensor], dtype: torch.dtype
         w = src.float()
         taps, cin, n = w.shape
         if dtype == torch.float32:
-            hi = _tf32(w)
-            lo = _tf32(w - hi)
+            hi, lo = _split_tf32(w)
 
             def slabs(x):                                 # [5, S, N, t, 2]
                 return x.reshape(taps, cin // 8, 4, 2, n).permute(0, 1, 4, 2, 3)
@@ -244,26 +263,63 @@ def sep_conv_gru_cuda(kw: Dict[str, torch.Tensor], h: torch.Tensor,
 sep_conv_gru_cuda.launches = 0
 
 
+def _gru_plain(h: torch.Tensor, motion: torch.Tensor, c1: torch.Tensor,
+               c2: torch.Tensor, fw: Sequence[torch.Tensor],
+               kw: Sequence[torch.Tensor]) -> torch.Tensor:
+    return sep_conv_gru_plain(dict(zip(_WEIGHTS, fw)), h, motion, (c1, c2))
+
+
+def _gru_kernel(h, motion, c1, c2, fw, kw):
+    if len(kw) != len(_WEIGHTS):
+        raise ValueError("sep_conv_gru on CUDA tensors needs the kernel's "
+                         "weights: pass kw=prepare_gru_weights(fw, dtype)")
+    return sep_conv_gru_cuda(dict(zip(_WEIGHTS, kw)), h, motion, (c1, c2))
+
+
+LIB.define("sep_conv_gru(Tensor h, Tensor motion, Tensor c1, Tensor c2, "
+           "Tensor[] fw, Tensor[] kw) -> Tensor")
+LIB.impl("sep_conv_gru", _gru_plain, "CPU")
+LIB.impl("sep_conv_gru", _gru_kernel, "CUDA")
+
+
+@torch.library.register_fake("raft_tpu_torch::sep_conv_gru", lib=LIB)
+def _gru_fake(h, motion, c1, c2, fw, kw):
+    return h.new_empty(h.shape)
+
+
+sep_conv_gru_op = torch.ops.raft_tpu_torch.sep_conv_gru.default
+
+
+def gru_flops(h_shape, fw_shapes) -> int:
+    """The gate convs' products of one iteration: per pixel, each fused
+    weight ``[5, Cin, Cout]`` once, 2 FLOPs a multiply-add
+    (``30*hidden*(hidden+motion)`` multiply-adds a pixel)."""
+    B, H, W, _ = h_shape
+    return 2 * B * H * W * sum(math.prod(s) for s in fw_shapes)
+
+
+@register_flop_formula(torch.ops.raft_tpu_torch.sep_conv_gru)
+def _gru_flop(h_shape, motion_shape, c1_shape, c2_shape, fw_shapes,
+              kw_shapes, *args, out_shape=None, **kwargs) -> int:
+    return gru_flops(h_shape, fw_shapes)
+
+
 class _SepConvGRU(torch.autograd.Function):
-    """The kernel on CUDA tensors, :func:`sep_conv_gru_plain` on CPU
-    tensors.  The backward is the JAX package's ``_gru_fused_bwd``
-    (``raft_tpu/ops/gru_pallas.py``): the vjp of the plain version
-    (``sep_conv_gru_xla`` there), recomputed from the saved ``(h, motion,
-    c1, c2, fw)``; the gradient reaches the module's weights through the
-    fused weights ``fw``, so the kernel's prepared weights ``kw`` get
-    none.  Its convolutions run on cuDNN (TF32 held off by the caller
-    under a float32 configuration, ``training/step.py``)."""
+    """The operator ``raft_tpu_torch::sep_conv_gru``: the kernel on CUDA
+    tensors, :func:`sep_conv_gru_plain` on CPU tensors.  The backward is
+    the JAX package's ``_gru_fused_bwd`` (``raft_tpu/ops/gru_pallas.py``):
+    the vjp of the plain version (``sep_conv_gru_xla`` there), recomputed
+    from the saved ``(h, motion, c1, c2, fw)``; the gradient reaches the
+    module's weights through the fused weights ``fw``, so the kernel's
+    prepared weights ``kw`` get none.  Its convolutions run on cuDNN (TF32
+    held off by the caller under a float32 configuration,
+    ``training/step.py``)."""
 
     @staticmethod
     def forward(ctx_, kw, h, motion, c1, c2, *weights):
         ctx_.save_for_backward(h, motion, c1, c2, *weights)
-        if h.device.type == "cpu":
-            return sep_conv_gru_plain(dict(zip(_WEIGHTS, weights)), h, motion,
-                                      (c1, c2))
-        if kw is None:
-            raise ValueError("sep_conv_gru on CUDA tensors needs the kernel's "
-                             "weights: pass kw=prepare_gru_weights(fw, dtype)")
-        return sep_conv_gru_cuda(kw, h, motion, (c1, c2))
+        return sep_conv_gru_op(h, motion, c1, c2, list(weights),
+                               [] if kw is None else [kw[k] for k in _WEIGHTS])
 
     @staticmethod
     def backward(ctx_, grad):

@@ -20,10 +20,27 @@ failure mode is surfaced with **stage provenance** (the innermost
   ``raft_lock_hold_violations_total`` / the ``raft_lock_hold_seconds``
   histogram.
 
-The JAX package's implicit-transfer guard has no torch counterpart, and
-its in-graph NaN sentinel is still to port (ROADMAP item 12); the serving
-stack checks every flow row on the host instead (the non-finite output
-sentinel of ``serving/batcher.py``).
+* **NaN/Inf sentinel** — :func:`nan_guard` at the model's stages
+  (``raft/fnet``, ``raft/corr_lookup``, ``raft/update``, as the JAX
+  package places it) counts a tensor's non-finite elements on the device,
+  ``isnan(x - x).sum()`` (fewer kernels than ``~isfinite(x)``): no
+  ``.item()``, no host sync, so it lives inside a captured CUDA graph.
+  The switch is read when a forward runs eagerly or is captured (JAX
+  reads it at trace time): a graph captured with the sentinel off holds
+  no added node and costs nothing.  Each
+  guard's count is a device scalar collected by the innermost
+  :func:`nan_tally` of the thread; the entry point reads the tally after
+  the call (one sync, only when the sentinel is on) and reports each
+  non-zero count in the order the guards ran, as the JAX package's host
+  callbacks do: a ``{"stage", "bad_values"}`` record in
+  :func:`nan_events`, a ``nonfinite`` run-log event and a warning
+  (:func:`_report_nonfinite`).  A captured graph keeps its guards' counts
+  as static outputs, which every replay rewrites; the graph's owner
+  reports them after each replay.
+
+The JAX package's implicit-transfer guard has no torch counterpart; the
+serving stack also checks every flow row on the host (the non-finite
+output sentinel of ``serving/batcher.py``).
 
 Everything is opt-in (``install``/``enable`` calls or the
 ``RAFT_TPU_WATCHDOGS=1`` / ``RAFT_TPU_LOCK_WATCH=1`` env vars) and free
@@ -32,6 +49,7 @@ when off: ``watched_lock`` hands back a plain ``threading.Lock``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -155,6 +173,122 @@ def hbm_gauges(registry, prefix: str = "raft") -> dict:
             f"{prefix}_hbm_bytes_limit",
             "Device memory capacity (device 0)", fn=limit),
     }
+
+
+# ----------------------------------------------------------- NaN sentinel
+
+_nan_enabled = False
+_nan_suppressed = False
+_nan_events: List[dict] = []
+_nan_run_log = None
+_nan_local = threading.local()
+
+
+def enable_nan_sentinel(on: bool = True, run_log=None) -> None:
+    """Turn the NaN/Inf sentinel on (read when a forward runs eagerly or
+    is captured: graphs captured while it is off carry no guard)."""
+    global _nan_enabled, _nan_run_log
+    _nan_enabled = on
+    _nan_run_log = run_log
+    if on:
+        _nan_events.clear()
+
+
+@contextlib.contextmanager
+def suppress_nan_sentinel():
+    """Forwards run or captured inside the block carry no guard, even
+    when the watchdogs are on."""
+    global _nan_suppressed
+    prev = _nan_suppressed
+    _nan_suppressed = True
+    try:
+        yield
+    finally:
+        _nan_suppressed = prev
+
+
+def nan_sentinel_enabled() -> bool:
+    return not _nan_suppressed and (_nan_enabled or watchdogs_enabled())
+
+
+def nan_events() -> List[dict]:
+    """Records of the non-finite counts reported, oldest first."""
+    return _nan_events
+
+
+def _report_nonfinite(bad_count, stage: str) -> None:
+    n = int(bad_count)
+    if n == 0:
+        return
+    rec = {"stage": stage, "bad_values": n}
+    _nan_events.append(rec)
+    if _nan_run_log is not None:
+        _nan_run_log.event("nonfinite", **rec)
+    _log.warning(f"non-finite values: {n} element(s) in stage "
+                 f"{stage!r}")
+
+
+class NanTally:
+    """The guards one call ran, in order: (stage, device count)."""
+
+    def __init__(self):
+        self.entries: list = []
+
+    def add(self, stage: str, bad) -> None:
+        self.entries.append((stage, bad))
+
+    def counts(self) -> list:
+        """[(stage, count)] read from the device (one sync)."""
+        if not self.entries:
+            return []
+        import torch
+        values = torch.stack([b for _, b in self.entries]).tolist()
+        return [(s, int(n)) for (s, _), n in zip(self.entries, values)]
+
+    def report(self) -> None:
+        for stage, n in self.counts():
+            _report_nonfinite(n, stage)
+
+
+@contextlib.contextmanager
+def nan_tally():
+    """Collect the guards this thread runs inside the block into a new
+    :class:`NanTally` (yielded); the caller reports it when the values
+    exist (after a replay for a captured graph)."""
+    stack = _nan_local.__dict__.setdefault("stack", [])
+    tally = NanTally()
+    stack.append(tally)
+    try:
+        yield tally
+    finally:
+        stack.pop()
+
+
+def nan_guard(x, name: Optional[str] = None):
+    """Identity on ``x``; when the sentinel is on, also counts ``x``'s
+    non-finite elements on the device under stage ``name`` (else the
+    innermost active ``stage()``) into the thread's :func:`nan_tally`.
+    Outside a tally the count is read and reported at once (a host sync,
+    so not allowed inside a capture).  A guard that runs inside autograd's
+    backward (an iteration recomputed under remat) counts nothing: its
+    values are the forward's, counted there."""
+    if not nan_sentinel_enabled():
+        return x
+    import torch
+    if torch._C._current_graph_task_id() != -1:
+        return x
+    stage = name or current_stage() or "<unstaged>"
+    x_ = x.detach()
+    bad = torch.isnan(x_ - x_).sum()    # NaN exactly where x is NaN or +-inf
+    stack = getattr(_nan_local, "stack", None)
+    if stack:
+        stack[-1].add(stage, bad)
+    elif torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"nan_guard({stage!r}) inside a CUDA graph capture "
+                           f"needs a nan_tally() around the capture")
+    else:
+        _report_nonfinite(bad, stage)
+    return x
 
 
 # ------------------------------------------------------ lock-order validator

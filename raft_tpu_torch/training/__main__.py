@@ -25,9 +25,12 @@ processes (``data/mp_loader.py``; shared-memory transport unless
 ``--shm-slots 0``), ``--device-aug`` augments on the card instead
 (workers only decode).  The model is ``RAFTConfig.full(corr_impl='pallas',
 gru_impl='pallas')`` (the CUDA kernels; their plain versions on the CPU)
-or, with ``--small``, raft-small.  ``--load`` takes the native params npz;
-other formats raise (ROADMAP item 14).  ``-m val`` without ``--load``
-evaluates seeded random weights and says so.  A preempted training run
+or, with ``--small``, raft-small.  The flags, the run log and ``--load``
+are the CLI's (``raft_tpu_torch/cli.py``, whose ``-m train`` and ``-m
+val`` run :func:`train_cli` and ``evaluate_cli``): ``--load`` takes torch
+``.pth``, the reference's npz, a training checkpoint or the native npz.
+``-m val`` without ``--load`` evaluates seeded random weights and says
+so.  A preempted training run
 (SIGTERM/SIGINT) writes an emergency checkpoint and exits 17; the same
 command resumes from the newest readable checkpoint in
 ``<--out>/checkpoints``.
@@ -41,11 +44,7 @@ import os
 import sys
 from pathlib import Path
 
-
-def _iters_policy_spec(spec: str) -> str:
-    from ..config import parse_iters_policy
-    parse_iters_policy(spec)
-    return spec
+from .. import cli
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,103 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="RAFT training and evaluation (PyTorch/CUDA port)")
     p.add_argument("-m", "--mode", default="train", choices=["train", "val"],
                    help="train (default) or val: EPE over a dataset")
-    p.add_argument("--dataset", default="synthetic",
-                   choices=["chairs", "things", "sintel", "kitti",
-                            "synthetic"],
-                   help="curriculum stage (its presets) / dataset to "
-                        "evaluate; every stage but synthetic reads --data")
-    p.add_argument("--data", default=None, metavar="ROOT",
-                   help="dataset root directory")
-    p.add_argument("--workers", type=int, default=0,
-                   help="train: decode/augment worker processes (0 = in "
-                        "the prefetch thread)")
-    p.add_argument("--device-aug", action="store_true",
-                   help="train: run the FlowAugmentor recipe on the device "
-                        "(data/augment_device.py); workers only decode "
-                        "(dense-ground-truth stages only)")
-    p.add_argument("--prefetch-depth", type=int, default=2, metavar="N",
-                   help="train: staged device batches buffered ahead of "
-                        "the step")
-    p.add_argument("--shm-slots", type=int, default=None, metavar="N",
-                   help="train, with --workers: shared-memory sample slots "
-                        "(default 2*workers+2; 0 pickles samples through "
-                        "the pipes instead)")
-    p.add_argument("--mp-start", default="forkserver",
-                   choices=["fork", "forkserver", "spawn"],
-                   help="worker start method (default forkserver: safe "
-                        "under the parent's threads)")
-    p.add_argument("--stall-timeout", type=float, default=300.0,
-                   help="replace a worker that holds tasks but delivers "
-                        "nothing for this many seconds; 0 disables")
-    p.add_argument("--worker-respawns", type=int, default=None, metavar="N",
-                   help="train, with --workers: respawns of dead or stalled "
-                        "workers allowed per 2-minute window (default 3; "
-                        "0 = fail fast)")
-    p.add_argument("--split", default=None, choices=["training", "testing"],
-                   help="val, --dataset kitti/sintel: the split (testing "
-                        "has no ground truth and needs --dump-flow)")
-    p.add_argument("--dstype", default=None, choices=["clean", "final"],
-                   help="val, --dataset sintel: the render pass "
-                        "(default clean)")
-    p.add_argument("--bucket", type=int, default=None,
-                   help="val: pad H, W to this multiple (default 8, 64 for "
-                        "kitti)")
-    p.add_argument("--eval-batch", type=int, default=None, metavar="N",
-                   help="val: samples per forward, grouped by padded shape")
-    p.add_argument("--max-samples", type=int, default=None, metavar="N",
-                   help="val: evaluate the first N samples only")
-    p.add_argument("--weighting", default=None, choices=["sample", "pixel"],
-                   help="val: average per-image means (sample; Sintel) or "
-                        "pool valid pixels (pixel; the kitti default)")
-    p.add_argument("--warm-start", action="store_true",
-                   help="val, --dataset sintel: the official video "
-                        "protocol (each frame's flow seeds the next)")
-    p.add_argument("--dump-flow", default=None, metavar="DIR",
-                   help="val: also write every prediction (KITTI 16-bit "
-                        "PNGs for kitti, .flo otherwise)")
-    p.add_argument("--load", default=None,
-                   help="warm-start weights: the native params npz")
-    p.add_argument("--out", default=".", help="output directory")
-    p.add_argument("--small", action="store_true", help="raft-small variant")
-    p.add_argument("--iters", type=int, default=None,
-                   help="GRU iterations (default: 32 full / 12 small)")
-    p.add_argument("--iters-policy", type=_iters_policy_spec, default=None,
-                   metavar="POLICY",
-                   help="'fixed' (default) or 'converge:eps[:min_iters]'")
-    p.add_argument("--batch", type=int, default=None)
-    p.add_argument("--accum", type=int, default=None, metavar="K",
-                   help="gradient accumulation micro-batches per step")
-    p.add_argument("--train-size", type=int, nargs=2, default=None,
-                   metavar=("H", "W"), help="training crop size")
-    p.add_argument("--num-steps", type=int, default=None)
-    p.add_argument("--lr", type=float, default=None)
-    p.add_argument("-o", "--optimizer", default="adamw",
-                   choices=["adam", "adamw", "sgd", "sgd_cyclic",
-                            "sgd_1cycle"])
-    p.add_argument("--freeze-bn", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="batch norm in eval mode (stage default otherwise)")
-    p.add_argument("--ckpt-every", type=int, default=None, metavar="N")
-    p.add_argument("--log-every", type=int, default=None, metavar="N")
-    p.add_argument("--keep-checkpoints", type=int, default=None, metavar="N",
-                   help="retention: keep the newest N checkpoints")
-    p.add_argument("--async-ckpt", dest="async_ckpt", action="store_true",
-                   default=None, help="background checkpoint writer "
-                                      "(default)")
-    p.add_argument("--sync-ckpt", dest="async_ckpt", action="store_false",
-                   help="write checkpoints inline")
-    p.add_argument("--max-rollbacks", type=int, default=None, metavar="N",
-                   help="consecutive divergence rollbacks before giving "
-                        "up (0 disables)")
-    p.add_argument("--chaos-train", default=None, metavar="SPEC",
-                   help="ARM FAULT INJECTION (drills only), e.g. "
-                        "'seed=12,nan_loss=0.15,torn_ckpt=0.5,preempt=6'")
-    p.add_argument("--trace", default=None, metavar="DIR",
-                   help="write a torch.profiler Chrome trace of a step "
-                        "(train) or forward (val) window")
-    p.add_argument("--trace-steps", type=int, default=None, metavar="N")
-    p.add_argument("--cpu", action="store_true",
-                   help="train on the CPU (default: the CUDA device)")
+    cli.add_train_flags(p, dataset_default="synthetic")
+    cli.add_model_flags(p)
+    cli.add_telemetry_flags(p)
     return p
 
 
@@ -195,34 +100,6 @@ def make_train_config(args):
             return None
         overrides["max_rollbacks"] = args.max_rollbacks
     return TrainConfig.for_stage(args.dataset, **overrides)
-
-
-def load_state(path: str):
-    """The ``--load`` weights as a model ``state_dict``."""
-    from ..convert.weights import from_jax_params, load_params_npz
-    try:
-        if not path.endswith(".npz"):
-            raise ValueError("not an .npz file")
-        return from_jax_params(load_params_npz(path))
-    except ValueError as e:
-        raise NotImplementedError(
-            f"--load {path}: only the native params npz loads into the "
-            f"port ({e}); torch .pth, the reference's npz and training "
-            f"checkpoints are ROADMAP item 14") from None
-
-
-def _load_model(args, config):
-    """The model ``-m val`` evaluates: ``--load``'s weights, else seeded
-    random ones, on the device, in eval mode."""
-    from ..models.raft import (RAFT, cast_encoder_weights, compute_dtype,
-                               init_raft_torch, resolve_device)
-    device = resolve_device("cpu" if args.cpu else None)
-    if not args.load:
-        return init_raft_torch(config, device=device)
-    model = RAFT(config)
-    model.load_state_dict(load_state(args.load), strict=True)
-    return cast_encoder_weights(
-        model.to(device, compute_dtype(config)).eval(), config)
 
 
 def make_batches(args, tconfig, device, faults):
@@ -271,18 +148,14 @@ def make_batches(args, tconfig, device, faults):
             loader)
 
 
-def main(argv=None) -> int:
-    from ..models.raft import resolve_device
+def train_cli(args, config) -> int:
+    """``-m train``: the stage preset with the flags' overrides, the
+    batches, the loop; returns the exit code (17 when preempted)."""
     from ..telemetry import events as tlm_events
     from .faults import make_train_injector
     from .loop import train
     from .resilience import PREEMPT_EXIT_CODE, TrainingPreempted
 
-    args = build_parser().parse_args(argv)
-    config = make_config(args)
-    if args.mode == "val":
-        from .evaluate import evaluate_cli
-        return evaluate_cli(args, config, _load_model)
     tconfig = make_train_config(args)
     if tconfig is None:
         return 2
@@ -291,13 +164,14 @@ def main(argv=None) -> int:
         if val is not None and val < (1 if flag == "prefetch_depth" else 0):
             print(f"ERROR: --{flag.replace('_', '-')} out of range: {val}")
             return 2
-    device = resolve_device("cpu" if args.cpu else None)
+    device = cli.device_of(args)
     chaos_spec = args.chaos_train or os.environ.get("RAFT_TPU_CHAOS_TRAIN")
     faults = make_train_injector(chaos_spec, run_log=tlm_events.current())
     if faults is not None:
         print(f"[train] CHAOS ARMED: {chaos_spec}")
     # load before the loader starts, so a bad --load leaks no worker
-    init_state = load_state(args.load) if args.load else None
+    init_state = (cli.load_state_dict(args.load, args.rgb) if args.load
+                  else None)
     batch_iter, loader = make_batches(args, tconfig, device, faults)
     ckpt_dir = str(Path(args.out) / tconfig.ckpt_dir)
     try:
@@ -333,6 +207,19 @@ def main(argv=None) -> int:
                   f"{first['epe']:.3f}  ...  step {last['step']} -> "
                   f"{last['epe']:.3f}  (curve: {metrics_path})")
     return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cli.device_of(args)             # no CUDA and no --cpu: raise, run nothing
+    if args.watchdogs:
+        os.environ["RAFT_TPU_WATCHDOGS"] = "1"
+    config = make_config(args)
+    cli.start_run_log(args, config)
+    if args.mode == "val":
+        from .evaluate import evaluate_cli
+        return evaluate_cli(args, config, cli.load_model)
+    return train_cli(args, config)
 
 
 if __name__ == "__main__":

@@ -30,6 +30,28 @@ def split_bn_state(model: nn.Module) -> Tuple[Dict[str, torch.Tensor],
     return trainable, bn
 
 
+def merge_bn_state(trainable: dict, bn_state: dict) -> dict:
+    """Nested trees (the JAX package's layout: a training checkpoint's
+    ``params/`` and ``bn_state/`` leaves) -> one tree of both, the inverse
+    of the JAX package's ``split_bn_state`` (its ``merge_bn_state``)."""
+    merged: dict = {}
+
+    def walk(t, s, out):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = {}
+                walk(v, s.get(k, {}) if s else {}, out[k])
+            else:
+                out[k] = v
+        if s:
+            for k, v in s.items():
+                if not isinstance(v, dict):
+                    out[k] = v
+
+    walk(trainable, bn_state, merged)
+    return merged
+
+
 @dataclasses.dataclass
 class TrainState:
     """``step`` (a Python int, the optimizer steps taken), ``model`` (its

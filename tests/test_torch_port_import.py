@@ -42,6 +42,10 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch.utils.flow_io, raft_tpu_torch.utils.flow_viz\n"
             "import raft_tpu_torch.utils.frame_utils\n"
             "import raft_tpu_torch.training.evaluate\n"
+            "import raft_tpu_torch.cli, raft_tpu_torch.convert\n"
+            "import raft_tpu_torch.utils.profiling\n"
+            "import raft_tpu_torch.telemetry.watchdogs\n"
+            "assert raft_tpu_torch.cli.build_parser().parse_args([]).mode == 'test'\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -54,7 +58,12 @@ def test_imports_with_jax_and_raft_tpu_blocked():
 def test_sources_import_neither_jax_nor_raft_tpu(path):
     """Nor OpenCV: the card's machine has no cv2 (the warm start's fill
     is scipy's)."""
-    for node in ast.walk(ast.parse(path.read_text())):
+    tree = ast.parse(path.read_text())
+    # a function returning the format name 'native' (convert.detect_format,
+    # as the JAX package names its params npz) names no path
+    returned = {id(n.value) for n in ast.walk(tree)
+                if isinstance(n, ast.Return) and isinstance(n.value, ast.Constant)}
+    for node in ast.walk(tree):
         names = []
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -66,7 +75,8 @@ def test_sources_import_neither_jax_nor_raft_tpu(path):
                                "native"), (path, name)
         if isinstance(node, ast.Constant) and isinstance(node.value, str):
             assert "libraftio" not in node.value, (path, node.value)
-            assert node.value != "native" and not node.value.startswith(
+            assert (node.value != "native" or id(node) in returned) and \
+                not node.value.startswith(
                 ("native/", "native\\")), (path, node.value)
 
 
@@ -82,6 +92,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         from raft_tpu_torch.training.__main__ import main as train_main
         with pytest.raises(RuntimeError, match="CUDA"):
             train_main(["--small", "--iters", "1", "--num-steps", "1"])
+        from raft_tpu_torch.cli import main as cli_main
+        for mode in ("test", "flops", "export", "val", "serve"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli_main(["-m", mode, "--small", "--iters", "1",
+                          "--run-log", "none"])
     model = rt.init_raft_torch(cfg, device="cpu")
     im = np.random.RandomState(0).rand(2, 1, 16, 24, 3).astype(np.float32)
     flow = rt.make_inference_fn(cfg, device="cpu")(model, im[0], im[1])

@@ -4,9 +4,8 @@ retention, a rerun that resumes from the newest checkpoint, and an
 external SIGTERM that finishes the step in flight, writes a readable
 emergency checkpoint and exits 17.  Each
 process is waited for with a timeout and killed if it overruns.  Also:
-the checkpoint formats that are not ported raise, naming their ROADMAP
-item, a file stage without its root raises, and the preemption guard
-gives back the handlers it replaced."""
+a checkpoint that cannot load raises, a file stage without its root
+raises, and the preemption guard gives back the handlers it replaced."""
 
 import json
 import os
@@ -109,12 +108,18 @@ def test_cli_sigterm_exits_17_with_a_readable_checkpoint(tmp_path):
 
 
 def test_unported_stages_and_formats_raise(tmp_path):
-    """The file stages are ported (they need their root), the other
-    checkpoint formats are not (item 14), and flags out of range exit 2."""
+    """The file stages are ported (they need their root), every checkpoint
+    format loads (a missing file raises), a positional training checkpoint
+    raises as in the JAX package, and flags out of range exit 2."""
     with pytest.raises(ValueError, match="--data"):
         main([*ARGS, "--dataset", "chairs", "--out", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main([*ARGS, "--load", "weights.pth", "--out", str(tmp_path)])
+    with pytest.raises(FileNotFoundError):
+        main([*ARGS, "--load", str(tmp_path / "weights.pth"),
+              "--out", str(tmp_path)])
+    old = tmp_path / "old.npz"
+    np.savez(old, leaf_0=np.zeros(2))
+    with pytest.raises(ValueError, match="positional"):
+        main([*ARGS, "--load", str(old), "--out", str(tmp_path)])
     assert main([*ARGS, "--ckpt-every", "0", "--out", str(tmp_path)]) == 2
     assert main([*ARGS, "--workers", "-1", "--out", str(tmp_path)]) == 2
 

@@ -31,8 +31,10 @@ one line per process: ms per call on the device (CUDA events; a kernel
 200 calls after 5 of warm-up, a request or set-up the median of 8 after
 one of warm-up) and, in brackets, the host's ms to issue a call (a device
 time close to it is the host's, not the kernel's); then the kernels and
-copies the device runs for one request of each path (torch.profiler).  Cards differ between
-machines, so only times of one run are compared.
+copies the device runs for one request of each path (torch.profiler).  Last,
+whether each kernel call's output is bitwise the same in the two
+checkouts.  Cards differ between machines, so only times of one run are
+compared.
 """
 
 from __future__ import annotations
@@ -42,11 +44,12 @@ import importlib.util
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 
-def _time_one(root: str, tag: str) -> None:
+def _time_one(root: str, tag: str, outputs: str) -> None:
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -120,34 +123,36 @@ def _time_one(root: str, tag: str) -> None:
         return statistics.median(dev_ms), statistics.median(host_ms)
 
     lookup = corr_cuda.corr_lookup_cuda
-    times = {
-        "corr_lookup": ms(lambda: lookup(f1, levels, coords, r)),
-        "corr_lookup_scattered": ms(lambda: lookup(f1, levels, wild, r)),
-        "corr_lookup_bf16": ms(lambda: lookup(bf1, blevels, coords, r)),
-        "corr_lookup_bf16_scattered": ms(lambda: lookup(bf1, blevels, wild, r)),
-        "corr_window": ms(lambda: corr_cuda.corr_window_cuda(f1, levels, coords, r)),
-        "corr_window_scattered": ms(lambda: corr_cuda.corr_window_cuda(
-            f1, levels, wild, r)),
-        "corr_window_bf16": ms(lambda: corr_cuda.corr_window_cuda(
-            bf1, blevels, coords, r)),
-        "corr_window_bf16_scattered": ms(lambda: corr_cuda.corr_window_cuda(
-            bf1, blevels, wild, r)),
-        "corr_ragged": ms(lambda: corr_cuda.corr_ragged_cuda(
-            rf1, rlevels, rcoords, sizes8, r)),
-        "corr_ragged_scattered": ms(lambda: corr_cuda.corr_ragged_cuda(
-            rf1, rlevels, rwild, sizes8, r)),
-        "corr_ragged_bf16": ms(lambda: corr_cuda.corr_ragged_cuda(
-            rbf1, rblevels, rcoords, sizes8, r)),
-        "corr_packed_all": ms(lambda: corr_cuda.corr_packed_cuda(
-            f1, levels, coords, r, "all")),
-        "corr_packed_all_scattered": ms(lambda: corr_cuda.corr_packed_cuda(
-            f1, levels, wild, r, "all")),
-        "corr_packed_window": ms(lambda: corr_cuda.corr_packed_cuda(
-            f1, levels, coords, r, "window")),
-        "corr_packed_bf16_window": ms(lambda: corr_cuda.corr_packed_cuda(
-            bf1, blevels, coords, r, "window")),
-        "sep_conv_gru": ms(lambda: gru_cuda.sep_conv_gru_cuda(kw, h, mot, ctx)),
-        "sep_conv_gru_bf16": ms(lambda: gru_cuda.sep_conv_gru_cuda(kw_bf, hb, mb, cb))}
+    calls = {
+        "corr_lookup": lambda: lookup(f1, levels, coords, r),
+        "corr_lookup_scattered": lambda: lookup(f1, levels, wild, r),
+        "corr_lookup_bf16": lambda: lookup(bf1, blevels, coords, r),
+        "corr_lookup_bf16_scattered": lambda: lookup(bf1, blevels, wild, r),
+        "corr_window": lambda: corr_cuda.corr_window_cuda(f1, levels, coords, r),
+        "corr_window_scattered": lambda: corr_cuda.corr_window_cuda(
+            f1, levels, wild, r),
+        "corr_window_bf16": lambda: corr_cuda.corr_window_cuda(
+            bf1, blevels, coords, r),
+        "corr_window_bf16_scattered": lambda: corr_cuda.corr_window_cuda(
+            bf1, blevels, wild, r),
+        "corr_ragged": lambda: corr_cuda.corr_ragged_cuda(
+            rf1, rlevels, rcoords, sizes8, r),
+        "corr_ragged_scattered": lambda: corr_cuda.corr_ragged_cuda(
+            rf1, rlevels, rwild, sizes8, r),
+        "corr_ragged_bf16": lambda: corr_cuda.corr_ragged_cuda(
+            rbf1, rblevels, rcoords, sizes8, r),
+        "corr_packed_all": lambda: corr_cuda.corr_packed_cuda(
+            f1, levels, coords, r, "all"),
+        "corr_packed_all_scattered": lambda: corr_cuda.corr_packed_cuda(
+            f1, levels, wild, r, "all"),
+        "corr_packed_window": lambda: corr_cuda.corr_packed_cuda(
+            f1, levels, coords, r, "window"),
+        "corr_packed_bf16_window": lambda: corr_cuda.corr_packed_cuda(
+            bf1, blevels, coords, r, "window"),
+        "sep_conv_gru": lambda: gru_cuda.sep_conv_gru_cuda(kw, h, mot, ctx),
+        "sep_conv_gru_bf16": lambda: gru_cuda.sep_conv_gru_cuda(kw_bf, hb, mb, cb)}
+    np.savez(outputs, **{k: fn().float().cpu().numpy() for k, fn in calls.items()})
+    times = {k: ms(fn) for k, fn in calls.items()}
 
     # whole requests, as chip_smoke.py drives them
     from raft_tpu_torch.models.raft import encode_pair, prepare_loop
@@ -202,7 +207,7 @@ def main() -> int:
     ap.add_argument("change")
     ap.add_argument("--rounds", type=int, default=3,
                     help="pairs of turns: parent, change, change, parent, ...")
-    ap.add_argument("--one", nargs=2, metavar=("ROOT", "TAG"),
+    ap.add_argument("--one", nargs=3, metavar=("ROOT", "TAG", "OUTPUTS"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
@@ -215,9 +220,17 @@ def main() -> int:
     for i in range(args.rounds):
         pair = [("parent", args.parent), ("change", args.change)]
         order += pair if i % 2 == 0 else pair[::-1]
-    for tag, root in order:
-        subprocess.run([sys.executable, __file__, "--one", root, tag,
-                        args.parent, args.change], check=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (tag, root) in enumerate(order):
+            subprocess.run([sys.executable, __file__, "--one", root, tag,
+                            f"{tmp}/{tag}_{i}.npz", args.parent, args.change],
+                           check=True)
+        import numpy as np
+        with np.load(f"{tmp}/parent_0.npz") as a, \
+                np.load(f"{tmp}/change_1.npz") as b:
+            same = {k: bool(np.array_equal(a[k], b[k], equal_nan=True))
+                    for k in a.files}
+    print(f"kernel outputs bitwise equal, parent and change: {same}")
     return 0
 
 
