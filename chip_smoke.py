@@ -224,34 +224,56 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
 9. training (``training_phases``, run right after phase 2, before any
    profiler session): the chairs stage
    (``TrainConfig.for_stage('chairs')``: batch 10, 368x496, AdamW, lr
-   4e-4, weight decay 1e-4, one-cycle, clip 1.0) of
-   ``RAFTConfig.full(corr_impl='pallas', gru_impl='pallas', iters=12)``,
-   ``remat_iters`` on, float32, TF32 off, on C1 weights (6d), fed by the
-   port's synthetic dataset at 368x496 (samples made by 8 threads) through
-   ``PrefetchLoader``: 2 warm-up and 10 timed steps, every loss finite, the
-   launch counters set to 0 before the timed steps and read after
-   (corr_lookup 24 and sep_conv_gru 96 a step: each iteration's forward
-   and its recompute under remat; the backward runs the plain twins' vjp,
-   no kernel), every BN statistic moved; 20 steps on one fixed batch (the
-   chairs lr held constant) lower its loss.  Then, at 3 iterations on the
-   same weights and batch, the gradients of the kernel path against the
-   plain path (``corr_impl='blockwise'``, 'onehot', ``gru_impl='xla'``)
-   under 'all', 'window', ``pallas_pack=True`` and for raft-small (r = 3):
-   each leaf within 3e-2 of its L2 norm, the whole gradient within 1e-2, a
-   bias feeding a normalization (exact gradient 0) below 1e-5 of the
-   largest |g| (tests/torch_train_parity.py says why not elementwise);
-   freeze_bn (statistics bitwise, affines moved); a NaN batch skipped
-   (params, moments, statistics bitwise, notfinite_count + 1); a
-   checkpoint at step k restored into a fresh model and optimizer, step
+   4e-4, weight decay 1e-4, one-cycle, clip 1.0), ``remat_iters`` on, TF32
+   off, on C1 weights (6d) held as float32 masters, fed by the port's
+   synthetic dataset at 368x496 (samples made by 8 threads) through
+   ``PrefetchLoader``, in two configurations: f32 main
+   (``RAFTConfig.full(corr_impl='pallas', gru_impl='pallas', iters=12)``,
+   B1 and B2) and BF (pallas-bf16corr-ctx-gru-winpack under
+   ``compute_dtype='bfloat16'``, B5-bf16 and B2-bf16).  For each: the
+   captured step (``training/capture.py``, what the loop runs on CUDA)
+   first, 2 warm-up calls (the first captures) and 10 timed replays, then
+   the eager step in the same process, 2 + 10 the same way; every loss
+   finite; the launch counters read the capture's two steps (its warm-up
+   and the captured step; a replay counts none) and 12 eager steps
+   (corr_lookup 24 and sep_conv_gru 96 a step in f32, corr_packed 24 and
+   sep_conv_gru 96 in BF, also over one eager BF step alone: each
+   iteration's forward and its recompute under remat; the backward runs
+   the plain twins' vjp, no kernel); every BN statistic moved, the masters
+   float32; ms a step (min-max), samples/s, each side's profiled idle
+   share, peak allocated memory, one capture and the graph pool's MiB;
+   one replay against one eager step from one state and batch,
+   deterministic algorithms on: loss, gradient norm and every parameter,
+   moment and statistic bitwise (else within phase 9's gradient bounds,
+   the reason printed); 20 captured steps on one fixed batch (the chairs
+   lr held constant) lower its loss; freeze_bn (statistics bitwise,
+   affines moved, masters float32) through a captured step; a NaN batch
+   through the captured step skipped (params, moments, statistics
+   bitwise, notfinite_count + 1).  f32 alone: at 3 iterations the
+   gradients of the kernel path against the plain path
+   (``corr_impl='blockwise'``, 'onehot', ``gru_impl='xla'``) under 'all',
+   'window', ``pallas_pack=True`` and for raft-small (r = 3): each leaf
+   within 3e-2 of its L2 norm, the whole gradient within 1e-2, a bias
+   feeding a normalization (exact gradient 0) below 1e-5 of the largest
+   |g| (tests/torch_train_parity.py says why not elementwise); a checkpoint
+   at step k restored into a fresh model and optimizer, the eager step
    k+1 bitwise equal to the uninterrupted one (deterministic algorithms
-   on); ``python -m raft_tpu_torch.training`` (raft-small, 64x96) sent
-   SIGTERM exits 17 with a readable checkpoint, and a rerun resumes it.
-   Times: step ms, samples/s, the forward / backward split, the twins'
-   backward alone per iteration (lookup and GRU, bound: their products at
-   the FP32 rate), the step's peak allocated memory above what was
-   allocated before it, remat on and off, the device idle share of two
-   steps under the profiler, and 3 steps timed again after that profiler
-   window.  Its launches join the kernels' record.
+   on); the forward / backward split, the twins' backward alone per
+   iteration (lookup and GRU, bound: their products at the FP32 rate),
+   the peak with remat off, 3 eager steps after the profiler; B1, B2,
+   B5-bf16 and B2-bf16 each held to its plain version at the training
+   shapes (batch 10, 46x62 at 1/8; 1e-5, the bf16 GRU within 1 bf16 ulp).
+   BF alone: at 3 iterations its bf16 gradients against the plain path's
+   in bf16, each leaf within twice the plain path's own bf16-vs-f32
+   distance (L2); a checkpoint of the captured bf16 run at step k
+   restored into a fresh state, its captured step k+1 bitwise the
+   uninterrupted one.  ``python -m raft_tpu_torch.training`` (raft-small,
+   64x96, the captured step), once in the default float32 and once with
+   ``--dtype bfloat16``, the two side by side, sent SIGTERM exits 17 with
+   a readable checkpoint, and a rerun resumes it.  The captures
+   of the phase equal its keys (no key captured twice); the phase's
+   seconds are printed.  Its launches join the kernels' record
+   (``train_launches`` in each row).
 10. data and evaluation (``data_phases``, right after phase 9): fabricated
    trees in a temporary directory, written with the port's own writers
    from seeded numpy at the datasets' frame sizes (FlyingChairs 24 pairs
@@ -588,12 +610,13 @@ def _metric(text: str, name: str) -> float:
     raise AssertionError(f"/metrics has no {name}")
 
 
-def _graph_pool_mib(fns):
-    """MiB of the CUDA graph memory pools of ``fns`` (the factories'
-    ``GraphedForward``s), summed over their segments in the allocator's
-    snapshot; None when the snapshot does not name segment pools."""
-    pools = {tuple(f.graphs._pool) for f in fns
-             if f.graphs is not None and f.graphs._pool is not None}
+def _graph_pool_mib(graphed):
+    """MiB of the CUDA graph memory pools of ``graphed`` (``GraphedForward``s
+    or None: the factories' graphs, a captured train step), summed over
+    their segments in the allocator's snapshot; None when the snapshot
+    does not name segment pools."""
+    pools = {tuple(g.pool) for g in graphed
+             if g is not None and g.pool is not None}
     segs = torch.cuda.memory_snapshot()
     if not segs or "segment_pool_id" not in segs[0]:
         return None
@@ -801,7 +824,8 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
                                  f"the grid {grid}")
         warm = {"keys": len(grid), "warmup_s": eng.warmup_seconds,
                 "captures": eng.captures(), "graphs": eng.graph_count(),
-                "graph_pool_mib": _graph_pool_mib(eng._factories),
+                "graph_pool_mib": _graph_pool_mib(
+                    f.graphs for f in eng._factories),
                 "reserved_mib": (torch.cuda.memory_reserved() - reserved0)
                 / 2 ** 20, "allocated_before_mib": allocated0}
         print(f"{label}: warmed {len(grid)} keys in {warm['warmup_s']:.2f} s "
@@ -1439,10 +1463,52 @@ def hold_grads(label: str, gk: dict, gp: dict, small: bool,
             "worst_leaf": worst[1], "worst_max_rel": worst_max[0]}
 
 
+def _state_leaves(state) -> list:
+    """A train state's parameters, batch-norm statistics and moments, in a
+    fixed order (what a step updates)."""
+    return (list(state.params) + list(state.bn_state.values())
+            + state.opt_state.mu + state.opt_state.nu)
+
+
+def hold_step(label: str, a, ma: dict, b, mb: dict, before) -> dict:
+    """Two steps from one state (``before``, its leaves): bitwise equal,
+    or else held within phase 9's gradient bounds, each leaf's update
+    (after - before) by its L2 norm and the loss and gradient norm at
+    GRAD_RTOL, with the reason printed."""
+    la, lb = _state_leaves(a), _state_leaves(b)
+    same = [torch.equal(x, y) for x, y in zip(la, lb)]
+    scal = {k: (float(ma[k]), float(mb[k])) for k in ("loss", "grad_norm")}
+    bitwise = all(same) and all(x == y for x, y in scal.values())
+    out = {"bitwise": bitwise, "leaves_differing": len(same) - sum(same),
+           "loss": scal["loss"], "grad_norm": scal["grad_norm"]}
+    if bitwise:
+        print(f"{label}: loss, gradient norm, every parameter, moment and BN "
+              f"statistic bitwise equal")
+        return out
+    worst = 0.0
+    for x, y, z in zip(la, lb, before):
+        n = float((y - z).double().norm())
+        if n > 0:
+            worst = max(worst, float((x - y).double().norm()) / n)
+    rel = {k: abs(x - y) / max(abs(y), 1e-30) for k, (x, y) in scal.items()}
+    out.update(worst_update_rel_l2=worst, scalar_rel=rel)
+    print(f"{label}: NOT bitwise ({out['leaves_differing']} leaves differ): "
+          f"worst leaf update rel L2 {worst:.3e} (bound {LEAF_RTOL:g}), loss "
+          f"and grad norm rel {rel}; the reason: the graph replays the "
+          f"kernels its warm-up chose, the eager step asks cuDNN and cuBLAS "
+          f"again, and an algorithm of other summation order gives other "
+          f"float32 rounding")
+    if worst > LEAF_RTOL or max(rel.values()) > GRAD_RTOL:
+        raise AssertionError(f"{label}: captured and eager steps disagree")
+    return out
+
+
 def training_phases(dev, smi: str, kernels) -> dict:
     """Phase 9: training on the card (the module docstring), returns the
-    ``train`` record and, under ``launches``, the main path's launches."""
+    ``train`` record and, under ``launches``, the main paths' launches by
+    compute dtype."""
     import copy
+    import gc
     import shutil
     import signal
     import tempfile
@@ -1456,31 +1522,71 @@ def training_phases(dev, smi: str, kernels) -> dict:
     from raft_tpu_torch.models.raft import raft_forward
     from raft_tpu_torch.ops import corr_cuda, gru_cuda
     from raft_tpu_torch.ops.coords import coords_grid
-    from raft_tpu_torch.ops.corr import fmap2_pyramid, lookup_blockwise_onehot
+    from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
+                                         lookup_packed_plain)
     from raft_tpu_torch.ops.gru_cuda import fuse_gru_weights, sep_conv_gru_plain
-    from raft_tpu_torch.training import (TrainState, make_optimizer,
-                                         make_train_step, restore_checkpoint,
-                                         save_checkpoint, sequence_loss)
+    from raft_tpu_torch.training import (GraphedTrainStep, TrainState,
+                                         make_optimizer, make_train_step,
+                                         restore_checkpoint, save_checkpoint,
+                                         sequence_loss)
     from raft_tpu_torch.training.checkpoint import (checkpoint_readable,
                                                     list_checkpoints)
     from raft_tpu_torch.training.resilience import PREEMPT_EXIT_CODE
     from raft_tpu_torch.training.step import precision
+    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
+    marks = {}
+
+    def mark(label):
+        """Seconds since the phase began, at the end of each part."""
+        marks[label] = time.perf_counter() - t_phase
+        print(f"train: {label} done at {marks[label]:.1f} s into phase 9")
+
     cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=ITERS)
     cfg_plain = dataclasses.replace(cfg, corr_impl="blockwise",
                                     corr_lookup="onehot", gru_impl="xla")
+    # BF: bench.py::_cfg_for("pallas-bf16corr-ctx-gru-winpack")
+    cfg_bf = dataclasses.replace(
+        cfg, corr_precision="default", pallas_pack=True,
+        pallas_p_select="window", pallas_p_blk=1024, compute_dtype="bfloat16")
+    cfg_bf_plain = dataclasses.replace(cfg_bf, corr_impl="blockwise",
+                                       corr_lookup="onehot", gru_impl="xla")
     tc = TrainConfig.for_stage("chairs")
     assert (tc.batch_size, tuple(tc.image_size)) == (TRAIN_B, TRAIN_HW)
-    corr_k, gru_k = corr_cuda.corr_lookup_cuda, gru_cuda.sep_conv_gru_cuda
-    per_step = {"corr_lookup": 2 * ITERS,            # forward + remat recompute
-                "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}
+    per_step = {"f32": {"corr_lookup": 2 * ITERS,   # forward + remat recompute
+                        "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL},
+                "bf16": {"corr_packed": 2 * ITERS,
+                         "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}}
+    graphs = []                  # every captured train step of the phase
 
     def fresh(config=cfg, seed=0):
+        """C1 weights as float32 masters (under either compute dtype)."""
         m = init_raft_torch(config, generator=torch.Generator().manual_seed(seed),
-                            device=dev)
+                            device=dev, dtype=torch.float32)
         c1_weights(m)
         return m
+
+    def captured(config, tconfig, tx):
+        step = GraphedTrainStep(config, tconfig, tx)
+        graphs.append(step)
+        return step
+
+    def release(*steps):
+        """Drop a captured step's graphs, after checking that no key was
+        captured twice (the phase moves no storage)."""
+        for s in steps:
+            if s.recaptures:
+                raise AssertionError(f"train: {s.recaptures} keys captured "
+                                     f"again")
+            s._graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def expect(label, got, want):
+        others = {k: v for k, v in got.items() if k not in want and v}
+        if any(got.get(k, 0) != v for k, v in want.items()) or others:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
 
     # the synthetic dataset at the stage's shape, samples made by 8 threads
     # (numpy releases the GIL), batched on the host, staged by PrefetchLoader
@@ -1494,78 +1600,251 @@ def training_phases(dev, smi: str, kernels) -> dict:
             i += TRAIN_B
             yield tuple(np.stack([s[j] for s in samples]) for j in range(4))
 
-    # -- 9.1 the chairs stage: 2 warm-up steps, 10 timed ---------------------
-    tx = make_optimizer(tc)
-    state = TrainState.create(fresh(), tx)
-    step_fn = make_train_step(cfg, tc, tx)
-    bn0 = {k: v.clone() for k, v in state.bn_state.items()}
-    loader = PrefetchLoader(host_batches(), dev, buffer_size=2)
-    losses, step_ms, wait_ms = [], [], []
-    try:
-        for i in range(2):
-            state, m = step_fn(state, next(loader), i)
-            losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        mem_base = torch.cuda.memory_allocated(dev)
-        _reset(*kernels)
-        for i in range(TIMED_STEPS):
+    def ev_pair():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def timed(step, state, loader, seed0):
+        """2 warm-up and TIMED_STEPS timed steps from the loader: ms a step
+        (host clock, to the loss's read), the data waits, the losses."""
+        losses, ms, wait = [], [], []
+        for i in range(2 + TIMED_STEPS):
+            if i == 2:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             batch = next(loader)
-            wait_ms.append((time.perf_counter() - t0) * 1e3)
-            state, m = step_fn(state, batch, 2 + i)
-            loss = float(m["loss"])                 # the step's one sync
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(loss)
-        main_launches = _launches(*kernels)
-        peak_remat = torch.cuda.max_memory_allocated(dev) - mem_base
-        fixed = next(loader)
-    finally:
-        loader.close()
-    print(f"train: chairs stage, {TRAIN_B} x {TRAIN_HW[0]}x{TRAIN_HW[1]}, "
-          f"{ITERS} iterations, remat on: losses {[round(x, 3) for x in losses]}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError("train: a non-finite loss")
-    want = {k: v * TIMED_STEPS for k, v in per_step.items()}
-    got = {k: main_launches.get(k, 0) for k in want}
-    others = {k: v for k, v in main_launches.items() if k not in want and v}
-    print(f"train: launches over {TIMED_STEPS} steps {main_launches} (per "
-          f"step: {ITERS} forward + {ITERS} in the remat recompute; the "
-          f"backward runs the twins, no kernel)")
-    if got != want or others:
-        raise AssertionError(f"train launches {main_launches}, want {want}")
-    moved = sum(not torch.equal(bn0[k], v) for k, v in state.bn_state.items())
-    if moved != len(bn0):
-        raise AssertionError(f"train: {len(bn0) - moved} BN statistics "
-                             f"did not move")
+            t1 = time.perf_counter()
+            state, m = step(state, batch, seed0 + i)
+            losses.append(float(m["loss"]))          # the step's one sync
+            if i >= 2:
+                ms.append((time.perf_counter() - t0) * 1e3)
+                wait.append((t1 - t0) * 1e3)
+        return state, losses, ms, wait
 
-    # 20 steps on one fixed batch lower its loss (the chairs lr held
-    # constant: the one-cycle schedule starts 25x lower)
-    tc_fit = dataclasses.replace(tc, schedule="constant")
-    tx_fit = make_optimizer(tc_fit)
-    fit = TrainState.create(fresh(), tx_fit)
-    fit_fn = make_train_step(cfg, tc_fit, tx_fit)
-    fit_losses = []
-    for i in range(FIT_STEPS):
-        fit, m = fit_fn(fit, fixed, 0)
-        fit_losses.append(float(m["loss"]))
-    print(f"train: {FIT_STEPS} steps on one batch (lr {tc_fit.lr:g} constant): "
-          f"loss {fit_losses[0]:.3f} -> {fit_losses[-1]:.3f}")
-    if not fit_losses[-1] < fit_losses[0]:
-        raise AssertionError("train: 20 steps did not lower a fixed batch's loss")
-    del fit, fit_fn
+    def idle(step, state, batch, seed):
+        """The device idle share of one step under the profiler (its
+        window on CUDA events, its kernels' busy time; an eager step's
+        profile takes tens of seconds to read, so one step)."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s0, s1 = ev_pair()
+            s0.record()
+            state, _ = step(state, batch, seed)
+            s1.record()
+            torch.cuda.synchronize()
+        window = s0.elapsed_time(s1)
+        ranges = (corr_cuda.TWIN_STAGE, gru_cuda.TWIN_STAGE)
 
-    # -- 9.2 gradients, kernel path against plain path, 3 iterations --------
-    def grads(config, model, batch, frozen=False):
+        def annotation(e):
+            # a profiler range's span on the device (the twins' ranges):
+            # not a kernel, and it covers the gaps between its kernels
+            return getattr(e, "is_user_annotation", False) or e.key in ranges
+        kern = [k for k in prof.key_averages()
+                if k.device_type == torch.autograd.DeviceType.CUDA
+                and not annotation(k)]
+        busy = sum(k.self_device_time_total for k in kern) / 1e3
+        # the backward twins' kernels' device ms a step, summed over the
+        # kernels each twin's range (on the host) launched: an eager
+        # step's; a replay's kernels belong to no range
+        twins = {r: 0.0 for r in ranges}
+        for e in prof.events():
+            if (e.name in ranges and e.device_type ==
+                    torch.autograd.DeviceType.CPU):
+                twins[e.name] += e.device_time_total / 1e3
+        return (state, (1 - busy / window if busy > 0 else None), window,
+                busy, kern, twins)
+
+    def side(ms, wait, losses, share, window, busy, peak):
+        med = statistics.median(ms)
+        return {"step_ms_median": med, "step_ms_min": min(ms),
+                "step_ms_max": max(ms), "step_ms_all": ms,
+                "samples_per_s": TRAIN_B * 1e3 / med, "idle_share": share,
+                "profiled_window_ms": window, "profiled_busy_ms": busy,
+                "peak_alloc_mib": peak / 2 ** 20, "data_wait_ms_all": wait,
+                "losses": losses}
+
+    def deterministic(on: bool):
+        cudnn = torch.backends.cudnn
+        torch.use_deterministic_algorithms(on, warn_only=True)
+        cudnn.deterministic, cudnn.benchmark = on, not on
+
+    def run_dtype(tag, config):
+        """(a)/(b): the chairs stage through the captured step (2 warm-up
+        replays, the first capturing, then TIMED_STEPS timed), then the
+        eager step in the same process timed the same way; launches,
+        idle shares, peaks, the graph pool; one replay against one eager
+        step from one state and batch, deterministic algorithms on."""
+        tx = make_optimizer(tc)
+        state = TrainState.create(fresh(config), tx)
+        cap = captured(config, tc, tx)
+        bn0 = {k: v.clone() for k, v in state.bn_state.items()}
+        loader = PrefetchLoader(host_batches(), dev, buffer_size=2)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            _reset(*kernels)
+            state, l_c, ms_c, w_c = timed(cap, state, loader, 0)
+            got_c = _launches(*kernels)
+            mark(f"{tag} captured run")
+            peak_c = torch.cuda.max_memory_allocated(dev) - base
+            pool_mib = _graph_pool_mib([cap])
+            captures = cap.captures
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            _reset(*kernels)
+            state, l_e, ms_e, w_e = timed(cap.eager, state, loader, 100)
+            got_e = _launches(*kernels)
+            peak_e = torch.cuda.max_memory_allocated(dev) - base
+            fixed = next(loader)
+            mark(f"{tag} eager run")
+        finally:
+            loader.close()
+        losses = l_c + l_e
+        print(f"train {tag}: chairs stage, {TRAIN_B} x {TRAIN_HW[0]}x"
+              f"{TRAIN_HW[1]}, {ITERS} iterations, remat on: losses "
+              f"{[round(x, 3) for x in losses]}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train {tag}: a non-finite loss")
+        want = per_step[tag]
+        expect(f"train {tag} captured (the capture: its warm-up and the "
+               f"captured step; replays count none)", got_c,
+               {k: 2 * v for k, v in want.items()})
+        expect(f"train {tag} eager, {2 + TIMED_STEPS} steps", got_e,
+               {k: (2 + TIMED_STEPS) * v for k, v in want.items()})
+        print(f"train {tag}: launches, captured run {got_c} (the capture), "
+              f"eager run {got_e}: per step {want} ({ITERS} forward + "
+              f"{ITERS} in the remat recompute; the backward runs the twins, "
+              f"no kernel)")
+        if captures != 1:
+            raise AssertionError(f"train {tag}: {captures} captures for one key")
+        moved = sum(not torch.equal(bn0[k], v) for k, v in state.bn_state.items())
+        if moved != len(bn0):
+            raise AssertionError(f"train {tag}: {len(bn0) - moved} BN "
+                                 f"statistics did not move")
+        if {p.dtype for p in state.params} != {torch.float32}:
+            raise AssertionError(f"train {tag}: the masters are not float32")
+        state, idle_c, win_c, busy_c, kern_c, _ = idle(cap, state, fixed, 50)
+        state, idle_e, win_e, busy_e, kern_e, twins = idle(cap.eager, state,
+                                                           fixed, 60)
+        print(f"train {tag} eager, profiled: the backward twins' device ms a "
+              f"step {twins} (of {busy_e:.1f} ms of kernels a step)")
+        mark(f"{tag} profiles")
+        for name, kern in (("captured", kern_c), ("eager", kern_e)):
+            print(f"train {tag} {name}, profiled: the top device ops a step")
+            for k in sorted(kern, key=lambda k: -k.self_device_time_total)[:6]:
+                print(f"  {k.self_device_time_total / 1e3:8.3f} ms/step "
+                      f"{k.count:6d} launches/step  {k.key[:90]}")
+        # one replay against one eager step, from one state and batch
+        deterministic(True)
+        try:
+            before = [t.clone() for t in _state_leaves(state)]
+            a, b = copy.deepcopy(state), copy.deepcopy(state)
+            a, ma = cap(a, fixed, 7)
+            b, mb = cap.eager(b, fixed, 7)
+            torch.cuda.synchronize()
+        finally:
+            deterministic(False)
+        parity = hold_step(f"train {tag}: one replay vs one eager step "
+                           f"(deterministic algorithms on)", a, ma, b, mb, before)
+        mark(f"{tag} replay vs eager")
+        del a, b, before
+        rec = {"captured": side(ms_c, w_c, l_c, idle_c, win_c, busy_c, peak_c),
+               "eager": side(ms_e, w_e, l_e, idle_e, win_e, busy_e, peak_e),
+               "captures": captures, "graph_pool_mib": pool_mib,
+               "captured_vs_eager": parity, "twins_device_ms_per_step": twins,
+               "launches_per_step": want, "launches": {
+                   k: got_c.get(k, 0) + got_e.get(k, 0) for k in want}}
+        c, e = rec["captured"], rec["eager"]
+        print(f"train {tag}: captured step {c['step_ms_median']:.1f} ms median "
+              f"({c['step_ms_min']:.1f}-{c['step_ms_max']:.1f}), "
+              f"{c['samples_per_s']:.2f} samples/s, idle {idle_c}; eager "
+              f"{e['step_ms_median']:.1f} ({e['step_ms_min']:.1f}-"
+              f"{e['step_ms_max']:.1f}), {e['samples_per_s']:.2f} samples/s, "
+              f"idle {idle_e}; peak {c['peak_alloc_mib']:.0f} MiB captured "
+              f"(the capture, its warm-up and the graph) / "
+              f"{e['peak_alloc_mib']:.0f} eager; {captures} capture, graph "
+              f"pool {pool_mib} MiB; {smi}")
+        return rec, state, cap, fixed
+
+    def fit(tag, config, fixed):
+        """FIT_STEPS captured steps on one fixed batch at the chairs lr
+        held constant (the one-cycle schedule starts 25x lower) lower its
+        loss."""
+        tc_fit = dataclasses.replace(tc, schedule="constant")
+        tx_fit = make_optimizer(tc_fit)
+        st = TrainState.create(fresh(config), tx_fit)
+        step = captured(config, tc_fit, tx_fit)
+        out = []
+        for i in range(FIT_STEPS):
+            st, m = step(st, fixed, 0)
+            out.append(float(m["loss"]))
+        print(f"train {tag}: {FIT_STEPS} captured steps on one batch (lr "
+              f"{tc_fit.lr:g} constant): loss {out[0]:.3f} -> {out[-1]:.3f}")
+        if not (all(np.isfinite(out)) and out[-1] < out[0]):
+            raise AssertionError(f"train {tag}: {FIT_STEPS} steps did not "
+                                 f"lower a fixed batch's loss: {out}")
+        release(step)
+        return out
+
+    def grads(config, model, batch, frozen=False, iters=3):
         mdl = copy.deepcopy(model)
-        with precision(config):
-            out = raft_forward(mdl, batch[0], batch[1], config, iters=3,
+        with precision():
+            out = raft_forward(mdl, batch[0], batch[1], config, iters=iters,
                                train=True, freeze_bn=frozen)
             loss, _ = sequence_loss(out.flow_iters, batch[2], batch[3],
                                     gamma=tc.gamma, max_flow=tc.max_flow)
             g = torch.autograd.grad(loss, list(mdl.parameters()))
         return {n: x for (n, _), x in zip(mdl.named_parameters(), g)}
 
+    def frozen_step(tag, config, fixed):
+        """freeze_bn: the statistics bitwise, the affines moved, the
+        masters float32 (a captured step)."""
+        tc_fz = dataclasses.replace(tc, freeze_bn=True)
+        tx_fz = make_optimizer(tc_fz)
+        fz = TrainState.create(fresh(config), tx_fz)
+        step = captured(config, tc_fz, tx_fz)
+        stats0 = {k: v.clone() for k, v in fz.bn_state.items()}
+        aff0 = {k: v.detach().clone() for k, v in fz.model.named_parameters()
+                if k.startswith("cnet") and ("norm" in k or "downsample.1" in k)}
+        fz, _ = step(fz, fixed, 0)
+        same = all(torch.equal(stats0[k], v) for k, v in fz.bn_state.items())
+        now = dict(fz.model.named_parameters())
+        moved = sum(not torch.equal(v, now[k]) for k, v in aff0.items())
+        f32 = {p.dtype for p in fz.params} == {torch.float32}
+        print(f"train {tag} freeze_bn: statistics bitwise unchanged {same}; "
+              f"{moved}/{len(aff0)} affines moved; masters float32 {f32}")
+        if not same or moved != len(aff0) or not f32:
+            raise AssertionError(f"train {tag} freeze_bn: statistics moved, "
+                                 f"affines did not, or the masters changed dtype")
+        release(step)
+
+    def nan_skipped(tag, step, state, fixed):
+        """A NaN batch through the captured step: params, moments and
+        statistics bitwise, notfinite_count + 1."""
+        snap = ([t.clone() for t in _state_leaves(state)],
+                int(state.opt_state.notfinite_count))
+        nan_batch = (torch.full_like(fixed[0], float("nan")),) + tuple(fixed[1:])
+        state, m = step(state, nan_batch, 99)
+        ok = (all(torch.equal(a, b) for a, b in
+                  zip(snap[0], _state_leaves(state)))
+              and int(state.opt_state.notfinite_count) == snap[1] + 1)
+        print(f"train {tag} NaN batch, captured step: loss {float(m['loss'])}, "
+              f"params, moments and BN statistics bitwise unchanged and "
+              f"notfinite_count +1: {ok}")
+        if not ok:
+            raise AssertionError(f"train {tag}: a non-finite batch changed "
+                                 f"the state")
+        return state
+
+    # -- 9.1 (a) f32 main: captured, then eager ------------------------------
+    rec_f32, state, cap, fixed = run_dtype("f32", cfg)
+    mark("9.1 f32 captured and eager")
+    fit_losses = fit("f32", cfg, fixed)
+    mark("9.1 f32 fit")
+
+    # -- 9.2 gradients, kernel path against plain path, 3 iterations --------
     base = fresh()
     gparity = {}
     for label, over in (("all", {}), ("window", dict(pallas_p_select="window")),
@@ -1584,125 +1863,49 @@ def training_phases(dev, smi: str, kernels) -> dict:
     gparity["small"] = hold_grads("train grads raft-small vs plain", gk,
                                   grads(small_plain, base_small, fixed), True)
     gparity["small"]["launches"] = _launches(*kernels)
-    del base, base_small
+    del base_small
+    mark("9.2 gradient parity")
 
     # -- 9.3 freeze_bn: statistics bitwise, affines move --------------------
-    tc_fz = dataclasses.replace(tc, freeze_bn=True)
-    tx_fz = make_optimizer(tc_fz)
-    fz = TrainState.create(fresh(), tx_fz)
-    stats0 = {k: v.clone() for k, v in fz.bn_state.items()}
-    aff0 = {k: v.detach().clone() for k, v in fz.model.named_parameters()
-            if k.startswith("cnet") and ("norm" in k or "downsample.1" in k)}
-    fz, _ = make_train_step(cfg, tc_fz, tx_fz)(fz, fixed, 0)
-    same = all(torch.equal(stats0[k], v) for k, v in fz.bn_state.items())
-    params_now = dict(fz.model.named_parameters())
-    moved_aff = sum(not torch.equal(v, params_now[k]) for k, v in aff0.items())
-    print(f"train freeze_bn: statistics bitwise unchanged {same}; "
-          f"{moved_aff}/{len(aff0)} affines moved")
-    if not same or moved_aff != len(aff0):
-        raise AssertionError("train freeze_bn: statistics moved or affines did not")
-    del fz
+    frozen_step("f32", cfg, fixed)
+    mark("9.3 freeze_bn")
 
-    # -- 9.4 a NaN batch is skipped ------------------------------------------
-    snap = ([p.detach().clone() for p in state.params],
-            [t.clone() for t in state.opt_state.mu + state.opt_state.nu],
-            {k: v.clone() for k, v in state.bn_state.items()},
-            int(state.opt_state.notfinite_count))
-    nan_batch = (torch.full_like(fixed[0], float("nan")),) + tuple(fixed[1:])
-    state, m = step_fn(state, nan_batch, 99)
-    ok = (all(torch.equal(a, b) for a, b in zip(snap[0], state.params))
-          and all(torch.equal(a, b) for a, b in
-                  zip(snap[1], state.opt_state.mu + state.opt_state.nu))
-          and all(torch.equal(snap[2][k], v) for k, v in state.bn_state.items())
-          and int(state.opt_state.notfinite_count) == snap[3] + 1)
-    print(f"train NaN batch: loss {float(m['loss'])}, params, moments and BN "
-          f"statistics bitwise unchanged and notfinite_count +1: {ok}")
-    if not ok:
-        raise AssertionError("train: a non-finite batch changed the state")
+    # -- 9.4 a NaN batch is skipped by the captured step ---------------------
+    state = nan_skipped("f32", cap, state, fixed)
+    step_fn = cap.eager
 
-    # -- 9.5 checkpoint at step k, restore, step k+1 -------------------------
+    # -- 9.5 checkpoint at step k, restore, step k+1 (eager, deterministic) --
     ckdir = Path(tempfile.mkdtemp(prefix="chip_train_", dir="build"))
     save_checkpoint(ckdir / f"ckpt_{state.step}.npz", state)
     tx_r = make_optimizer(tc)
     restored = restore_checkpoint(ckdir / f"ckpt_{state.step}.npz",
                                   TrainState.create(fresh(seed=5), tx_r))
     step_r = make_train_step(cfg, tc, tx_r)
-    cudnn = torch.backends.cudnn
-    saved = cudnn.deterministic, cudnn.benchmark
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    cudnn.deterministic, cudnn.benchmark = True, False
+    deterministic(True)
     try:
         state, m_a = step_fn(state, fixed, 7)
         restored, m_b = step_r(restored, fixed, 7)
         torch.cuda.synchronize()
     finally:
-        torch.use_deterministic_algorithms(False)
-        cudnn.deterministic, cudnn.benchmark = saved
-    a_leaves = state.params + list(state.bn_state.values()) \
-        + state.opt_state.mu + state.opt_state.nu
-    b_leaves = restored.params + list(restored.bn_state.values()) \
-        + restored.opt_state.mu + restored.opt_state.nu
-    bitwise = all(torch.equal(a, b) for a, b in zip(a_leaves, b_leaves)) \
+        deterministic(False)
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(_state_leaves(state), _state_leaves(restored))) \
         and float(m_a["loss"]) == float(m_b["loss"])
     print(f"train checkpoint: step {restored.step} after a restore of step "
           f"{restored.step - 1} bitwise equal to the uninterrupted step, "
           f"deterministic algorithms on: {bitwise}")
     if not bitwise:
         raise AssertionError("train checkpoint: the resumed step differs")
+    del restored, step_r
+    mark("9.4-9.5 NaN, resume")
 
-    # -- 9.6 preemption: SIGTERM -> exit 17, readable checkpoint, resume -----
-    run_dir = ckdir / "cli"
-    cmd = [sys.executable, "-m", "raft_tpu_torch.training", "--small",
-           "--iters", "2", "--batch", "2", "--train-size", "64", "96",
-           "--num-steps", "1000", "--ckpt-every", "1000", "--log-every", "1",
-           "--out", str(run_dir)]
-    env = dict(os.environ, PYTHONPATH=os.getcwd())
-    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    lines = []
-    try:
-        deadline = time.monotonic() + 180
-        while time.monotonic() < deadline:
-            line = proc.stdout.readline()
-            if not line:
-                break
-            lines.append(line)
-            if "[train] step 2 " in line:
-                proc.send_signal(signal.SIGTERM)
-                break
-        rest, _ = proc.communicate(timeout=120)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    ckpts = list_checkpoints(run_dir / "checkpoints")
-    readable = bool(ckpts) and checkpoint_readable(ckpts[-1][1])
-    print(f"train preemption: exit {proc.returncode}, checkpoints "
-          f"{[s for s, _ in ckpts]}, readable {readable}")
-    if proc.returncode != PREEMPT_EXIT_CODE or not readable:
-        raise AssertionError("train preemption: " + "".join(lines) + rest)
-    resumed = subprocess.run(cmd[:cmd.index("--num-steps") + 1]
-                             + [str(ckpts[-1][0] + 1)]
-                             + cmd[cmd.index("--num-steps") + 2:],
-                             env=env, capture_output=True, text=True,
-                             timeout=300)
-    ok = resumed.returncode == 0 and f"at step {ckpts[-1][0]}" in resumed.stdout
-    print(f"train preemption: the rerun resumed from step {ckpts[-1][0]}: {ok}")
-    if not ok:
-        raise AssertionError("train resume: " + resumed.stdout + resumed.stderr)
-
-    # -- 9.7 numbers ----------------------------------------------------------
-    def ev_pair():
-        return (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-
-    # forward / backward split of one step's gradient (no optimizer)
+    # -- 9.7 numbers (f32, eager): the forward / backward split, the twins ---
     split = {"forward": [], "backward": []}
     mdl = state.model
     params = list(mdl.parameters())
     for _ in range(3):
         (s0, s1), (s2, s3) = ev_pair(), ev_pair()
-        with precision(cfg):
+        with precision():
             s0.record()
             out = raft_forward(mdl, fixed[0], fixed[1], cfg, train=True)
             loss, _ = sequence_loss(out.flow_iters, fixed[2], fixed[3],
@@ -1714,6 +1917,7 @@ def training_phases(dev, smi: str, kernels) -> dict:
         torch.cuda.synchronize()
         split["forward"].append(s0.elapsed_time(s1))
         split["backward"].append(s2.elapsed_time(s3))
+    del out, loss
     fwd_ms = statistics.median(split["forward"])
     bwd_ms = statistics.median(split["backward"])
 
@@ -1745,7 +1949,7 @@ def training_phases(dev, smi: str, kernels) -> dict:
                                                   for s in "12"
                                                   for g in ("convz", "convr",
                                                             "convq")], gh)
-    with precision(cfg):
+    with precision():
         lk_ms = _time_ms(lookup_bwd, 2, 5)
         gr_ms = _time_ms(gru_bwd, 2, 5)
     # bounds: the twins' products at the FP32 rate (TF32 off), recompute +
@@ -1767,8 +1971,42 @@ def training_phases(dev, smi: str, kernels) -> dict:
     print(f"train backward twins per iteration, {TRAIN_B} x {h8}x{w8}: lookup "
           f"{lk_ms:.3f} ms (bound {lk_bound[0]:.3f}, {lk_bound[1]}), GRU "
           f"{gr_ms:.3f} ms (bound {gr_bound[0]:.3f}, {gr_bound[1]})")
+    mark("9.7 split and twins")
 
-    # peak memory with remat off, if it fits
+    # -- 9.8 (d) each kernel of the two paths against its plain version at
+    # the training shapes (batch 10, 46x62 at 1/8)
+    kparity = {}
+    with precision(), torch.no_grad():
+        f1d, lvd = f1.detach(), [x.detach() for x in lv]
+        kparity["corr_lookup"] = _compare(
+            f"train shapes: corr_lookup f32 [{TRAIN_B}, {h8}, {w8}, 256]",
+            corr_cuda.corr_lookup_cuda(f1d, lvd, co, 4),
+            lookup_blockwise_onehot(f1d, lvd, co, 4))
+        f1b = f1d.bfloat16().contiguous()
+        lvb = [x.bfloat16().contiguous() for x in lvd]
+        kparity["corr_packed_bf16"] = _compare(
+            "train shapes: corr_packed bf16 (BF's 'window')",
+            corr_cuda.corr_packed_cuda(f1b, lvb, co, 4, "window"),
+            lookup_packed_plain(f1b, lvb, co, 4, "window"))
+        fw = fuse_gru_weights(gru, 128, 128)
+        hd, md, cd = hg.detach(), mg.detach(), tuple(c.detach() for c in ctxg)
+        kparity["sep_conv_gru"] = _compare(
+            "train shapes: sep_conv_gru f32",
+            gru_cuda.sep_conv_gru_cuda(
+                gru_cuda.prepare_gru_weights(fw, torch.float32), hd, md, cd),
+            sep_conv_gru_plain(fw, hd, md, cd))
+        fw16 = {k: v.bfloat16() for k, v in fw.items()}
+        hb, mb_, cb = hd.bfloat16(), md.bfloat16(), tuple(c.bfloat16() for c in cd)
+        kparity["sep_conv_gru_bf16"] = _compare_ulp(
+            "train shapes: sep_conv_gru bf16 I/O",
+            gru_cuda.sep_conv_gru_cuda(
+                gru_cuda.prepare_gru_weights(fw16, torch.bfloat16), hb, mb_, cb),
+            sep_conv_gru_plain({k: v.float() for k, v in fw16.items()},
+                               hb, mb_, cb))
+    del f1, lv, f1d, lvd, f1b, lvb, co, gout
+    mark("9.8 kernel parity")
+
+    # peak memory with remat off, if it fits (eager)
     cfg_nr = dataclasses.replace(cfg, remat_iters=False)
     tx_nr = make_optimizer(tc)
     nr = TrainState.create(fresh(), tx_nr)
@@ -1783,71 +2021,197 @@ def training_phases(dev, smi: str, kernels) -> dict:
     except torch.cuda.OutOfMemoryError as e:
         nr_note = f"does not fit: {str(e).splitlines()[0]}"
     del nr
-    torch.cuda.empty_cache()
-
-    # the device idle share of two steps under the profiler
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        s0, s1 = ev_pair()
-        s0.record()
-        for i in range(2):
-            state, m = step_fn(state, fixed, 50 + i)
-        s1.record()
-        torch.cuda.synchronize()
-    window = s0.elapsed_time(s1)
-    kern = [k for k in prof.key_averages()
-            if k.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(k.self_device_time_total for k in kern) / 1e3
-    idle_share = 1 - busy / window if busy > 0 else None
-    # the same step timed again once a profiler session has run in the
-    # process (the host's time per launch after it, which phases 7 and 8
-    # would leave to a phase run after them)
+    # the eager step timed again once a profiler session has run in the
+    # process (the host's time per launch after it)
     after_prof = []
     for i in range(3):
         t0 = time.perf_counter()
         state, m = step_fn(state, fixed, 60 + i)
         float(m["loss"])
         after_prof.append((time.perf_counter() - t0) * 1e3)
-    for k in sorted(kern, key=lambda k: -k.self_device_time_total)[:8]:
-        print(f"  {k.self_device_time_total / 2e3:8.3f} ms/step "
-              f"{k.count / 2:6.1f} launches/step  {k.key[:90]}")
+    release(cap)
+    del state, cap, mdl, params, gru, base
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    med = statistics.median(step_ms)
+    # -- 9.9 (b) BF training: captured, then eager ---------------------------
+    rec_bf, sbf, cap_bf, fixed_bf = run_dtype("bf16", cfg_bf)
+    mark("9.9 BF captured and eager")
+    _reset(*kernels)
+    one = copy.deepcopy(sbf)
+    one, _ = cap_bf.eager(one, fixed_bf, 5)
+    got_one = _launches(*kernels)
+    expect("train bf16: one eager step", got_one, per_step["bf16"])
+    print(f"train bf16: one eager step launches {got_one} (B5-bf16 "
+          f"{2 * ITERS}, B2-bf16 {2 * ITERS * gru_cuda.LAUNCHES_PER_CALL})")
+    rec_bf["launches"] = {k: v + got_one.get(k, 0)
+                          for k, v in rec_bf["launches"].items()}
+    del one
+    fit_bf = fit("bf16", cfg_bf, fixed_bf)
+    mark("9.9 BF fit")
+    # the kernel path's bf16 gradients at 3 iterations against the plain
+    # path's, each leaf within twice the plain path's own bf16-vs-f32
+    # distance (L2), as phase 6c holds bf16
+    base = fresh(cfg_bf)
+    g_k16 = grads(cfg_bf, base, fixed_bf)
+    g_p16 = grads(cfg_bf_plain, base, fixed_bf)
+    g_p32 = grads(cfg_plain, base, fixed_bf)
+    worst = (0.0, "")
+    for k, p16 in g_p16.items():
+        d = float((g_k16[k] - p16).double().norm())
+        env = 2 * float((p16 - g_p32[k]).double().norm())
+        r = d / env if env > 0 else (0.0 if d == 0 else float("inf"))
+        if r > worst[0]:
+            worst = (r, k)
+    print(f"train bf16 grads kernel vs plain (bf16), 3 iterations: worst "
+          f"leaf {worst[1]} at {worst[0]:.3f} of twice the plain path's "
+          f"bf16-vs-f32 distance (bound 1)")
+    if worst[0] > 1.0:
+        raise AssertionError("train bf16: the kernel path's gradient leaves "
+                             "the plain path's bf16 envelope")
+    rec_bf["grad_parity"] = {"worst_ratio": worst[0], "worst_leaf": worst[1]}
+    del base, g_k16, g_p16, g_p32
+    frozen_step("bf16", cfg_bf, fixed_bf)
+    mark("9.9 BF gradients and freeze_bn")
+
+    # -- 9.10 (c) a captured bf16 run: NaN skipped, resumed bitwise ----------
+    sbf = nan_skipped("bf16", cap_bf, sbf, fixed_bf)
+    k = sbf.step
+    save_checkpoint(ckdir / f"ckpt_bf16_{k}.npz", sbf)
+    tx_r = make_optimizer(tc)
+    resumed = restore_checkpoint(ckdir / f"ckpt_bf16_{k}.npz",
+                                 TrainState.create(fresh(cfg_bf, seed=5), tx_r))
+    deterministic(True)
+    try:
+        before = [t.clone() for t in _state_leaves(sbf)]
+        a, ma = cap_bf(copy.deepcopy(sbf), fixed_bf, 8)
+        resumed, mr = cap_bf(resumed, fixed_bf, 8)
+        torch.cuda.synchronize()
+    finally:
+        deterministic(False)
+    same = all(torch.equal(x, y) for x, y in
+               zip(_state_leaves(a), _state_leaves(resumed))) and \
+        float(ma["loss"]) == float(mr["loss"])
+    print(f"train bf16 checkpoint: captured step {resumed.step} after a "
+          f"restore of step {k} into a fresh state bitwise equal to the "
+          f"uninterrupted one, deterministic algorithms on: {same}")
+    if not same:
+        raise AssertionError("train bf16 checkpoint: the resumed step differs")
+    rec_bf["resume_bitwise"] = same
+    release(cap_bf)
+    del a, resumed, sbf, cap_bf, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("9.10 BF NaN and resume")
+
+    # -- 9.6 preemption: SIGTERM -> exit 17, readable checkpoint, resume -----
+    # float32 (the default dtype) and bfloat16, the two runs side by side
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+
+    def preempt(dtype):
+        """``python -m raft_tpu_torch.training --small`` in ``dtype`` (float32:
+        the default, no flag): sent SIGTERM after step 2 it exits 17 with a
+        readable checkpoint, and a rerun resumes from that checkpoint;
+        returns what it printed."""
+        run_dir = ckdir / f"cli_{dtype}"
+        cmd = [sys.executable, "-m", "raft_tpu_torch.training", "--small",
+               *([] if dtype == "float32" else ["--dtype", dtype]),
+               "--iters", "2", "--batch", "2", "--train-size", "64", "96",
+               "--num-steps", "1000", "--ckpt-every", "1000",
+               "--log-every", "1", "--out", str(run_dir)]
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines = []
+        try:
+            deadline = time.monotonic() + 180
+            while time.monotonic() < deadline:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line)
+                if "[train] step 2 " in line:
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            rest, _ = proc.communicate(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        ckpts = list_checkpoints(run_dir / "checkpoints")
+        readable = bool(ckpts) and checkpoint_readable(ckpts[-1][1])
+        said = [f"train preemption ({dtype}, captured): exit "
+                f"{proc.returncode}, checkpoints {[s for s, _ in ckpts]}, "
+                f"readable {readable}"]
+        if proc.returncode != PREEMPT_EXIT_CODE or not readable:
+            raise AssertionError(f"train preemption ({dtype}): "
+                                 + "".join(lines) + rest)
+        resumed = subprocess.run(cmd[:cmd.index("--num-steps") + 1]
+                                 + [str(ckpts[-1][0] + 1)]
+                                 + cmd[cmd.index("--num-steps") + 2:],
+                                 env=env, capture_output=True, text=True,
+                                 timeout=300)
+        ok = (resumed.returncode == 0
+              and f"at step {ckpts[-1][0]}" in resumed.stdout)
+        said.append(f"train preemption ({dtype}): the rerun resumed from "
+                    f"step {ckpts[-1][0]}: {ok}")
+        if not ok:
+            raise AssertionError(f"train resume ({dtype}): " + resumed.stdout
+                                 + resumed.stderr)
+        return said
+
+    with ThreadPoolExecutor(2) as ex:
+        runs = [ex.submit(preempt, d) for d in ("float32", "bfloat16")]
+        for run in runs:
+            print("\n".join(run.result()))
+    mark("9.6 preemption")
+
+    captures = sum(s.captures for s in graphs)
+    keys = captures - sum(s.recaptures for s in graphs)
+    print(f"train: {len(graphs)} captured train steps, {captures} captures "
+          f"for {keys} keys (every key captured once)")
+    cf, ce = rec_f32["captured"], rec_f32["eager"]
     rec = {
         "device": smi, "config": "RAFTConfig.full(corr_impl='pallas', "
-        "gru_impl='pallas', iters=12), remat_iters on, float32, TF32 off",
+        "gru_impl='pallas', iters=12), remat_iters on, float32, TF32 off; BF: "
+        "pallas-bf16corr-ctx-gru-winpack, compute_dtype='bfloat16', float32 "
+        "masters",
         "stage": "chairs", "batch": TRAIN_B, "accum_steps": tc.accum_steps,
         "image": list(TRAIN_HW), "data": "synthetic, PrefetchLoader",
-        "step_ms_median": med, "step_ms_min": min(step_ms),
-        "step_ms_max": max(step_ms), "step_ms_all": step_ms,
-        "samples_per_s": TRAIN_B * 1e3 / med,
-        "data_wait_ms_all": wait_ms,
+        "step": "captured (training/capture.py); eager beside it",
+        "step_ms_median": cf["step_ms_median"], "step_ms_min": cf["step_ms_min"],
+        "step_ms_max": cf["step_ms_max"], "step_ms_all": cf["step_ms_all"],
+        "samples_per_s": cf["samples_per_s"],
+        "f32": rec_f32, "bf16": rec_bf,
         "forward_ms": fwd_ms, "backward_ms": bwd_ms,
         "forward_ms_all": split["forward"], "backward_ms_all": split["backward"],
         "lookup_bwd_ms_per_iter": lk_ms, "lookup_bwd_bound_ms": lk_bound[0],
         "lookup_bwd_bound_by": lk_bound[1],
         "gru_bwd_ms_per_iter": gr_ms, "gru_bwd_bound_ms": gr_bound[0],
-        "gru_bwd_bound_by": gr_bound[1],
-        "step_peak_alloc_mib_remat": peak_remat / 2 ** 20,
+        "gru_bwd_bound_by": gr_bound[1], "kernel_parity_max_abs": kparity,
+        "step_peak_alloc_mib_remat": ce["peak_alloc_mib"],
         "step_peak_alloc_mib_no_remat": (None if peak_no_remat is None
                                          else peak_no_remat / 2 ** 20),
-        "no_remat": nr_note, "idle_share": idle_share,
-        "step_ms_after_profiler": after_prof,
-        "profiled_window_ms": window, "profiled_busy_ms": busy,
-        "losses": losses, "fit_losses": fit_losses,
-        "launches_per_step": per_step, "grad_parity": gparity,
-        "phase_s": time.perf_counter() - t_phase,
+        "no_remat": nr_note, "idle_share": cf["idle_share"],
+        "eager_step_ms_after_profiler": after_prof,
+        "fit_losses": {"f32": fit_losses, "bf16": fit_bf},
+        "grad_parity": gparity,
+        "captures": captures, "graph_keys": keys, "phase_marks_s": marks,
     }
-    print(f"train: step {med:.1f} ms median ({min(step_ms):.1f}-"
-          f"{max(step_ms):.1f}), {rec['samples_per_s']:.2f} samples/s, "
-          f"forward {fwd_ms:.1f} / backward {bwd_ms:.1f} ms, the step's peak "
-          f"{rec['step_peak_alloc_mib_remat']:.0f} MiB remat on, "
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"train: f32 captured {cf['step_ms_median']:.1f} ms "
+          f"({cf['step_ms_min']:.1f}-{cf['step_ms_max']:.1f}) / eager "
+          f"{ce['step_ms_median']:.1f} ({ce['step_ms_min']:.1f}-"
+          f"{ce['step_ms_max']:.1f}); BF captured "
+          f"{rec_bf['captured']['step_ms_median']:.1f} / eager "
+          f"{rec_bf['eager']['step_ms_median']:.1f} ms; forward "
+          f"{fwd_ms:.1f} / backward {bwd_ms:.1f} ms (f32 eager); peak "
+          f"{ce['peak_alloc_mib']:.0f} MiB remat on, "
           f"{'%.0f MiB' % rec['step_peak_alloc_mib_no_remat'] if peak_no_remat else nr_note}"
-          f" off, idle {idle_share}, after the profiler "
-          f"{[round(x, 1) for x in after_prof]} ms; {smi}")
+          f" off; eager after the profiler {[round(x, 1) for x in after_prof]} "
+          f"ms; phase 9 {rec['phase_s']:.1f} s; {smi}")
     pool.shutdown(wait=True)
     shutil.rmtree(ckdir, ignore_errors=True)
-    rec["launches"] = main_launches
+    rec["launches"] = {"f32": rec_f32["launches"], "bf16": rec_bf["launches"]}
     return rec
 
 
@@ -4869,10 +5233,15 @@ def main() -> int:
                               "wall_s": wall_s}}))
 
     def entry(name, source, replaces, runs, err, ms, plain_ms, bound, by):
+        # train_launches: phase 9's share of launches (its captures and
+        # eager steps, f32 main and BF)
+        dtype_key = "bf16" if name.endswith("_bf16") else "f32"
+        trained = train_launches[dtype_key].get(name.replace("_bf16", ""), 0)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": runs, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": by, "library_ms": None}
+                "bound_by": by, "library_ms": None,
+                "train_launches": trained}
 
     print(f"device: {smi}")
     print(json.dumps({"kernels": [
@@ -4880,13 +5249,13 @@ def main() -> int:
               "raft_tpu/ops/corr_pallas.py:349",
               launches["corr_lookup"] + launches_s["corr_lookup"]
               + new_launches["f32"].get("corr_lookup", 0)
-              + train_launches["corr_lookup"] + data_launches["corr_lookup"]
+              + train_launches["f32"]["corr_lookup"] + data_launches["corr_lookup"]
               + cli_launches["corr_lookup"],
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242",
               launches["sep_conv_gru"] + new_launches["f32"].get("sep_conv_gru", 0)
-              + train_launches["sep_conv_gru"] + data_launches["sep_conv_gru"]
+              + train_launches["f32"]["sep_conv_gru"] + data_launches["sep_conv_gru"]
               + cli_launches["sep_conv_gru"],
               gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
         entry("corr_window", "raft_tpu_torch/csrc/corr_lookup.cu",
@@ -4908,13 +5277,15 @@ def main() -> int:
              ("corr_window", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:342",
               launches_bfw["corr_window"]),
              ("corr_packed", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:125",
-              launches_bf["corr_packed"] + new_launches["bf16"].get("corr_packed", 0)),
+              launches_bf["corr_packed"] + new_launches["bf16"].get("corr_packed", 0)
+              + train_launches["bf16"]["corr_packed"]),
              ("corr_ragged", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:604",
               launches_rbf["corr_ragged"] + new_launches["bf16"].get("corr_ragged", 0)),
              ("sep_conv_gru", "sep_conv_gru.cu", "raft_tpu/ops/gru_pallas.py:242",
               launches_bf["sep_conv_gru"] + launches_bfc["sep_conv_gru"]
               + launches_bfw["sep_conv_gru"] + launches_rbf["sep_conv_gru"]
-              + new_launches["bf16"].get("sep_conv_gru", 0)))]}))
+              + new_launches["bf16"].get("sep_conv_gru", 0)
+              + train_launches["bf16"]["sep_conv_gru"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -92,6 +92,14 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
                    help="run on the CPU (default: the CUDA device)")
 
 
+def add_dtype_flag(p: argparse.ArgumentParser) -> None:
+    """``--dtype``: the compute dtype (training keeps float32 masters)."""
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype (default float32; the JAX CLI picks "
+                        "bfloat16 only on a TPU)")
+
+
 def add_config_flags(p: argparse.ArgumentParser) -> None:
     """The inference configuration's knobs."""
     p.add_argument("--corr-impl", default="dense",
@@ -99,10 +107,7 @@ def add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="correlation: 'pallas' runs the CUDA lookup kernels")
     p.add_argument("--corr-lookup", default=None, choices=["gather", "onehot"],
                    help="window-lookup formulation (default onehot)")
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "bfloat16"],
-                   help="compute dtype (default float32; the JAX CLI picks "
-                        "bfloat16 only on a TPU)")
+    add_dtype_flag(p)
     p.add_argument("--ctx-hoist", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="precompute the GRU gate convs' context terms "

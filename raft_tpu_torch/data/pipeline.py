@@ -199,7 +199,11 @@ class PrefetchLoader:
     a side stream; the consumer gets the device tensors once its current
     stream waits on the copy's event (and the tensors are marked as used
     on that stream), so the step that reads a batch is ordered after its
-    copy, while the next batch's copy overlaps it.  On the CPU the arrays
+    copy, while the next batch's copy overlaps it.  A captured train step
+    (``training/capture.py``) copies the batch into its static buffers on
+    that stream, after the wait; the staged tensors, once the caller drops
+    them, return to the allocator only after the stream has passed that
+    copy and the replay issued after it.  On the CPU the arrays
     are copied into fresh tensors (the collation buffers are reused).
 
     ``augment_fn(batch, generator) -> batch`` runs on each staged batch

@@ -134,17 +134,21 @@ def _key(args, spec) -> tuple:
     return tuple(key)
 
 
-def capture(fn: Callable[[], object], pool=None):
+def capture(fn: Callable[[], object], pool=None, after_warmup=None):
     """Run ``fn()`` once eagerly on a side stream, then capture one call
     into a new ``torch.cuda.CUDAGraph`` drawing on ``pool`` (None: a pool of
     its own).  Returns ``(graph, out)``, ``out`` the static outputs a
-    replay writes.  The capture raises on a host sync or any other call
-    not allowed in a capture."""
+    replay writes.  ``after_warmup()``, if given, runs on the side stream
+    right after the warm-up (a train step puts back the state its warm-up
+    updated).  The capture raises on a host sync or any other call not
+    allowed in a capture."""
     main = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(main)
     with torch.cuda.stream(side):
         fn()
+        if after_warmup is not None:
+            after_warmup()
     main.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
@@ -152,9 +156,10 @@ def capture(fn: Callable[[], object], pool=None):
     return graph, out
 
 
-def _capture_tallied(fn: Callable[[], object], pool):
-    """:func:`capture` with each run of ``fn`` inside a ``nan_tally``;
-    returns ``(graph, out, tally)``, the tally the captured run filled."""
+def capture_tallied(fn: Callable[[], object], pool, **kwargs):
+    """:func:`capture` (``kwargs`` passed on) with each run of ``fn``
+    inside a ``nan_tally``; returns ``(graph, out, tally)``, the tally the
+    captured run filled."""
     tallies = []
 
     def run():
@@ -163,7 +168,7 @@ def _capture_tallied(fn: Callable[[], object], pool):
         tallies.append(tally)
         return out
 
-    graph, out = capture(run, pool)
+    graph, out = capture(run, pool, **kwargs)
     return graph, out, tallies[-1]
 
 
@@ -171,7 +176,7 @@ class _Entry(NamedTuple):
     graphs: tuple                  # one graph, or a converge key's three
     pointers: Tuple[int, ...]
     inputs: tuple                  # static buffers, or by-address arguments
-    outputs: tuple                 # the forward's result
+    outputs: tuple                 # the forward's result (or a dict)
     carry: object = None           # a converge key's loop state
     tallies: tuple = ()            # each graph's NaN tally
 
@@ -180,25 +185,41 @@ class GraphedForward:
     """``forward(model, *args)`` as graph replays.
 
     ``eager(model, *args)`` is the eager forward on device tensors,
-    returning a tuple of tensors (a ``RAFTOutput``, or a stream step's);
-    ``check(model)`` validates the model (device, dtype) before every
-    call; ``validate(*args)`` checks the caller's arguments (arrays or
-    tensors) and returns them normalized, raising before any copy;
-    ``spec`` gives per argument its dtype on the device (None: its own) or
-    ``BY_ADDRESS``.  ``staged``, for a converge policy, is the forward's
-    three parts (``raft.Forward``: ``new_carry``, ``begin``, ``step``,
-    ``end``, ``iterate``), captured as three graphs."""
+    returning a tuple of tensors (a ``RAFTOutput``, or a stream step's) or
+    a dict of them; ``check(model)`` validates the model (device, dtype)
+    before every call; ``validate(*args)`` checks the caller's arguments
+    (arrays or tensors) and returns them normalized, raising before any
+    copy; ``spec`` gives per argument its dtype on the device (None: its
+    own) or ``BY_ADDRESS``.  ``staged``, for a converge policy, is the
+    forward's three parts (``raft.Forward``: ``new_carry``, ``begin``,
+    ``step``, ``end``, ``iterate``), captured as three graphs.
+
+    ``model`` may be any object that holds a module (a train state):
+    ``module_of(model)`` gives the module the graphs are keyed on and whose
+    device they run on, ``pointers(model)`` the addresses a graph reads in
+    place (default: the module's weights, :func:`weight_pointers`), and
+    ``put_back(model)``, if given, is called before each capture and
+    returns a function run right after the warm-up (a train step puts
+    back the state its warm-up updated).  ``pool`` is the graphs' memory
+    pool (None before the first capture); ``recaptures`` counts the
+    captures that replaced a held key's graph (its storage had moved)."""
 
     def __init__(self, eager: Callable, check: Callable, spec: tuple,
-                 validate: Callable, staged=None):
+                 validate: Callable, staged=None,
+                 module_of: Callable = lambda model: model,
+                 pointers: Callable = None, put_back: Callable = None):
         self._eager = eager
         self._check = check
         self._spec = spec
         self._validate = validate
         self._staged = staged
+        self._module_of = module_of
+        self._pointers = pointers or (lambda m: weight_pointers(module_of(m)))
+        self._put_back = put_back
         self._graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-        self._pool = None
+        self.pool = None
         self.captures = 0          # keys captured so far
+        self.recaptures = 0        # of them, captures of a key whose storage moved
         self.step_replays = 0      # a converge key: iteration replays, last call
 
     def graph_count(self) -> int:
@@ -211,15 +232,21 @@ class GraphedForward:
         return sum(len(t.entries) for per_model in self._graphs.values()
                    for entry in per_model.values() for t in entry.tallies)
 
-    def __call__(self, model: torch.nn.Module, *args):
+    def entries(self, model) -> list:
+        """The entries held for ``model``'s module, one per key."""
+        return list(self._graphs.get(self._module_of(model), {}).values())
+
+    def __call__(self, model, *args):
         self._check(model)
         args = self._validate(*args)
         key = _key(args, self._spec)
-        per_model = self._graphs.setdefault(model, {})
+        per_model = self._graphs.setdefault(self._module_of(model), {})
         entry = per_model.get(key)
-        pointers = weight_pointers(model)
+        pointers = self._pointers(model)
         if entry is None or entry.pointers != pointers:
-            per_model.pop(key, None)     # a stale graph goes before capturing
+            if entry is not None:
+                self.recaptures += 1
+                del per_model[key]       # a stale graph goes before capturing
             entry = self._capture(model, pointers, args)
             per_model[key] = entry
         else:
@@ -239,8 +266,10 @@ class GraphedForward:
             self.step_replays = self._staged.iterate(entry.carry, one_step)
             end.replay()
             t_end.report()
-        clones = [None if t is None else t.clone() for t in entry.outputs]
         out = entry.outputs
+        if isinstance(out, dict):
+            return {k: v.clone() for k, v in out.items()}
+        clones = [None if t is None else t.clone() for t in out]
         return type(out)(*clones) if hasattr(out, "_fields") else tuple(clones)
 
     def _load(self, inputs, args) -> None:
@@ -249,7 +278,7 @@ class GraphedForward:
                 buf.copy_(torch.as_tensor(arg, dtype=buf.dtype))
 
     def _capture(self, model, pointers, args) -> _Entry:
-        dev = next(model.parameters()).device
+        dev = next(self._module_of(model).parameters()).device
         inputs = []
         for arg, dtype in zip(args, self._spec):
             if dtype is BY_ADDRESS:
@@ -259,24 +288,27 @@ class GraphedForward:
                 inputs.append(torch.empty(tuple(arg.shape), dtype=t.dtype,
                                           device=dev))
         self._load(inputs, args)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        pool, staged = self._pool, self._staged
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        pool, staged = self.pool, self._staged
         with torch.cuda.device(dev):
             if staged is None:
-                graph, out, tally = _capture_tallied(
-                    lambda: self._eager(model, *inputs), pool)
+                kwargs = ({} if self._put_back is None else
+                          {"after_warmup": self._put_back(model)})
+                graph, out, tally = capture_tallied(
+                    lambda: self._eager(model, *inputs), pool, **kwargs)
                 graphs, carry, tallies = (graph,), None, (tally,)
             else:
                 carry = staged.new_carry()
-                begin, _, t_begin = _capture_tallied(
+                begin, _, t_begin = capture_tallied(
                     lambda: staged.begin(carry, model, *inputs), pool)
                 begin.replay()           # the state the iteration's warm-up reads
-                step, _, t_step = _capture_tallied(
+                step, _, t_step = capture_tallied(
                     lambda: staged.step(carry, model), pool)
-                end, out, t_end = _capture_tallied(lambda: staged.end(carry),
+                end, out, t_end = capture_tallied(lambda: staged.end(carry),
                                                    pool)
                 graphs, tallies = (begin, step, end), (t_begin, t_step, t_end)
         self.captures += 1
-        return _Entry(graphs, pointers, tuple(inputs), tuple(out) if not
-                      hasattr(out, "_fields") else out, carry, tallies)
+        return _Entry(graphs, pointers, tuple(inputs), out if isinstance(
+            out, dict) or hasattr(out, "_fields") else tuple(out), carry,
+            tallies)

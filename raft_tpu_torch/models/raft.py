@@ -52,10 +52,12 @@ frozen; ``iters_used`` counts each sample's live iterations.  Rows marked
 inactive (``active``, a slot-padded batch) start frozen and count 0.
 
 ``compute_dtype='bfloat16'`` follows the JAX package's policy: the images
-are cast after ``2x - 1``; the model's weights must already be bfloat16
-(:func:`init_raft_torch` makes them so; a model loaded from float32
-weights is cast once with ``model.to(torch.bfloat16)``), so no request
-casts a parameter; encoders, motion encoder, GRU I/O and heads run in
+are cast after ``2x - 1``; for inference the model's weights must already
+be bfloat16 (:func:`init_raft_torch` makes them so; a model loaded from
+float32 weights is cast once with ``model.to(torch.bfloat16)``), so no
+request casts a parameter; the training forward takes float32 master
+weights and casts them once per call (:class:`MasterCast`, the JAX
+package's ``_cast_params``); encoders, motion encoder, GRU I/O and heads run in
 bfloat16; the correlation is computed from float32 maps (bfloat16-rounded
 operands under ``corr_precision='default'``) and cast to bfloat16; the
 coordinates and the upsampling stay float32.  ``quant='bf16w'`` stores the
@@ -144,13 +146,14 @@ def compute_dtype(config: RAFTConfig) -> torch.dtype:
 
 def init_raft_torch(config: RAFTConfig,
                     generator: Optional[torch.Generator] = None,
-                    device=None) -> RAFT:
+                    device=None, dtype: Optional[torch.dtype] = None) -> RAFT:
     """A RAFT module with seeded random weights (Kaiming fan-out normal
     convs, zero biases, identity batch-norm statistics), in eval mode on
-    ``device``, in ``config.compute_dtype``.  Weights are drawn in float32
-    on the CPU from ``generator`` (default: seed 0), so one seed gives the
-    same weights on every device; under ``compute_dtype='bfloat16'`` every
-    parameter and buffer is then rounded to bfloat16, once."""
+    ``device``, in ``dtype`` (default: ``config.compute_dtype``; training
+    passes ``torch.float32``, its master weights under either compute
+    dtype).  Weights are drawn in float32 on the CPU from ``generator``
+    (default: seed 0), so one seed gives the same weights on every device;
+    in bfloat16 every parameter and buffer is then rounded, once."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -158,7 +161,7 @@ def init_raft_torch(config: RAFTConfig,
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             init_conv_(m, generator)
-    return model.to(dev, compute_dtype(config)).eval()
+    return model.to(dev, dtype or compute_dtype(config)).eval()
 
 
 def _preprocess(image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -195,9 +198,22 @@ def check_sizes(sizes: torch.Tensor, B: int) -> torch.Tensor:
     return sizes.to(torch.int32)
 
 
-def _check_model_dtype(model: RAFT, config: RAFTConfig) -> None:
+def _check_model_dtype(model: RAFT, config: RAFTConfig,
+                       train: bool = False) -> None:
     """Every weight in the compute dtype; under ``quant='bf16w'`` the
-    encoders' may also be stored bfloat16 (:func:`cast_encoder_weights`)."""
+    encoders' may also be stored bfloat16 (:func:`cast_encoder_weights`).
+    A training forward takes float32 master weights under either compute
+    dtype: a bfloat16 model cannot be a master."""
+    if train:
+        dtypes = {t.dtype for t in model.parameters()} | {
+            t.dtype for t in model.buffers()}
+        if dtypes != {torch.float32}:
+            raise ValueError(
+                f"training needs float32 master weights (compute_dtype="
+                f"{config.compute_dtype!r} casts them in each forward), the "
+                f"model holds {sorted(map(str, dtypes))}: build it with "
+                f"init_raft_torch(config, dtype=torch.float32)")
+        return
     want = compute_dtype(config)
     stored = {want, torch.bfloat16} if config.quant_weights else {want}
     for name, allowed in (("fnet", stored), ("cnet", stored),
@@ -233,39 +249,52 @@ def split_context(cnet: torch.Tensor, config: RAFTConfig):
     return net, to_nchw(torch.relu(cnet[..., hid:]).contiguous())
 
 
+def draw_dropout_masks(config: RAFTConfig, batch: int,
+                       generator: torch.Generator
+                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The keep masks of a training forward's channel dropout, drawn on the
+    CPU from ``generator`` (so one seed gives one mask on every device):
+    fnet's [2B, fnet_dim, 1, 1] first, then cnet's [B, cnet_dim, 1, 1],
+    bool; None at ``config.dropout = 0``, where nothing is drawn.  JAX
+    draws its masks from its own PRNG, so the two packages agree only at
+    ``dropout = 0``."""
+    if config.dropout <= 0.0:
+        return None
+    keep = 1.0 - config.dropout
+    return tuple(torch.rand((n, c, 1, 1), generator=generator) < keep
+                 for n, c in ((2 * batch, config.fnet_dim),
+                              (batch, config.cnet_dim)))
+
+
 def channel_dropout(y: torch.Tensor, rate: float,
-                    generator: torch.Generator) -> torch.Tensor:
+                    mask: torch.Tensor) -> torch.Tensor:
     """Channel dropout of an encoder's NCHW output (``nn.Dropout2d``, as
-    the JAX package's ``apply_encoder`` applies it in training): whole
-    channels of each sample are zeroed with probability ``rate``, the rest
-    divided by ``1 - rate``.  The keep mask is drawn on the CPU from
-    ``generator`` (so one seed gives one mask on every device) and moved
-    to ``y``'s device.  JAX draws its mask from its own PRNG, so the two
-    packages agree only at ``rate = 0``, where nothing is drawn."""
+    the JAX package's ``apply_encoder`` applies it in training): the
+    channels of each sample where the keep ``mask`` [N, C, 1, 1]
+    (:func:`draw_dropout_masks`) is False are zeroed, the rest divided by
+    ``1 - rate``."""
     keep = 1.0 - rate
-    mask = torch.rand((y.shape[0], y.shape[1], 1, 1),
-                      generator=generator) < keep
     mask = mask.to(y.device)
     return torch.where(mask, y, torch.zeros((), dtype=y.dtype,
                                             device=y.device)) / keep
 
 
 def encode_pair(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
-                config: RAFTConfig, generator: Optional[torch.Generator] = None):
+                config: RAFTConfig, masks=None):
     """The encoders: one fnet pass over both frames (batch 2B), one cnet
     pass over frame 1, in ``config.compute_dtype``.  Returns fmap1, fmap2,
-    inp (NCHW) and the initial net [B, h, w, hidden] (NHWC).  With a
-    ``generator`` and ``config.dropout > 0`` (training), each encoder's
-    output takes :func:`channel_dropout`, fnet's mask drawn first."""
+    inp (NCHW) and the initial net [B, h, w, hidden] (NHWC).  With
+    ``masks`` (training, :func:`draw_dropout_masks`), each encoder's output
+    takes :func:`channel_dropout`."""
     B = image1.shape[0]
     cdt = compute_dtype(config)
     x1 = _preprocess(image1.float(), cdt)
     x2 = _preprocess(image2.float(), cdt)
     fmaps = _encode(model.fnet, torch.cat([x1, x2], dim=0), config)
     cnet = _encode(model.cnet, x1, config)
-    if generator is not None and config.dropout > 0.0:
-        fmaps = channel_dropout(fmaps, config.dropout, generator)
-        cnet = channel_dropout(cnet, config.dropout, generator)
+    if masks is not None:
+        fmaps = channel_dropout(fmaps, config.dropout, masks[0])
+        cnet = channel_dropout(cnet, config.dropout, masks[1])
     fmaps = nan_guard(fmaps, "raft/fnet")
     net, inp = split_context(to_nhwc(cnet), config)
     return fmaps[:B], fmaps[B:], net, inp
@@ -306,7 +335,7 @@ class Core(NamedTuple):
 
 def _pair_core(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
                config: RAFTConfig, flow_init=None, sizes=None,
-               generator=None) -> Core:
+               masks=None) -> Core:
     """The encoders of a pairwise request; a ragged batch's images are
     masked to zero outside the crops first, so each item's flow depends
     only on its crop."""
@@ -316,7 +345,7 @@ def _pair_core(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
         image2 = mask_ragged_rows(image2, sizes)
         sizes8 = sizes // 8
     fmap1, fmap2, net, inp = encode_pair(model, image1, image2, config,
-                                         generator)
+                                         masks)
     return Core(fmap1, fmap2, net, inp, flow_init, None, sizes8)
 
 
@@ -334,8 +363,7 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
                  all_flows: Optional[bool] = None,
                  flow_init: Optional[torch.Tensor] = None,
                  sizes: Optional[torch.Tensor] = None, train: bool = False,
-                 freeze_bn: bool = False,
-                 generator: Optional[torch.Generator] = None) -> RAFTOutput:
+                 freeze_bn: bool = False, dropout_masks=None) -> RAFTOutput:
     """RAFT on the device of the inputs, the JAX package's ``raft_forward``.
     image1/image2 [B, H, W, 3] float32 in [0, 1], H and W multiples of 8;
     ``flow_init`` [B, H/8, W/8, 2] or None.  ``config`` selects the paths
@@ -354,21 +382,26 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     context encoder's batch norm in training mode (its running statistics
     updated in place) unless ``freeze_bn`` (running statistics used and
     left untouched, the affine parameters still trained), channel dropout
-    at ``config.dropout`` drawn from ``generator`` (see
-    :func:`channel_dropout`), and under ``config.remat_iters`` each
+    at ``config.dropout`` by ``dropout_masks`` (:func:`draw_dropout_masks`,
+    drawn on the host; None: no dropout; see :func:`channel_dropout`), and
+    under ``config.remat_iters`` each
     iteration recomputed in the backward (``torch.utils.checkpoint``).  The
     loop set-up (the lookup's pyramid, the hoisted context terms, the fused
     GRU weights) is built inside this call, with autograd on, so the
     gradient reaches the encoders and every gate conv through it; nothing
-    is cached across calls.  Under ``compute_dtype='bfloat16'`` it raises
-    (ROADMAP item 7b)."""
+    is cached across calls.
+
+    The training forward takes float32 master weights under either compute
+    dtype.  Under ``compute_dtype='bfloat16'`` it casts every parameter to
+    bfloat16 once (:class:`MasterCast`, the JAX package's
+    ``_cast_params``), runs the bfloat16 forward on the casts, and the
+    gradient reaches the masters through the cast; the batch-norm
+    statistics stay float32 buffers (:class:`~raft_tpu_torch.ops.norm.
+    BatchNorm` reads them rounded to bfloat16 and writes the update back
+    in float32, or under ``freeze_bn`` leaves them untouched)."""
     all_flows = train if all_flows is None else all_flows
     check_port_support(config)
-    if train and config.compute_dtype != "float32":
-        raise NotImplementedError(
-            "training under compute_dtype='bfloat16' needs float32 master "
-            "weights under a bfloat16 forward: ROADMAP item 7b")
-    _check_model_dtype(model, config)
+    _check_model_dtype(model, config, train)
     B = check_images(image1, image2)[0]
     if sizes is not None:
         sizes = check_sizes(torch.as_tensor(sizes, device=image1.device), B)
@@ -378,10 +411,51 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
             core = _pair_core(model, image1, image2, config, flow_init, sizes)
             return _iterate_flow(model, *core[:4], config, iters, all_flows,
                                  flow_init, core.sizes8)
-    with bn_training(model, not freeze_bn):
-        core = _pair_core(model, image1, image2, config, flow_init, sizes,
-                          generator)
-    return _train_iterations(model, core, config, iters, all_flows)
+    cast = MasterCast(model, config)
+
+    def forward():
+        with bn_training(model, not freeze_bn):
+            core = _pair_core(model, image1, image2, config, flow_init, sizes,
+                              dropout_masks)
+        return _train_iterations(model, core, config, iters, all_flows, cast)
+    return cast(forward)
+
+
+class _Call(nn.Module):
+    """A module whose forward calls ``fn(*args)``: the frame in which
+    ``torch.func.functional_call`` swaps ``model``'s tensors for the span
+    of a whole training forward (``RAFT`` has no forward of its own)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.m = model
+
+    def forward(self, fn, *args):
+        return fn(*args)
+
+
+class MasterCast:
+    """The float32 master parameters of ``model`` as the compute dtype's
+    copies, cast once per training forward (the JAX package's
+    ``_cast_params``; the casts are differentiable, so the gradient reaches
+    the masters).  ``cast(fn, *args)`` runs ``fn(*args)`` with the casts
+    in place of ``model``'s parameters (``torch.func.functional_call``).
+    Under ``remat_iters`` each iteration calls it again, so its recompute
+    in the backward, which runs after the forward has returned, reads the
+    same casts.  Under float32 compute it casts nothing and calls ``fn``
+    directly."""
+
+    def __init__(self, model: RAFT, config: RAFTConfig):
+        self.model = model
+        cdt = compute_dtype(config)
+        self.tensors = None if cdt == torch.float32 else {
+            "m." + n: p.to(cdt) for n, p in model.named_parameters()}
+
+    def __call__(self, fn, *args):
+        if self.tensors is None:
+            return fn(*args)
+        return torch.func.functional_call(_Call(self.model), self.tensors,
+                                          (fn,) + args)
 
 
 @contextlib.contextmanager
@@ -402,7 +476,8 @@ def bn_training(model: nn.Module, on: bool):
 
 
 def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
-                      iters: int, all_flows: bool) -> RAFTOutput:
+                      iters: int, all_flows: bool,
+                      cast: MasterCast) -> RAFTOutput:
     """The recurrent core of the training forward (``train=True`` of the
     JAX package's ``_iterate_flow``): ``coords1`` detached at the top of
     each iteration (JAX's ``stop_gradient``), each iteration's upsampled
@@ -412,7 +487,9 @@ def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
     recomputed in the backward, so the kernels launch again there, once
     per iteration (the CUDA lookup once, the GRU kernel's four launches),
     and a training step counts twice an eager forward's launches; their
-    gradients are the plain twins' vjps, which launch no kernel.  A
+    gradients are the plain twins' vjps, which launch no kernel.  Each
+    iteration runs under ``cast`` (the bfloat16 casts of the masters), so
+    its recompute reads what its forward read.  A
     ``converge:*`` policy runs masked over all ``iters`` iterations (the
     differentiable form of JAX's masked scan): a frozen row keeps its net,
     coords and mask."""
@@ -449,12 +526,12 @@ def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
 
     net, flows = core.net, []
     for i in range(iters):
-        args = (i, net, coords1, mask, converged, nused)
+        args = (step, i, net, coords1, mask, converged, nused)
         if config.remat_iters:
             out = torch.utils.checkpoint.checkpoint(
-                step, *args, use_reentrant=False, preserve_rng_state=False)
+                cast, *args, use_reentrant=False, preserve_rng_state=False)
         else:
-            out = step(*args)
+            out = cast(*args)
         net, coords1, mask, converged, nused, flow = out
         if all_flows:
             flows.append(flow)

@@ -82,11 +82,15 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from ..telemetry.trace import stage
 from .corr import (lookup_blockwise_onehot, lookup_operands,
                    lookup_packed_plain, lookup_ragged_plain,
                    lookup_window_plain, corr_scale)
 
 SOURCE = "corr_lookup.cu"
+# the profiler range of the backward twin (what a profile of a training
+# step reads its device time by)
+TWIN_STAGE = "corr/lookup_twin_bwd"
 MAX_LEVELS = 8
 MAX_RADIUS = 15
 MAX_CHANNELS = 512
@@ -424,12 +428,24 @@ class _Lookup(torch.autograd.Function):
     'window', packed or ragged: one vjp, as JAX's ``fused_lookup`` carries
     one whatever its ``p_select`` and ``pack_rows``); ``sizes8`` gets no
     gradient.  Its products are plain matrix products (cuBLAS on CUDA):
-    under a float32 configuration the caller holds TF32 off across the
-    backward too (``training/step.py``), since the switches are
+    the train step holds TF32 off across the backward too
+    (``training/step.py::precision``), since the switches are
     process-wide and the backward runs after the forward's context has
-    exited.  bfloat16 operands (``corr_precision='default'``) are upcast
-    to float32 in the twin, as in its forward, and their gradients cast
-    back to bfloat16."""
+    exited.
+
+    bfloat16 operands (``corr_precision='default'``): the JAX package's
+    backward is the vjp at ``precision=corr_precision`` of products that
+    take ``preferred_element_type=float32``; run on the CPU, its jaxpr
+    multiplies the float32 cotangent by the bfloat16 operand into float32
+    (a mixed-dtype product) and converts the result to the operand's
+    dtype.  This backward computes the same: the operands are upcast
+    (exactly) to float32, the products run in float32 with the float32
+    cotangent, and the gradients of fmap1 and of the levels come back
+    bfloat16, the coordinates' float32 (``tests/test_torch_port_train_
+    bf16.py`` holds each within one bfloat16 ulp of JAX's).  On a TPU,
+    JAX's 'default' precision would round the float32 cotangent to
+    bfloat16 in the matrix unit; the port keeps it float32 (ROADMAP,
+    "Deviations by design")."""
 
     @staticmethod
     def forward(ctx, op, radius, fmap1, coords, sizes8, *f2_levels):
@@ -448,7 +464,7 @@ class _Lookup(torch.autograd.Function):
         grads = [None] * len(inputs)
         live = [i for i, w in enumerate(wanted) if w]
         if live:
-            with torch.enable_grad():
+            with torch.enable_grad(), stage(TWIN_STAGE):
                 out = lookup_blockwise_onehot(inputs[0], inputs[2:], inputs[1],
                                               ctx.radius)
                 got = torch.autograd.grad(out, [inputs[i] for i in live],

@@ -58,10 +58,14 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from .conv import to_nchw, to_nhwc
+from ..telemetry.trace import stage
 from .corr_cuda import LIB
 
 SOURCE = "sep_conv_gru.cu"
 LAUNCHES_PER_CALL = 4
+# the profiler range of the backward twin (what a profile of a training
+# step reads its device time by)
+TWIN_STAGE = "gru/twin_bwd"
 _WEIGHTS = ("wzr1", "wqh1", "wqm1", "wzr2", "wqh2", "wqm2")
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -311,9 +315,14 @@ class _SepConvGRU(torch.autograd.Function):
     the vjp of the plain version (``sep_conv_gru_xla`` there), recomputed
     from the saved ``(h, motion, c1, c2, fw)``; the gradient reaches the
     module's weights through the fused weights ``fw``, so the kernel's
-    prepared weights ``kw`` get none.  Its convolutions run on cuDNN (TF32
-    held off by the caller under a float32 configuration,
-    ``training/step.py``)."""
+    prepared weights ``kw`` get none.  Its convolutions run on cuDNN in
+    float32 (TF32 held off by the train step, ``training/step.py``).  At
+    bfloat16 I/O it keeps the dtypes of JAX's ``_gru_fused_bwd``: the
+    fused weights ride float32 (``fuse_gru_weights`` upcasts the bfloat16
+    casts of a bfloat16 training forward, and their gradient goes back
+    through that cast to bfloat16), h, motion and the context terms are
+    upcast once, everything is differentiated in float32, and their
+    gradients come back bfloat16 (tests/test_torch_port_train_bf16.py)."""
 
     @staticmethod
     def forward(ctx_, kw, h, motion, c1, c2, *weights):
@@ -329,7 +338,7 @@ class _SepConvGRU(torch.autograd.Function):
         grads = [None] * len(inputs)
         live = [i for i, w in enumerate(wanted) if w]
         if live:
-            with torch.enable_grad():
+            with torch.enable_grad(), stage(TWIN_STAGE):
                 h, motion, c1, c2, *weights = inputs
                 out = sep_conv_gru_plain(dict(zip(_WEIGHTS, weights)), h,
                                          motion, (c1, c2))

@@ -6,15 +6,19 @@ eps 1e-5 and the JAX package's formula ``(x - mean) * rsqrt(var + eps)``.
 On bfloat16 tensors the eval-mode norms run in bfloat16 as the JAX
 package's do: instance-norm statistics are accumulated in float32 and
 rounded to bfloat16 (as ``jnp.mean`` / ``jnp.var`` return them), then
-applied in bfloat16; batch norm takes the module's (bfloat16) running
-statistics.
+applied in bfloat16; batch norm takes the module's running statistics
+rounded to bfloat16 (bfloat16 already in a bfloat16 model; float32 master
+buffers under a bfloat16 training forward, as the JAX package casts its
+whole tree).
 
 Training-mode batch norm (:class:`BatchNorm` with ``batch_stats`` set,
 which ``models/raft.py::bn_training`` does for a training forward, whatever
 ``nn.Module.train()`` says) is the JAX package's ``batch_norm(train=True)``: it normalizes with the batch's
 biased variance, computed as ``E[x^2] - mean^2`` (not two-pass), and moves
 the running statistics by momentum 0.1 towards the batch mean and the
-**unbiased** variance ``var * n / (n - 1)``.  That is not
+**unbiased** variance ``var * n / (n - 1)`` (in the JAX package's types:
+the mean's update in the activations' dtype, the variance's in float32,
+written back to the buffers, float32 masters under bfloat16 training).  That is not
 ``nn.BatchNorm2d``'s update, whose defaults are close; the port holds
 JAX's formula.  In eval mode (``freeze_bn``) the running statistics are
 used and left untouched, and the affine parameters still get gradients.
@@ -22,6 +26,7 @@ used and left untouched, and the affine parameters still get gradients.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -49,7 +54,9 @@ def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, eps: float = EPS):
     """Training-mode batch norm of NCHW ``x``: returns the output and the
-    batch statistics ``(mean, var_unbiased)`` [C] for the running update."""
+    batch statistics ``(mean, var_unbiased)`` [C] for the running update,
+    the mean in ``x``'s dtype and the unbiased variance in float32 (the
+    JAX package's types: its biased variance times a float32 ratio)."""
     def c(t):
         return t[None, :, None, None]
     n = x.shape[0] * x.shape[2] * x.shape[3]
@@ -57,10 +64,10 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
     mean2 = torch.square(x).mean(dim=(0, 2, 3))
     var = mean2 - torch.square(mean)
     out = (x - c(mean)) * torch.rsqrt(c(var) + eps) * c(gamma) + c(beta)
-    # n / max(n - 1, 1) in float32, as the JAX package computes it
-    nf = torch.tensor(float(n), dtype=torch.float32)
-    ratio = nf / torch.clamp(nf - 1.0, min=1.0)
-    return out, (mean, var * ratio.to(var.device))
+    # n / max(n - 1, 1) in float32, as the JAX package computes it, on the
+    # host: a scalar of the shape, so a captured step holds no host copy
+    ratio = float(np.float32(n) / np.float32(max(n - 1, 1)))
+    return out, (mean, var.float() * ratio)
 
 
 class InstanceNorm(nn.Module):
@@ -90,12 +97,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the running statistics are read in x's dtype: under a bfloat16
+        # training forward they stay float32 buffers (the master copy) and
+        # are rounded for use, as the JAX package casts its whole tree
+        mean_r = self.running_mean.to(x.dtype)
+        var_r = self.running_var.to(x.dtype)
         if not self.batch_stats:
-            return batch_norm(x, self.running_mean, self.running_var,
-                              self.weight, self.bias)
+            return batch_norm(x, mean_r, var_r, self.weight, self.bias)
         out, (mean, var) = batch_norm_train(x, self.weight, self.bias)
         m = self.momentum
         with torch.no_grad():
-            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+            # the JAX package's types: the mean's update in x's dtype, the
+            # variance's in float32 (its unbiased batch variance is), both
+            # written back to the buffers' dtype
+            self.running_mean.copy_((1.0 - m) * mean_r + m * mean)
+            self.running_var.copy_((1.0 - m) * var_r + m * var)
         return out

@@ -25,7 +25,10 @@ processes (``data/mp_loader.py``; shared-memory transport unless
 ``--shm-slots 0``), ``--device-aug`` augments on the card instead
 (workers only decode).  The model is ``RAFTConfig.full(corr_impl='pallas',
 gru_impl='pallas')`` (the CUDA kernels; their plain versions on the CPU)
-or, with ``--small``, raft-small.  The flags, the run log and ``--load``
+or, with ``--small``, raft-small; ``--dtype bfloat16`` runs it under a
+bfloat16 forward on float32 master weights.  On the card each step
+replays a captured CUDA graph (``training/capture.py``), on the CPU it
+runs eager.  The flags, the run log and ``--load``
 are the CLI's (``raft_tpu_torch/cli.py``, whose ``-m train`` and ``-m
 val`` run :func:`train_cli` and ``evaluate_cli``): ``--load`` takes torch
 ``.pth``, the reference's npz, a training checkpoint or the native npz.
@@ -55,13 +58,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train (default) or val: EPE over a dataset")
     cli.add_train_flags(p, dataset_default="synthetic")
     cli.add_model_flags(p)
+    cli.add_dtype_flag(p)
     cli.add_telemetry_flags(p)
     return p
 
 
 def make_config(args):
     from ..config import RAFTConfig
-    overrides = {}
+    overrides = {"compute_dtype": args.dtype}
     for flag, field in (("iters", "iters"), ("iters_policy", "iters_policy")):
         value = getattr(args, flag)
         if value is not None:

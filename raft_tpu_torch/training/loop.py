@@ -7,9 +7,14 @@ writer with retention, divergence rollback, the non-finite halt,
 preemption (SIGTERM/SIGINT -> emergency checkpoint -> exit 17), a
 ``torch.profiler`` window (``telemetry/trace.py::TraceWindow``) and the
 step records of ``<ckpt_dir>/metrics.jsonl`` (a manifest per session,
-records past the resume point dropped).  Data-parallel and multi-host
+records past the resume point dropped).  On CUDA each step is a replay of
+the captured step (``training/capture.py``, the JAX loop's jitted step
+with the state donated): one capture per batch shape, the state updated
+in place, and every restore (resume, rollback) copied in place, so the
+graph reads it; on the CPU the step is eager.  The model holds float32
+master weights under both compute dtypes.  Data-parallel and multi-host
 training are ROADMAP item 11; the JAX loop's recompile watchdog has no
-counterpart here (an eager step compiles nothing).
+counterpart here (a capture is per key, counted by ``captures``).
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ import numpy as np
 import torch
 
 from ..config import RAFTConfig, TrainConfig
-from ..models.raft import RAFT, compute_dtype, init_raft_torch, resolve_device
+from ..models.raft import RAFT, init_raft_torch, resolve_device
 from ..telemetry import Registry, config_hash, run_manifest
 from ..telemetry import events as tlm_events
 from ..telemetry.trace import TraceWindow, stage
+from .capture import GraphedTrainStep
 from .checkpoint import host_state, restore_latest_with_fallback
 from .optim import make_optimizer
 from .resilience import (CheckpointWriter, LastGood, PreemptionGuard,
@@ -61,17 +67,20 @@ def train(config: RAFTConfig, tconfig: TrainConfig, batch_iter: Iterable,
     None.  ``device``: CUDA unless ``"cpu"`` is passed."""
     dev = resolve_device(device)
     tx = make_optimizer(tconfig)
+    # float32 masters under both compute dtypes (a bfloat16 forward casts
+    # them in each step)
     model = init_raft_torch(config, torch.Generator().manual_seed(tconfig.seed),
-                            device=dev)
+                            device=dev, dtype=torch.float32)
     if init_state is not None:
         warm = RAFT(config)
         warm.load_state_dict(init_state, strict=True)
-        model = warm.to(dev, compute_dtype(config)).eval()
+        model = warm.to(dev, torch.float32).eval()
     state = TrainState.create(model, tx)
     if tconfig.batch_size % tconfig.accum_steps:
         raise ValueError(f"accum_steps {tconfig.accum_steps} must divide "
                          f"the batch {tconfig.batch_size}")
-    step_fn = make_train_step(config, tconfig, tx)
+    step_fn = (GraphedTrainStep(config, tconfig, tx)
+               if dev.type == "cuda" else make_train_step(config, tconfig, tx))
 
     start_step = 0
     if ckpt_dir and resume:

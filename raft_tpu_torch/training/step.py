@@ -6,26 +6,32 @@ sequence loss, the gradients (autograd; through the kernels' wrappers
 their backward is the plain twins' vjp, as the JAX package defines it),
 then the optimizer (``training/optim.py``), all on the model's device,
 updating the model and the optimizer's state in place.  The metrics are
-0-dim device tensors; the step reads nothing back to the host.
+0-dim device tensors; the step reads nothing back to the host, so it can
+be captured as one CUDA graph (``training/capture.py``, what the loop
+runs on CUDA; this eager step is what runs on the CPU).
 
-Under ``compute_dtype='float32'`` the whole step, forward, backward and
-optimizer, runs with TF32 off for cuBLAS and cuDNN (``models/raft.py::
-tf32_off``): the switches are process-wide, and the kernels' backward
-(matrix products and convolutions of the twins) runs on autograd's own
-thread after the forward has returned, so holding them off for the
-forward alone would let the backward's products round their operands to
-TF32.  ``compute_dtype='bfloat16'`` training raises (ROADMAP item 7b).
+The model holds float32 master weights under both compute dtypes: under
+``compute_dtype='bfloat16'`` the forward casts them once
+(``models/raft.py::MasterCast``), the gradients land in the float32
+masters through the cast, and ``metrics['grad_norm']`` and the optimizer
+run in float32 (the JAX package's step after the cast's transpose).
+
+The whole step, forward, backward and optimizer, runs with TF32 off for
+cuBLAS and cuDNN under both compute dtypes (:func:`precision`): the
+switches are process-wide, and the kernels' backward (matrix products and
+convolutions of the twins) runs on autograd's own thread after the
+forward has returned, so holding them off for the forward alone would let
+the backward's products round their operands to TF32.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..config import RAFTConfig, TrainConfig, adaptive_iters
-from ..models.raft import raft_forward, tf32_off
+from ..models.raft import draw_dropout_masks, raft_forward, tf32_off
 from .loss import sequence_loss
 from .optim import Optimizer, all_finite
 from .state import TrainState
@@ -38,10 +44,19 @@ class Batch(NamedTuple):
     valid: torch.Tensor            # [B, H, W] float/bool
 
 
-def precision(config: RAFTConfig):
-    """:func:`tf32_off` for a float32 configuration, else nothing."""
-    return (tf32_off() if config.compute_dtype == "float32"
-            else contextlib.nullcontext())
+def precision():
+    """The TF32 switches of a train step, set explicitly (:func:`tf32_off`)
+    under both compute dtypes, and the callers' restored after it.  No
+    product of the step may take TF32: under float32 compute every product
+    is float32; under bfloat16 the bfloat16 convolutions and products run
+    in bfloat16 on the tensor cores whatever the switches say, and the
+    float32 ones (the lookup twin's backward on the upcast bfloat16
+    operands, the GRU twin's float32 convolutions, the convex upsampling,
+    the loss) stay float32, as the JAX package computes them on the CPU
+    (ROADMAP, "Deviations by design": on a TPU its 'default' precision
+    rounds their float32 operands to bfloat16).  The eval steps take the
+    same switches."""
+    return tf32_off()
 
 
 def _check_batch(batch: Batch) -> None:
@@ -78,18 +93,19 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
     as they were before it (the optimizer drops its update).
     ``metrics['grad_norm']`` is the gradients' global norm before
     clipping; under a converge policy ``metrics['mean_iters']`` is the
-    mean of the samples' live iterations."""
-    if config.compute_dtype != "float32":
-        raise NotImplementedError(
-            "training under compute_dtype='bfloat16' needs float32 master "
-            "weights under a bfloat16 forward: ROADMAP item 7b")
+    mean of the samples' live iterations.
+
+    ``step.compute(state, batch, masks)`` is the step's device work alone
+    (``batch`` a :class:`Batch` of device tensors already checked,
+    ``masks`` one :func:`step_masks` entry per micro-batch, each on the
+    device or None): what ``training/capture.py`` captures."""
     adaptive = adaptive_iters(config.iters_policy)
     accum = tconfig.accum_steps
 
-    def grad_fn(model, params, batch: Batch, generator):
+    def grad_fn(model, params, batch: Batch, masks):
         out = raft_forward(model, batch.image1, batch.image2, config,
                            train=True, freeze_bn=tconfig.freeze_bn,
-                           generator=generator)
+                           dropout_masks=masks)
         loss, metrics = sequence_loss(
             out.flow_iters, batch.flow, batch.valid, gamma=tconfig.gamma,
             max_flow=tconfig.max_flow,
@@ -100,27 +116,19 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(params, grads)], metrics
 
-    def train_step(state: TrainState, batch, seed: int = 0):
+    def compute(state: TrainState, batch: Batch, masks) -> dict:
         params = state.params
-        batch = _on(batch, params[0].device)
-        _check_batch(batch)
-        B = batch.image1.shape[0]
-        if B % accum:
-            raise ValueError(f"batch {B} not divisible by accum_steps "
-                             f"{accum}")
-        gens = [torch.Generator().manual_seed(
-            (int(seed) * 1_000_003 + k) % (2 ** 63)) for k in range(accum)]
-        with precision(config):
+        with precision():
             bn = list(state.bn_state.values())
             before = ([b.clone() for b in bn]
                       if tconfig.skip_nonfinite_updates else None)
             if accum <= 1:
-                grads, metrics = grad_fn(state.model, params, batch, gens[0])
+                grads, metrics = grad_fn(state.model, params, batch, masks[0])
             else:
                 gsum, mlist = None, []
                 for k in range(accum):
                     micro = Batch(*(x[k::accum] for x in batch))
-                    g, m = grad_fn(state.model, params, micro, gens[k])
+                    g, m = grad_fn(state.model, params, micro, masks[k])
                     gsum = g if gsum is None else [a + b for a, b in
                                                    zip(gsum, g)]
                     mlist.append(m)
@@ -133,10 +141,40 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
                     for b, old in zip(bn, before):
                         b.copy_(torch.where(finite, b, old))
             metrics["grad_norm"] = tx.update(grads, state.opt_state, params)
+        return metrics
+
+    def train_step(state: TrainState, batch, seed: int = 0):
+        dev = state.params[0].device
+        batch = checked_batch(_on(batch, dev), accum)
+        masks = [None if m is None else tuple(t.to(dev) for t in m)
+                 for m in step_masks(config, batch.image1.shape[0], accum,
+                                     seed)]
+        metrics = compute(state, batch, masks)
         state.step += 1
         return state, metrics
 
+    train_step.compute = compute
     return train_step
+
+
+def checked_batch(batch: Batch, accum: int) -> Batch:
+    """``batch`` after checking its fields' shapes against each other and
+    that ``accum`` divides its batch; raises ValueError otherwise."""
+    _check_batch(batch)
+    B = batch.image1.shape[0]
+    if B % accum:
+        raise ValueError(f"batch {B} not divisible by accum_steps {accum}")
+    return batch
+
+
+def step_masks(config: RAFTConfig, batch: int, accum: int, seed: int) -> list:
+    """One step's channel-dropout keep masks, per micro-batch k drawn on
+    the host from a ``torch.Generator`` seeded ``seed * 1000003 + k``
+    (``models/raft.py::draw_dropout_masks``); each None at
+    ``config.dropout = 0``, where nothing is drawn."""
+    micro = batch // accum
+    return [draw_dropout_masks(config, micro, torch.Generator().manual_seed(
+        (int(seed) * 1_000_003 + k) % (2 ** 63))) for k in range(accum)]
 
 
 def make_eval_step(config: RAFTConfig, iters: Optional[int] = None,
@@ -145,7 +183,7 @@ def make_eval_step(config: RAFTConfig, iters: Optional[int] = None,
     the final full-resolution flow), or with ``with_iters`` ``(flow,
     iters_used)``: each sample's live GRU iterations."""
     def eval_step(model, image1, image2):
-        with torch.no_grad(), precision(config):
+        with torch.no_grad(), precision():
             out = raft_forward(model, image1, image2, config, iters=iters,
                                train=False, all_flows=False)
         return (out.flow, out.iters_used) if with_iters else out.flow
@@ -161,7 +199,7 @@ def make_warm_eval_step(config: RAFTConfig, iters: Optional[int] = None,
     low-resolution flow returned is what seeds the next frame of the
     scene.  ``with_iters`` appends ``iters_used``."""
     def eval_step(model, image1, image2, flow_init):
-        with torch.no_grad(), precision(config):
+        with torch.no_grad(), precision():
             out = raft_forward(model, image1, image2, config, iters=iters,
                                train=False, all_flows=False,
                                flow_init=flow_init)

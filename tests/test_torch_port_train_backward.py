@@ -8,8 +8,9 @@ saved inputs (the JAX package's definition): the four lookups ('all',
 against autograd through ``sep_conv_gru_plain``, bit for bit.  On the CPU
 the kernel configuration and the plain one compute the same training
 step, bit for bit, with ``remat_iters`` on and off; the converge policy
-trains masked over all iterations; dropout follows its generator; the
-batch-norm modes are restored; bfloat16 training raises (item 7b)."""
+trains masked over all iterations; dropout follows its masks; the
+batch-norm modes are restored; bfloat16 training runs on float32 masters
+(item 7b) and refuses a bfloat16 model."""
 
 import dataclasses
 
@@ -19,7 +20,7 @@ import torch
 
 import raft_tpu_torch as rt
 from raft_tpu_torch.config import TrainConfig
-from raft_tpu_torch.models.raft import bn_training
+from raft_tpu_torch.models.raft import bn_training, draw_dropout_masks
 from raft_tpu_torch.ops import corr_cuda, gru_cuda
 from raft_tpu_torch.ops.coords import coords_grid
 from raft_tpu_torch.ops.corr import (fmap2_pyramid, lookup_blockwise_onehot,
@@ -165,8 +166,10 @@ def test_training_forward_modes_and_dropout():
     im = [torch.from_numpy(x) for x in make_batch(4, H=32, W=48)[:2]]
 
     def run(seed):
+        masks = draw_dropout_masks(cfg, im[0].shape[0],
+                                   torch.Generator().manual_seed(seed))
         out = rt.raft_forward(model, im[0], im[1], cfg, train=True,
-                              generator=torch.Generator().manual_seed(seed))
+                              dropout_masks=masks)
         return out.flow_iters.detach()
     assert not model.cnet.norm1.batch_stats
     before = model.cnet.norm1.running_mean.clone()
@@ -188,13 +191,20 @@ def test_training_forward_modes_and_dropout():
 
 
 def test_bf16_training_raises_item_7b():
+    """Item 7b (bfloat16 training) is done: the train step builds under
+    bfloat16 and the training forward runs on float32 masters; what
+    still raises is a bfloat16 model there (it cannot be a master) and a
+    configuration the JAX package refuses."""
     cfg = rt.RAFTConfig.full(compute_dtype="bfloat16", iters=1)
-    with pytest.raises(NotImplementedError, match="7b"):
-        make_train_step(cfg, TrainConfig(), make_optimizer(TrainConfig()))
+    make_train_step(cfg, TrainConfig(), make_optimizer(TrainConfig()))
     model = rt.init_raft_torch(cfg, device="cpu")
+    assert next(model.parameters()).dtype == torch.bfloat16
     im = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="7b"):
+    with pytest.raises(ValueError, match="float32 master weights"):
         rt.raft_forward(model, im, im, cfg, train=True)
+    masters = rt.init_raft_torch(cfg, device="cpu", dtype=torch.float32)
+    out = rt.raft_forward(masters, im, im, cfg, train=True)
+    assert out.flow_iters.dtype == torch.float32 and out.flow.requires_grad
     with pytest.raises(ValueError, match="gru_impl='pallas'"):
-        rt.raft_forward(model, im, im, rt.RAFTConfig.small_model(
+        rt.raft_forward(masters, im, im, rt.RAFTConfig.small_model(
             gru_impl="pallas"), train=True)
