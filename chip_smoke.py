@@ -303,8 +303,39 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    samples/s at 1, 2 and 4 workers per transport, device augmentation
    per batch, the steps and data waits, evaluation per pair (a second,
    warm pass).  Its launches join the kernels' record.
+12. the parallel layer (``parallel_phases``, after phase 11): two ranks
+   of one gloo process group, both on cuda:0 (the device passed
+   explicitly; every CUDA tensor staged through the host and counted),
+   started by ``raft_tpu_torch/parallel/launch.py``, while this process
+   computes the single-process references.  (a) The ring lookup on the
+   1/8 maps of 512x1024 (C = 256, 4 levels, r = 4, 32 rows a rank), with
+   phase 3's kind of coordinates and with scattered ones: for B1, B3 and
+   B5, f32 and bf16, each slab's kernel partial on the shifted
+   coordinates against its plain twin with each tile path forced (MMA,
+   gather), and each ring sum against the kernel on the whole maps, both
+   at rtol = atol = 1e-5; a ring call launches its kernel twice a rank;
+   ms a call a rank, the bytes staged and the collectives' ms.  (b)
+   raft-things f32 (``corr_impl='pallas'``, ``gru_impl='xla'``, C1
+   weights) row-sharded at 1x1024x1920: each of 3 iterations against the
+   single-process forward at phase 4's bound; at 12 iterations the median
+   ms a rank, the collectives' and staging's share and each rank's peak
+   beside the single-process peak; then one rank over NCCL at 512x1024,
+   held the same way.  (c) The chairs stage's data-parallel step, 5
+   samples a rank: at 3 iterations (as phase 9.2 holds gradients) the
+   loss and gradients at phase 9's bounds and the synchronized
+   batch-norm statistics at 1e-5 against one single-process eager step
+   on the whole batch from the same state, the ranks' updates bitwise
+   equal; then the stage at 12 iterations: corr_lookup 24 and
+   sep_conv_gru 96 launches a step, 3 timed steps, the gradient
+   all-reduce's ms.  (d) ``make_dp_eval_fn`` over [cuda:0, cuda:0] at
+   2x432x1024 against the factory's batch of 2 at phase 4's bound (3
+   iterations), then timed at 12.  (e) On a one-card machine ``-m test --spatial 2``
+   exits 2 ("needs 2 devices") and an engine with ``dp_devices=2``
+   raises.  The ``parallel`` JSON line; its launches join the kernels'
+   record (B1, B3, B5 and their bf16 entries; B2 from (c) and (d)).
 
-Before the last lines the serving, train, data and e2e JSON records (PERF.md §2
+Before the last lines the serving, train, data, cli, parallel and e2e JSON
+records (PERF.md §2
 says what each key means); the line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
@@ -3082,6 +3113,650 @@ def cli_phases(dev, smi: str, train_step_ms: float) -> dict:
     return {"record": rec, "launches": test_launches}
 
 
+# -- 12. the parallel layer: ring lookup, row-sharded model, DP train/serve --
+
+PAR_MAP_HW = (512, 1024)      # (a): the ring's maps are these images' 1/8
+PAR_MODEL_HW = (1024, 1920)   # (b): raft-things row-sharded over 2 ranks
+PAR_NCCL_HW = (512, 1024)     # (b): the 1-rank NCCL run
+PAR_ITERS_HELD = 3            # (b): per iteration over this many
+PAR_TIMED = 5
+
+
+def _par_mark(who: str, t0: float, what: str) -> None:
+    """A progress line, flushed at once (the ranks write to a pipe)."""
+    print(f"parallel: {who} {what} at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _par_close(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """:func:`_compare`'s check (rtol = atol = 1e-5, finite), silent;
+    returns the max abs error, raises with the name."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or non-finite")
+    err = (got - want).abs()
+    if not bool((err <= TOL + TOL * want.abs()).all()):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max_abs_err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def _par_ring_maps(dev, kind: str):
+    """(a)'s seeded whole maps on the card: fmap1 and fmap2 [1, 64, 128,
+    256] and the queries' coordinates, 'noisy' (phase 3's kind: +-(r+3) px
+    around the grid, an eighth of the queries wholly off the map) or
+    'scattered' (windows anywhere, as random-weight flows give: the
+    kernel's gather path)."""
+    from raft_tpu_torch.ops.coords import coords_grid
+    h8, w8 = PAR_MAP_HW[0] // 8, PAR_MAP_HW[1] // 8
+    rng = np.random.RandomState(12)
+    f1 = rng.randn(1, h8, w8, 256).astype(np.float32)
+    f2 = rng.randn(1, h8, w8, 256).astype(np.float32)
+    if kind == "noisy":
+        noise = rng.uniform(-7, 7, (1, h8, w8, 2))
+        far = rng.rand(1, h8, w8) < 0.125
+        noise[far] += np.array([-300.0, 700.0])
+    else:
+        noise = rng.uniform(-w8, w8, (1, h8, w8, 2))
+    coords = coords_grid(1, h8, w8, device=dev) + torch.from_numpy(
+        noise.astype(np.float32)).to(dev)
+    return (torch.from_numpy(f1).to(dev), torch.from_numpy(f2).to(dev),
+            coords.contiguous())
+
+
+def _par_model(cfg, dev, dtype=torch.float32):
+    """The phase's seeded weights with C1's biases and affines (phase 6d),
+    the same in every process."""
+    from raft_tpu_torch import init_raft_torch
+    m = init_raft_torch(cfg, generator=torch.Generator().manual_seed(0),
+                        device=dev, dtype=dtype)
+    c1_weights(m)
+    return m
+
+
+def _par_frames(hw, seed: int):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.rand(1, *hw, 3).astype(np.float32) for _ in range(2))
+
+
+def _par_batch():
+    """(c)'s global batch: the chairs stage's 10 x 368 x 496, seeded."""
+    rng = np.random.RandomState(13)
+    B, (H, W) = TRAIN_B, TRAIN_HW
+    return (rng.rand(B, H, W, 3).astype(np.float32),
+            rng.rand(B, H, W, 3).astype(np.float32),
+            (3.0 * rng.randn(B, H, W, 2)).astype(np.float32),
+            (rng.rand(B, H, W) > 0.3).astype(np.float32))
+
+
+def _par_configs():
+    from raft_tpu_torch import RAFTConfig
+    from raft_tpu_torch.config import TrainConfig
+    spatial = RAFTConfig.full(corr_impl="pallas", gru_impl="xla", iters=ITERS)
+    train = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=ITERS)
+    return spatial, train, TrainConfig.for_stage("chairs")
+
+
+class _Capture:
+    """An optimizer that keeps the gradients it is handed (after any
+    averaging over the ranks) and then steps."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def update(self, grads, opt_state, params):
+        self.grads = [g.detach().clone() for g in grads]
+        return self.tx.update(grads, opt_state, params)
+
+
+def _par_ms(fn, n: int) -> list:
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _par_wait(go: str, who: str, t0: float) -> None:
+    """Wait for the main process's go file (its own work on the card is
+    done, so the ranks' timings share the card with each other only)."""
+    end = time.perf_counter() + 300
+    while not os.path.exists(go):
+        if time.perf_counter() > end:
+            raise TimeoutError(f"parallel: {who}: no go from the main "
+                               f"process within 300 s")
+        time.sleep(0.2)
+    _par_mark(who, t0, "timings start")
+
+
+def _parallel_rank(rank: int, world: int, go: str) -> dict:
+    """One of phase 12's two ranks, both on cuda:0 over gloo (the device
+    passed explicitly: the one way two ranks share a card): first the
+    checks of (a) the ring lookups, (b) the row-sharded raft-things and (c)
+    the data-parallel train step, then, once the main process's ``go``
+    file exists, their timings.  Returns its checks, outputs and times."""
+    from raft_tpu_torch.ops import corr_cuda, gru_cuda, spmd
+    from raft_tpu_torch.ops.corr import (lookup_blockwise_onehot,
+                                         lookup_operands, lookup_packed_plain,
+                                         lookup_window_plain)
+    from raft_tpu_torch.parallel import (DATA_AXIS, SPATIAL_AXIS, make_mesh,
+                                         make_dp_train_step,
+                                         make_shard_inference_fn, shard_batch,
+                                         shard_rows)
+    from raft_tpu_torch.parallel.mesh import rank_device
+    from raft_tpu_torch.parallel.spatial import make_ring_lookup_local
+    from raft_tpu_torch.training import TrainState, make_optimizer
+    from raft_tpu_torch.training.step import Batch, pmean_tensors
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    dev = torch.device("cuda", 0)
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    who = f"rank {rank}"
+    # no quiet sharing: a rank without a card of its own is refused
+    try:
+        rank_device(rank, world)
+        out["own_card"] = True
+    except RuntimeError as e:
+        out["own_card"] = str(e)
+    smesh = make_mesh((SPATIAL_AXIS,), device=dev)
+    ax = smesh[SPATIAL_AXIS]
+    if not ax.staged:
+        raise AssertionError(f"parallel: gloo did not stage: {ax}")
+
+    # (a) the ring lookups, B1 / B3 / B5 in both dtypes, two kinds of coords
+    entries = {"corr_lookup": (corr_cuda.corr_lookup_cuda, lookup_blockwise_onehot,
+                               {"p_select": "all"}),
+               "corr_window": (corr_cuda.corr_window_cuda, lookup_window_plain,
+                               {"p_select": "window"}),
+               "corr_packed": (corr_cuda.corr_packed_cuda, lookup_packed_plain,
+                               {"p_select": "all", "pack_rows": True})}
+    ring, timed_rings = {}, {}
+    for kind in ("noisy", "scattered"):
+        f1, f2, coords = _par_ring_maps(dev, kind)
+        hl = f1.shape[1] // world
+        rows = slice(rank * hl, (rank + 1) * hl)
+        c_loc = coords[:, rows].contiguous()
+        for prec, dkey in (("highest", "f32"), ("default", "bf16")):
+            F1, LV = lookup_operands(f1, f2, 4, prec)
+            f1s = lookup_operands(f1[:, rows], f2[:, rows], 4, prec)[0]
+            slabs = [lookup_operands(f1[:, s * hl:(s + 1) * hl],
+                                     f2[:, s * hl:(s + 1) * hl], 4, prec)[1]
+                     for s in range(world)]
+            for name, (wrapper, plain, opts) in entries.items():
+                extra = ("all",) if name == "corr_packed" else ()
+                rec = {}
+                # each slab's kernel partial (shifted coords) against its
+                # plain twin, both tile paths forced in turn
+                worst = 0.0
+                for s in range(world):
+                    sh = c_loc.clone()
+                    sh[..., 1] -= float(s * hl)
+                    p = plain(f1s, slabs[s], sh, 4, *extra)
+                    for ratio in (float("inf"), 0.0):
+                        k = wrapper(f1s, slabs[s], sh, 4, *extra,
+                                    mma_ratio=ratio)
+                        worst = max(worst, _par_close(
+                            f"parallel (a) {kind} {dkey} {name} rank {rank} "
+                            f"slab {s} mma_ratio {ratio}", k, p))
+                rec["partial_max_abs_err"] = worst
+                lookup = make_ring_lookup_local(
+                    f1[:, rows].contiguous(), f2[:, rows].contiguous(), 4, 4,
+                    ax, precision=prec, kernel="pallas", pallas_opts=opts)
+                whole = wrapper(F1, LV, coords, 4, *extra)[:, rows]
+                _reset(wrapper)
+                got = lookup(c_loc)
+                torch.cuda.synchronize()
+                rec["launches"] = wrapper.launches
+                if rec["launches"] != world:
+                    raise AssertionError(f"parallel (a) {name}: {wrapper.launches}"
+                                         f" launches a ring call, want {world}")
+                rec["ring_max_abs_err"] = _par_close(
+                    f"parallel (a) {kind} {dkey} {name} rank {rank} ring sum "
+                    f"vs the whole-map kernel", got, whole)
+                print(f"parallel (a) {kind} {dkey} {name} rank {rank}: "
+                      f"partials vs plain (MMA and gather paths) "
+                      f"{worst:.3e}, ring sum vs whole map "
+                      f"{rec['ring_max_abs_err']:.3e} (rtol=atol={TOL:g}) ok",
+                      flush=True)
+                if kind == "noisy":          # timed below
+                    timed_rings[f"{kind}/{dkey}/{name}"] = (lookup, c_loc)
+                ring[f"{kind}/{dkey}/{name}"] = rec
+        del f1, f2, F1, LV, slabs
+    out["ring"] = ring
+    _par_mark(who, t0, "(a) checked")
+
+    # (b) raft-things f32 row-sharded at 1x1024x1920 over the two ranks
+    cfg_s, cfg_t, tc = _par_configs()
+    model = _par_model(cfg_s, dev).eval()
+    im1, im2 = _par_frames(PAR_MODEL_HW, 14)
+    a, b = shard_rows(im1, smesh), shard_rows(im2, smesh)
+    flows = {}
+    for k in range(1, PAR_ITERS_HELD + 1):
+        flows[k] = make_shard_inference_fn(cfg_s, smesh, iters=k)(
+            model, a, b).cpu().numpy()
+        _par_mark(who, t0, f"(b) {k} iteration(s)")
+    out["flows"] = flows
+    _par_mark(who, t0, "(b) checked")
+
+    # (c) the data-parallel train step: the chairs stage, 5 samples a rank.
+    # Parity at 3 iterations, as phase 9.2 holds gradients (the recurrence
+    # amplifies the two batch sizes' rounding past any bound by 12)
+    dmesh = make_mesh((DATA_AXIS,), device=dev)
+    local = shard_batch(dmesh, Batch(*_par_batch()))
+    tx = make_optimizer(tc)
+    cap = _Capture(tx)
+    state = TrainState.create(_par_model(cfg_t, dev), tx)
+    cfg_3 = dataclasses.replace(cfg_t, iters=PAR_ITERS_HELD)
+    state, m = make_dp_train_step(cfg_3, tc, cap, dmesh)(state, local, 0)
+    names = [n for n, _ in state.model.named_parameters()]
+    out["train"] = {"loss": float(m["loss"]),
+                    "grad_norm": float(m["grad_norm"])}
+    if rank == 0:
+        out["train"]["grads"] = {n: g.cpu().numpy()
+                                 for n, g in zip(names, cap.grads)}
+        out["train"]["bn"] = {n: v.detach().cpu().numpy()
+                              for n, v in state.model.named_buffers()}
+    out["train"]["param_sum"] = float(sum(p.detach().double().sum()
+                                          for p in state.model.parameters()))
+    _par_mark(who, t0, "(c) checked")
+
+    # -- the timings, the card shared by the two ranks alone ----------------
+    _par_wait(go, who, t0)
+    # (a) a ring call a rank, and its collectives (staged, timed apart)
+    for key, (lookup, c_loc) in timed_rings.items():
+        rec = ring[key]
+        rec["ms"] = _par_ms(lambda: lookup(c_loc), 10)
+        spmd.reset_stats(timed=True)
+        for _ in range(3):
+            lookup(c_loc)
+        st = spmd.STATS.snapshot()
+        spmd.reset_stats(timed=False)
+        rec["staged_bytes_per_call"] = st["staged_bytes"] / 3
+        rec["staged_calls_per_call"] = st["staged_calls"] / 3
+        rec["collective_ms_per_call"] = st["seconds"] * 1e3 / 3
+    del timed_rings
+    # (b) the row-sharded forward at 12 iterations: its launches, its own
+    # peak above the weights and inputs held, ms, the collectives' share
+    fn = make_shard_inference_fn(cfg_s, smesh, iters=ITERS)
+    fn(model, a, b)                                  # warm (cuDNN's choices)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _reset(corr_cuda.corr_lookup_cuda, gru_cuda.sep_conv_gru_cuda)
+    fn(model, a, b)
+    torch.cuda.synchronize()
+    out["model_launches"] = {"corr_lookup": corr_cuda.corr_lookup_cuda.launches,
+                             "sep_conv_gru": gru_cuda.sep_conv_gru_cuda.launches}
+    out["model_peak_mib"] = (torch.cuda.max_memory_allocated(dev)
+                             - base) / 2 ** 20
+    out["model_ms"] = _par_ms(lambda: fn(model, a, b), PAR_TIMED)
+    spmd.reset_stats(timed=True)
+    ts = time.perf_counter()
+    fn(model, a, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - ts
+    st = spmd.STATS.snapshot()
+    spmd.reset_stats(timed=False)
+    out["model_collectives"] = {**st, "wall_s": wall,
+                                "share": st["seconds"] / wall}
+    del model, fn, a, b
+    _par_mark(who, t0, "(b) timed")
+    # (c) the stage itself, 12 iterations: one step's launches, 3 timed
+    state = TrainState.create(_par_model(cfg_t, dev), tx)
+    step = make_dp_train_step(cfg_t, tc, cap, dmesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(corr_cuda.corr_lookup_cuda, gru_cuda.sep_conv_gru_cuda)
+    state, m = step(state, local, 0)
+    float(m["loss"])
+    out["train_launches"] = {"corr_lookup": corr_cuda.corr_lookup_cuda.launches,
+                             "sep_conv_gru": gru_cuda.sep_conv_gru_cuda.launches}
+    ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        state, m = step(state, local, i + 1)
+        float(m["loss"])
+        ms.append((time.perf_counter() - ts) * 1e3)
+    out["train"]["step_ms"] = ms
+    grads = cap.grads
+    out["train"]["allreduce_ms"] = _par_ms(
+        lambda: pmean_tensors(grads, dmesh[DATA_AXIS]), 3)
+    out["train"]["allreduce_bytes"] = 4 * sum(g.numel() for g in grads)
+    out["train"]["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    _par_mark(who, t0, "(c) timed")
+    return out
+
+
+def _nccl_rank(rank: int, world: int) -> dict:
+    """(b)'s one rank over NCCL (a process of its own, so that a stuck
+    NCCL set-up cannot stall the script past its group's deadline): the
+    row-sharded raft-things at 512x1024, each of 3 iterations against the
+    single-process forward in the same process."""
+    from raft_tpu_torch import raft_forward
+    from raft_tpu_torch.ops import spmd
+    from raft_tpu_torch.parallel import (SPATIAL_AXIS, make_mesh,
+                                         make_shard_inference_fn)
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((SPATIAL_AXIS,), device=dev)
+    ax = mesh[SPATIAL_AXIS]
+    if ax.staged:
+        raise AssertionError(f"parallel (b): the NCCL axis stages: {ax}")
+    cfg_s = _par_configs()[0]
+    model = _par_model(cfg_s, dev).eval()
+    u1, u2 = (torch.from_numpy(x).to(dev) for x in _par_frames(PAR_NCCL_HW, 15))
+    spmd.reset_stats()
+    worst = []
+    for k in range(1, PAR_ITERS_HELD + 1):
+        got = make_shard_inference_fn(cfg_s, mesh, iters=k)(model, u1, u2)
+        with torch.no_grad():
+            want = raft_forward(model, u1, u2, cfg_s, iters=k).flow
+        w, msg = _within(f"parallel (b) NCCL 1 rank, {k} iterations", got,
+                         want)
+        print(msg, flush=True)
+        worst.append(w)
+    return {**spmd.STATS.snapshot(), "worst_ratio_to_bound": worst,
+            "backend": str(dist.get_backend())}
+
+
+def parallel_phases(dev, smi: str) -> dict:
+    """Phase 12: the parallel layer on one card.  Two ranks on cuda:0 over
+    gloo (``parallel/launch.py``; each CUDA tensor staged through the host,
+    counted) run :func:`_parallel_rank`'s checks while this process
+    computes the single-process references; then the ranks time their
+    paths (the card shared by the two alone), then this process times its
+    own: (a) each ring slab's kernel partial against
+    its plain twin, both tile paths, and each ring sum against the kernel
+    on the whole maps (B1, B3, B5; f32 and bf16; rtol = atol = 1e-5);
+    (b) raft-things f32 (``corr_impl='pallas'``, ``gru_impl='xla'``) at
+    1x1024x1920, each of 3 iterations against the single-process forward at
+    phase 4's bound, its 12-iteration ms, collectives' share and peak per
+    rank, and a 1-rank run of the same path over NCCL at 512x1024; (c) the
+    chairs stage's data-parallel step (5 samples a rank) against one
+    single-process eager step on the whole batch at 3 iterations (loss and
+    gradients at phase 9's bounds, batch-norm statistics 1e-5), then 3
+    timed steps of the stage and the gradient all-reduce; (d)
+    ``make_dp_eval_fn`` over [cuda:0, cuda:0] at 2x432x1024 against the
+    factory's batch of 2; (e) ``-m test --spatial 2`` and ``dp_devices=2``
+    refused on a one-card machine.  Returns the
+    ``parallel`` record and the launches by kernel (``launches``)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch import make_inference_fn, raft_forward
+    from raft_tpu_torch.ops import corr_cuda, gru_cuda
+    from raft_tpu_torch.parallel import make_dp_eval_fn
+    from raft_tpu_torch.parallel.launch import start_ranks
+    from raft_tpu_torch.serving.config import ServeConfig
+    from raft_tpu_torch.serving.engine import InferenceEngine
+    from raft_tpu_torch.training import TrainState, make_optimizer, make_train_step
+    from raft_tpu_torch.training.step import Batch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"parallel: {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} GiB free "
+          f"at the start of phase 12")
+    tmp = tempfile.mkdtemp(prefix="chip_par_", dir=os.environ.get("TMPDIR"))
+    nccl_group = None
+    go = os.path.join(tmp, "go")
+    group = start_ranks(_parallel_rank, 2, args=(go,),
+                        init_method=f"file://{tmp}/store", backend="gloo",
+                        group_timeout_s=300, deadline_s=600)
+    try:
+        rec = {"device": smi, "ranks": 2, "backend": "gloo, CUDA tensors staged "
+               "through the host; both ranks on cuda:0"}
+        print("parallel: 2 ranks on cuda:0 over gloo, started", flush=True)
+        launches = {"f32": {}, "bf16": {}}
+
+        def add(dkey, name, n):
+            launches[dkey][name] = launches[dkey].get(name, 0) + n
+
+        cfg_s, cfg_t, tc = _par_configs()
+        # the 1-rank NCCL run of (b), in a process of its own (deadline)
+        nccl_group = start_ranks(_nccl_rank, 1,
+                                 init_method=f"file://{tmp}/nccl",
+                                 backend="nccl", group_timeout_s=120,
+                                 deadline_s=300)
+        _par_mark("main", t_phase, "ranks started")
+        # (b) references while the ranks run: per iteration, and the peak
+        model = _par_model(cfg_s, dev).eval()
+        im1, im2 = _par_frames(PAR_MODEL_HW, 14)
+        t1, t2 = (torch.from_numpy(x).to(dev) for x in (im1, im2))
+        ref = {}
+        with torch.no_grad():
+            for k in range(1, PAR_ITERS_HELD + 1):
+                ref[k] = raft_forward(model, t1, t2, cfg_s, iters=k).flow
+        _par_mark("main", t_phase, "(b) references done")
+
+        # (c) the single-process eager step on the whole batch
+        tx = make_optimizer(tc)
+        state = TrainState.create(_par_model(cfg_t, dev), tx)
+        cap = _Capture(tx)
+        whole = Batch(*(torch.from_numpy(x).to(dev) for x in _par_batch()))
+        cfg_3 = dataclasses.replace(cfg_t, iters=PAR_ITERS_HELD)
+        state, m = make_train_step(cfg_3, tc, cap)(state, whole, 0)
+        sp_loss = float(m["loss"])
+        names = [n for n, _ in state.model.named_parameters()]
+        sp_grads = dict(zip(names, cap.grads))
+        sp_bn = {n: v.detach().clone() for n, v in state.model.named_buffers()}
+        del state, cap, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        _par_mark("main", t_phase, "(c) whole-batch step done")
+
+        # (d) data-parallel serving over [cuda:0, cuda:0], while the ranks run
+        cfg_m = cfg_t
+        served = _par_model(cfg_m, dev).eval()
+        p1, p2 = (np.concatenate([a, b]) for a, b in zip(
+            _par_frames((H_IMG, W_IMG), 16), _par_frames((H_IMG, W_IMG), 17)))
+        # parity at 3 iterations (the random-weight recurrence amplifies the
+        # rounding of two batch sizes' algorithms past any bound by 12)
+        want = make_inference_fn(cfg_m, iters=PAR_ITERS_HELD)(served, p1, p2)
+        got = make_dp_eval_fn(cfg_m, [dev, dev], iters=PAR_ITERS_HELD)(
+            served, p1, p2)
+        w, msg = _within(f"parallel (d) dp_eval [cuda:0, cuda:0] vs the batch of "
+                         f"2, {PAR_ITERS_HELD} iterations", got, want)
+        print(msg, flush=True)
+        if w > 1.0:
+            raise AssertionError("parallel (d): data-parallel serving disagrees")
+        rec["dp_serving"] = {"hw": [H_IMG, W_IMG], "batch": 2,
+                             "worst_ratio_to_bound": w}
+        _par_mark("main", t_phase, "(d) checked")
+
+        # (e) the one-card refusals
+        import contextlib
+        import io
+        from raft_tpu_torch import cli
+        refusals = {}
+        if torch.cuda.device_count() == 1:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-m", "test", "--spatial", "2", "--size", "512",
+                               "1024", "--out", tmp])
+            said = buf.getvalue().strip().splitlines()[-1]
+            print(f"parallel (e): -m test --spatial 2 -> exit {rc}: {said}")
+            if rc != 2 or "needs 2 devices, have 1" not in said:
+                raise AssertionError(f"parallel (e): --spatial 2 on one card: "
+                                     f"exit {rc}, {said!r}")
+            refusals["spatial_2"] = said
+            try:
+                InferenceEngine(cfg_m, served, ServeConfig(
+                    dp_devices=2, buckets=((64, 64),), max_sessions=0))
+            except ValueError as e:
+                refusals["dp_devices_2"] = str(e)
+                print(f"parallel (e): ServeConfig(dp_devices=2) -> {e}")
+            else:
+                raise AssertionError("parallel (e): dp_devices=2 served on one card")
+        else:
+            refusals["skipped"] = f"{torch.cuda.device_count()} cards"
+        rec["refusals"] = refusals
+
+        nccl = nccl_group.results()[0]
+        if (nccl["calls"] == 0 or nccl["staged_calls"]
+                or max(nccl["worst_ratio_to_bound"]) > 1.0):
+            raise AssertionError(f"parallel (b) NCCL: {nccl}")
+        rec["nccl_1_rank_512x1024"] = nccl
+        _par_mark("main", t_phase, f"(b) NCCL 1 rank: {nccl['calls']} "
+                  f"collectives over {nccl['backend']}, worst "
+                  f"{max(nccl['worst_ratio_to_bound']):.3f} of phase 4's bound")
+        # this process is done with the card until the ranks have timed
+        open(go, "w").close()
+        ranks = group.results()
+        _par_mark("main", t_phase, "the ranks' results in")
+        # this process's timings, the card its own again: (b) the
+        # single-process forward at 12 iterations (ms, its own peak), (d)
+        # the served path at 12 iterations (launches, ms)
+        with torch.no_grad():
+            raft_forward(model, t1, t2, cfg_s, iters=ITERS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            raft_forward(model, t1, t2, cfg_s, iters=ITERS)
+            torch.cuda.synchronize()
+            single_peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+            single_ms = _par_ms(lambda: raft_forward(model, t1, t2, cfg_s,
+                                                     iters=ITERS), PAR_TIMED)
+        del model, t1, t2
+        single = make_inference_fn(cfg_m)
+        dp = make_dp_eval_fn(cfg_m, [dev, dev])
+        _reset(corr_cuda.corr_lookup_cuda, gru_cuda.sep_conv_gru_cuda)
+        dp(served, p1, p2)
+        torch.cuda.synchronize()
+        dp_launches = {"corr_lookup": corr_cuda.corr_lookup_cuda.launches,
+                       "sep_conv_gru": gru_cuda.sep_conv_gru_cuda.launches}
+        # one graph at batch 1 serves both halves: its capture counts two
+        # eager forwards' launches (warm-up and capture), the replay none
+        expect = {"corr_lookup": 2 * ITERS,
+                  "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}
+        if dp_launches != expect:
+            raise AssertionError(f"parallel (d): launches {dp_launches}, want "
+                                 f"{expect}")
+        for k, v in dp_launches.items():
+            add("f32", k, v)
+        single(served, p1, p2)
+        rec["dp_serving"].update(
+            launches=dp_launches,
+            ms=_par_ms(lambda: dp(served, p1, p2), PAR_TIMED),
+            single_factory_ms=_par_ms(lambda: single(served, p1, p2),
+                                      PAR_TIMED))
+        del dp, single, served
+        _par_mark("main", t_phase, "its own timings done")
+        for r in ranks:
+            if r["own_card"] is not True and r["rank"] == 0:
+                raise AssertionError(f"parallel: rank 0 has no card: {r['own_card']}")
+        if ranks[1]["own_card"] is True and torch.cuda.device_count() == 1:
+            raise AssertionError("parallel: rank 1 got a card of its own on a "
+                                 "one-card machine")
+        rec["rank1_without_device_arg"] = ranks[1]["own_card"]
+        # (a)
+        ring = {}
+        for key in ranks[0]["ring"]:
+            kind, dkey, name = key.split("/")
+            per = [r["ring"][key] for r in ranks]
+            n = sum(p["launches"] for p in per)
+            add(dkey, name, n)
+            ring[key] = {"launches": n,
+                         "partial_max_abs_err": max(p["partial_max_abs_err"] for p in per),
+                         "ring_max_abs_err": max(p["ring_max_abs_err"] for p in per)}
+            if kind == "noisy":
+                ring[key].update(
+                    ms_per_call_rank=[statistics.median(p["ms"]) for p in per],
+                    staged_bytes_per_call=per[0]["staged_bytes_per_call"],
+                    staged_calls_per_call=per[0]["staged_calls_per_call"],
+                    collective_ms_per_call=[p["collective_ms_per_call"] for p in per])
+        rec["ring"] = ring
+        # (b)
+        worst = []
+        for k in range(1, PAR_ITERS_HELD + 1):
+            got = torch.from_numpy(np.concatenate([r["flows"][k] for r in ranks],
+                                                  axis=1)).to(dev)
+            w, msg = _within(f"parallel (b) 2 ranks, {k} iterations", got, ref[k])
+            print(msg)
+            worst.append(w)
+        if max(worst) > 1.0:
+            raise AssertionError("parallel (b): the row-sharded forward disagrees")
+        want_l = {"corr_lookup": 2 * ITERS, "sep_conv_gru": 0}
+        for r in ranks:
+            if r["model_launches"] != want_l:
+                raise AssertionError(f"parallel (b): rank {r['rank']} launches "
+                                     f"{r['model_launches']}, want {want_l}")
+            add("f32", "corr_lookup", r["model_launches"]["corr_lookup"])
+        rec["spatial_1024x1920"] = {
+            "worst_ratio_to_bound": worst,
+            "ms_median_per_rank": [statistics.median(r["model_ms"]) for r in ranks],
+            "ms_all": [r["model_ms"] for r in ranks],
+            "collective_share": [r["model_collectives"]["share"] for r in ranks],
+            "collectives": [r["model_collectives"] for r in ranks],
+            "peak_mib_per_rank": [r["model_peak_mib"] for r in ranks],
+            "single_process_peak_mib": single_peak,
+            "single_process_ms_median": statistics.median(single_ms),
+            "launches_per_rank": want_l}
+        # (c)
+        r0 = ranks[0]["train"]
+        if r0["param_sum"] != ranks[1]["train"]["param_sum"] or \
+                r0["loss"] != ranks[1]["train"]["loss"]:
+            raise AssertionError("parallel (c): the ranks' updates differ")
+        rel = abs(r0["loss"] - sp_loss) / abs(sp_loss)
+        print(f"parallel (c): DP loss {r0['loss']:.6f} vs whole batch "
+              f"{sp_loss:.6f}, {PAR_ITERS_HELD} iterations (rel {rel:.2e}, "
+              f"bound {GRAD_RTOL:g})")
+        if rel > GRAD_RTOL:
+            raise AssertionError("parallel (c): the DP step's loss disagrees")
+        held = hold_grads(f"parallel (c) DP vs whole-batch step, "
+                          f"{PAR_ITERS_HELD} iterations",
+                          {k: torch.from_numpy(v).to(dev) for k, v in r0["grads"].items()},
+                          sp_grads, small=False)
+        bn_worst = 0.0
+        for k, v in sp_bn.items():
+            if k.rsplit(".", 1)[-1] not in ("running_mean", "running_var"):
+                continue
+            d = float((torch.from_numpy(r0["bn"][k]).to(dev) - v).abs().max())
+            bn_worst = max(bn_worst, d / float(v.abs().max()))
+        print(f"parallel (c): BN statistics worst {bn_worst:.2e} of a leaf's max "
+              f"(bound 1e-5)")
+        if bn_worst > 1e-5:
+            raise AssertionError("parallel (c): the synchronized BN statistics "
+                                 "disagree")
+        per_step = {"corr_lookup": 2 * ITERS,
+                    "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}
+        for r in ranks:
+            if r["train_launches"] != per_step:
+                raise AssertionError(f"parallel (c): rank {r['rank']} launches "
+                                     f"{r['train_launches']}, want {per_step}")
+            for k, v in r["train_launches"].items():
+                add("f32", k, v)
+        rec["dp_train"] = {
+            "global_batch": TRAIN_B, "hw": list(TRAIN_HW),
+            "parity_iters": PAR_ITERS_HELD, "loss": r0["loss"],
+            "single_loss": sp_loss, "loss_rel": rel, "grads": held,
+            "bn_worst_rel": bn_worst,
+            "step_ms_per_rank": [r["train"]["step_ms"] for r in ranks],
+            "allreduce_ms_per_rank": [r["train"]["allreduce_ms"] for r in ranks],
+            "allreduce_mib": r0["allreduce_bytes"] / 2 ** 20,
+            "peak_mib_per_rank": [r["train"]["peak_mib"] for r in ranks],
+            "launches_per_rank_first_step": per_step}
+        rec["phase_s"] = time.perf_counter() - t_phase
+        print(f"parallel: phase 12 took {rec['phase_s']:.1f} s; {smi}")
+    finally:
+        # on any way out: every rank still running killed, the queues shut
+        group._stop()
+        if nccl_group is not None:
+            nccl_group._stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"record": rec, "launches": launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # cuBLAS's deterministic mode (phase 9.5) needs its workspace fixed
@@ -5186,6 +5861,11 @@ def main() -> int:
     cli_launches = cli_out["launches"]
     print(json.dumps({"cli": cli_out["record"]}))
 
+    # -- 12. the parallel layer (two ranks on this card, gloo; NCCL at 1)
+    par = parallel_phases(dev, smi)
+    par_launches = par["launches"]
+    print(json.dumps({"parallel": par["record"]}))
+
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall time {wall_s:.1f} s")
     print(json.dumps({"e2e": {"latency_ms_median": med_k, "pairs_per_s": 1e3 / med_k,
@@ -5243,6 +5923,9 @@ def main() -> int:
                 "bound_by": by, "library_ms": None,
                 "train_launches": trained}
 
+    # phase 12's main-path launches: the ring (B1, B3, B5 in both dtypes),
+    # the row-sharded model (B1), the DP train step and serving (B1, B2)
+    par_f32, par_bf16 = par_launches["f32"], par_launches["bf16"]
     print(f"device: {smi}")
     print(json.dumps({"kernels": [
         entry("corr_lookup", "raft_tpu_torch/csrc/corr_lookup.cu",
@@ -5250,16 +5933,17 @@ def main() -> int:
               launches["corr_lookup"] + launches_s["corr_lookup"]
               + new_launches["f32"].get("corr_lookup", 0)
               + train_launches["f32"]["corr_lookup"] + data_launches["corr_lookup"]
-              + cli_launches["corr_lookup"],
+              + cli_launches["corr_lookup"] + par_f32.get("corr_lookup", 0),
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242",
               launches["sep_conv_gru"] + new_launches["f32"].get("sep_conv_gru", 0)
               + train_launches["f32"]["sep_conv_gru"] + data_launches["sep_conv_gru"]
-              + cli_launches["sep_conv_gru"],
+              + cli_launches["sep_conv_gru"] + par_f32.get("sep_conv_gru", 0),
               gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
         entry("corr_window", "raft_tpu_torch/csrc/corr_lookup.cu",
-              "raft_tpu/ops/corr_pallas.py:342", launches_w["corr_window"],
+              "raft_tpu/ops/corr_pallas.py:342",
+              launches_w["corr_window"] + par_f32.get("corr_window", 0),
               win_err, win_ms, win_plain_ms, corr_bound, corr_by),
         entry("corr_ragged", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:604",
@@ -5267,9 +5951,11 @@ def main() -> int:
               rag_err, rag_ms, rag_plain_ms, rag_bound_ms, rag_by),
         entry("corr_packed", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:125",
-              launches_p32["all"]["corr_packed"] + launches_p32["window"]["corr_packed"],
+              launches_p32["all"]["corr_packed"] + launches_p32["window"]["corr_packed"]
+              + par_f32.get("corr_packed", 0),
               pack_err, pk["all"], pk["all_plain"], corr_bound, corr_by),
-    ] + [entry(f"{name}_bf16", f"raft_tpu_torch/csrc/{src}", replaces, runs,
+    ] + [entry(f"{name}_bf16", f"raft_tpu_torch/csrc/{src}", replaces,
+               runs + par_bf16.get(name, 0),
                bf_err[name], bf_ms[name][0], bf_ms[name][1], *bf_ms[name][2])
          for name, src, replaces, runs in (
              ("corr_lookup", "corr_lookup.cu", "raft_tpu/ops/corr_pallas.py:349",

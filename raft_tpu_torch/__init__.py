@@ -17,7 +17,10 @@ format.  ``python -m raft_tpu_torch.cli`` is the JAX package's command line
 (``-m test`` two frames to a flow PNG, ``export``, ``flops``, ``val``,
 ``train``, ``serve``), and ``load_checkpoint_auto`` reads every checkpoint
 format the JAX package reads (torch ``.pth``, the reference's npz, training
-checkpoints, the native npz).
+checkpoints, the native npz).  ``raft_tpu_torch.parallel`` spreads it over
+processes with ``torch.distributed``: row-sharded inference with the ring
+correlation lookup on the same kernels, data-parallel training and
+data-parallel serving.
 
     model = init_raft_torch(RAFTConfig.full(), device="cuda")
     cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas")

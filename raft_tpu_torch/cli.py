@@ -39,10 +39,23 @@ over); ``-m export`` writes a ``torch.export`` program in place of
 StableHLO; the frames are resized by :func:`~raft_tpu_torch.data.synthetic.
 resize_linear_u8`, bitwise OpenCV's uint8 resize, with no OpenCV.  What the
 port does not have raises NotImplementedError naming its ROADMAP item:
-``--spatial``, the multi-host flags and ``--shard-data``, ``--serve-dp``
-above 1 (item 11), ``-m serve_fleet`` (item 14b), ``--engine-cache-dir``
-(item 9c) and ``--show`` (``cv2.imshow``: the card's machine has no OpenCV
-and no display).
+``-m serve_fleet`` (item 14b), ``--engine-cache-dir`` (item 9c) and
+``--show`` (``cv2.imshow``: the card's machine has no OpenCV and no
+display).
+
+The parallel layer (``raft_tpu_torch/parallel``):
+
+* ``-m test --spatial N`` runs the model row-sharded over N ranks, one
+  process a card (``cuda:<rank>``; under ``--cpu``, N CPU processes), and
+  writes rank 0's gathered flow; H must be a multiple of
+  ``required_h_multiple``, and fewer than N cards is an error, never two
+  ranks on one card;
+* ``-m train`` with ``--coordinator HOST:PORT --num-processes N
+  --process-id I`` (or their ``RAFT_TPU_*`` variables), run once per rank,
+  trains data-parallel (``--batch`` the global batch); ``--shard-data``
+  lets each rank read its own 1/N of the dataset (required with
+  ``--workers``);
+* ``-m serve --serve-dp N`` serves each batch over ``cuda:0..N-1``.
 """
 
 from __future__ import annotations
@@ -230,6 +243,32 @@ def add_train_flags(p: argparse.ArgumentParser,
                         "0 = fail fast)")
 
 
+def add_multiprocess_flags(p: argparse.ArgumentParser) -> None:
+    """Multi-process training's flags (the JAX CLI's; each falls back to
+    its ``RAFT_TPU_*`` environment variable)."""
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process train: rank 0's rendezvous address "
+                        "(a tcp:// or file:// URL also works)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process train: the number of ranks")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process train: this process's rank")
+    p.add_argument("--shard-data", action="store_true",
+                   help="multi-process train: each rank reads its own 1/N "
+                        "of the dataset (needed with --workers)")
+
+
+def init_distributed(args) -> bool:
+    """Join the run's process group from the multi-process flags (a no-op
+    for one process): gloo on the CPU (``--cpu``), NCCL and gloo on the
+    cards."""
+    from .parallel.distributed import initialize
+    return initialize(coordinator_address=args.coordinator,
+                      num_processes=args.num_processes,
+                      process_id=args.process_id,
+                      device="cpu" if args.cpu else "cuda")
+
+
 def add_serve_flags(p: argparse.ArgumentParser) -> None:
     """The server's flags (the JAX package's serve flags, same names and
     defaults)."""
@@ -249,8 +288,8 @@ def add_serve_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--deadline-ms", type=float, default=2000.0,
                    help="default per-request deadline (504 past it)")
     p.add_argument("--serve-dp", type=int, default=None, metavar="N",
-                   help="data-parallel serving over N devices (ROADMAP "
-                        "item 11: raises above 1)")
+                   help="data-parallel serving over N devices "
+                        "(cuda:0..N-1)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip capturing the warm grid (the first request "
                         "per shape then pays its capture)")
@@ -321,19 +360,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--show", action="store_true",
                    help="cv2.imshow the result (not ported: raises)")
     p.add_argument("--spatial", type=int, default=None, metavar="N",
-                   help="row-shard the model over N devices (ROADMAP item "
-                        "11: raises)")
+                   help="test: row-shard the model over N ranks, one "
+                        "process a card (halo'd convs, ring correlation)")
     p.add_argument("--demo-train", action="store_true",
                    help="shortcut: train raft-small on the synthetic "
                         "dataset (no --data) for a few hundred steps")
-    p.add_argument("--shard-data", action="store_true",
-                   help="multi-host train (ROADMAP item 11: raises)")
-    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host train (ROADMAP item 11: raises)")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host train (ROADMAP item 11: raises)")
-    p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host train (ROADMAP item 11: raises)")
+    add_multiprocess_flags(p)
     add_model_flags(p)
     add_config_flags(p)
     add_telemetry_flags(p)
@@ -361,20 +393,6 @@ def check_unported(args) -> None:
     if getattr(args, "engine_cache_dir", None):
         raise NotImplementedError("--engine-cache-dir (the AOT engine "
                                   "cache) is ROADMAP item 9c")
-    if (getattr(args, "serve_dp", None) or 1) > 1:
-        raise NotImplementedError("--serve-dp (data-parallel serving) is "
-                                  "ROADMAP item 11")
-    if getattr(args, "spatial", None):
-        raise NotImplementedError("--spatial (row-sharded inference over "
-                                  "devices) is ROADMAP item 11")
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag, None) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} (multi-process training) is "
-                f"ROADMAP item 11")
-    if getattr(args, "shard_data", False):
-        raise NotImplementedError("--shard-data (multi-process training) "
-                                  "is ROADMAP item 11")
     if getattr(args, "show", False):
         raise NotImplementedError(
             "--show is cv2.imshow: the port has no OpenCV and the card's "
@@ -495,9 +513,76 @@ def _sync(device) -> None:
 
 # -- the modes ----------------------------------------------------------------
 
+def _timed_pair(fn, device, trace, *args):
+    """``fn(*args)`` twice: the first call (a capture on the card) and a
+    steady one, the second profiled under ``trace``; returns the first's
+    flow on the host and the two times (s)."""
+    from .telemetry.trace import TraceWindow
+    t0 = time.perf_counter()
+    flow = fn(*args).cpu().numpy()
+    t1 = time.perf_counter()
+    window = TraceWindow(trace, first=1, steps=1, log_fn=print)
+    window.on_step(1)
+    try:
+        fn(*args)
+        _sync(device)
+        t2 = time.perf_counter()
+    finally:
+        window.stop()
+    return flow, t1 - t0, t2 - t1
+
+
+def _spatial_rank(rank: int, world: int, args, im1, im2):
+    """One rank of ``-m test --spatial``: its card (or the CPU), its
+    copy of the weights, its row slabs; returns rank 0's gathered flow and
+    the times."""
+    from .parallel import (SPATIAL_AXIS, gather_rows, make_mesh,
+                           make_shard_inference_fn, shard_rows)
+    config = make_config(args)
+    mesh = make_mesh((SPATIAL_AXIS,), device="cpu" if args.cpu else None)
+    model = load_model(args, config).to(mesh.device)
+    fn = make_shard_inference_fn(config, mesh)
+
+    def run(a, b):
+        return gather_rows(fn(model, a, b), mesh)
+    flow, first, steady = _timed_pair(
+        run, mesh.device, args.trace if rank == 0 else None,
+        shard_rows(im1, mesh), shard_rows(im2, mesh))
+    return (flow if rank == 0 else None), first, steady
+
+
+def _test_spatial(args, config, im1, im2):
+    """``-m test --spatial N``: the JAX CLI's checks (N devices, H a
+    multiple of ``required_h_multiple``; each an ``ERROR`` line and exit
+    2), then N ranks (``parallel/launch.py``); returns (flow, first,
+    steady) or the exit code."""
+    from .parallel.distributed import default_backend
+    from .parallel.launch import run_ranks
+    from .parallel.spatial import required_h_multiple
+    n = args.spatial
+    have = os.cpu_count() if args.cpu else torch.cuda.device_count()
+    if not args.cpu and have < n:
+        print(f"ERROR: --spatial {n} needs {n} devices, have {have}")
+        return 2
+    need = required_h_multiple(config, n)
+    h = im1.shape[1]
+    if h % need:
+        print(f"ERROR: --spatial {n} requires H divisible by {need} "
+              f"(8 * N devices * 2^(corr_levels-1)); got H={h}. "
+              f"Pick --size accordingly, e.g. H={((h // need) + 1) * need}")
+        return 2
+    print(f"[test] sequence-parallel: rows sharded over {n} "
+          f"{'CPU processes' if args.cpu else 'cards'}")
+    res = run_ranks(_spatial_rank, n, args=(args, im1, im2),
+                    backend=default_backend("cpu" if args.cpu else "cuda"),
+                    threads=max(1, have // n) if args.cpu else None,
+                    deadline_s=3600)
+    flow, first, _ = res[0]
+    return flow, first, max(r[2] for r in res)
+
+
 def mode_test(args) -> int:
     from .models.raft import make_inference_fn
-    from .telemetry.trace import TraceWindow
     from .utils.flow_io import write_flo
     from .utils.flow_viz import flow_to_color
     from .imageio import write_image
@@ -505,25 +590,22 @@ def mode_test(args) -> int:
     config = make_config(args)
     start_run_log(args, config)
     device = device_of(args)
-    model = load_model(args, config)
     im1, im2 = read_pair(args)
     if args.batch > 1:
         im1 = np.repeat(im1, args.batch, axis=0)
         im2 = np.repeat(im2, args.batch, axis=0)
-    fn = make_inference_fn(config, device=device)
-    t0 = time.perf_counter()
-    flow = fn(model, im1, im2).cpu().numpy()
-    t1 = time.perf_counter()
-    window = TraceWindow(args.trace, first=1, steps=1, log_fn=print)
-    window.on_step(1)
-    try:
-        fn(model, im1, im2)
-        _sync(device)
-        t2 = time.perf_counter()
-    finally:
-        window.stop()
-    print(f"flow {flow.shape}  first call {t1 - t0:.3f}s  steady "
-          f"{(t2 - t1) * 1e3:.3f} ms")
+    if args.spatial and args.spatial > 1:
+        out = _test_spatial(args, config, im1, im2)
+        if isinstance(out, int):
+            return out
+        flow, first, steady = out
+    else:
+        model = load_model(args, config)
+        fn = make_inference_fn(config, device=device)
+        flow, first, steady = _timed_pair(fn, device, args.trace, model,
+                                          im1, im2)
+    print(f"flow {flow.shape}  first call {first:.3f}s  steady "
+          f"{steady * 1e3:.3f} ms")
 
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -656,6 +738,10 @@ def main(argv=None) -> int:
         # stack and the model's NaN sentinel read this variable
         os.environ["RAFT_TPU_WATCHDOGS"] = "1"
     device_of(args)                 # no CUDA and no --cpu: raise, run nothing
+    if args.mode == "train":
+        # before anything touches a device: join the run's process group
+        # (the flags or their RAFT_TPU_* variables; one process: no-op)
+        init_distributed(args)
     return {"test": mode_test, "flops": mode_flops, "export": mode_export,
             "val": mode_val, "train": mode_train,
             "serve": mode_serve}[args.mode](args)

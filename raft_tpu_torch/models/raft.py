@@ -64,6 +64,14 @@ coordinates and the upsampling stay float32.  ``quant='bf16w'`` stores the
 encoders' weights bfloat16 (:func:`cast_encoder_weights`) and, under
 float32 compute, up-casts them in each forward, as JAX does in-graph.
 
+Row-sharded (``ops/spmd.py::spatial_sharding`` active, the forward of
+``parallel/spatial.py::make_shard_inference_fn``): the inputs are row
+slabs of the images, the ops exchange halos and reduce statistics over
+the ranks, the lookup is the ring (:func:`prepare_loop`) and the base
+coordinates are offset to the slab's global rows; the converge policy,
+``gru_impl='pallas'``, ragged batches, training and CUDA graph capture
+raise there (:func:`_check_sharded`).
+
 Entry points (:func:`init_raft_torch` and every factory) run on CUDA
 unless the caller passes ``device="cpu"``, and raise when CUDA is absent
 and the CPU was not asked for.  On CUDA the factories' functions replay
@@ -93,6 +101,7 @@ from ..ops.corr import (build_pyramid, lookup_blockwise_onehot, lookup_dense,
                         lookup_ragged_plain, mask_ragged_rows)
 from ..ops.corr_cuda import (make_fused_lookup, make_ragged_fused_lookup,
                              make_window_lookup)
+from ..ops import spmd
 from ..ops.gru_cuda import fuse_gru_weights, prepare_gru_weights
 from ..ops.upsample import convex_upsample_flow, upflow8
 from ..telemetry.watchdogs import nan_guard, nan_tally
@@ -224,6 +233,43 @@ def _check_model_dtype(model: RAFT, config: RAFTConfig,
                 f"the model's {name} weights are {got}, compute_dtype="
                 f"{config.compute_dtype!r} needs {want}: cast the model once "
                 f"(model.to({want})) or build it with init_raft_torch(config)")
+
+
+def _check_sharded(config: RAFTConfig, ragged: bool = False,
+                   train: bool = False) -> None:
+    """Under an active row-sharding context (``ops/spmd.py``), raise for
+    what row-sharded execution does not run, with the JAX package's
+    messages (``_validate_loop_config``, ``_iterate_flow``), before any
+    compute; a no-op otherwise."""
+    if spmd.spatial_axis() is None:
+        return
+    policy, _, _ = parse_iters_policy(config.iters_policy)
+    if policy == "converge":
+        raise NotImplementedError(
+            "iters_policy='converge:...' under row-sharded (spatial) "
+            "execution is not wired: each shard would measure "
+            "\u2016\u0394flow\u2016 on its local slab only and freeze samples at "
+            "different iterations; use iters_policy='fixed'.")
+    if config.gru_impl == "pallas":
+        raise NotImplementedError(
+            "gru_impl='pallas' under row-sharded (spatial) execution is not "
+            "wired: the kernel's row halo does not exchange across shards; "
+            "use gru_impl='xla' (conv2d halo-exchanges automatically).")
+    if ragged:
+        raise NotImplementedError(
+            "ragged mixed-resolution batches under row-sharded (spatial) "
+            "execution are not wired: per-item page schedules would "
+            "straddle shard slabs; use the dense bucket path.")
+    if train:
+        raise NotImplementedError(
+            "training under row sharding is ROADMAP item 11b: the halo "
+            "exchanges and the ring lookup have no backward yet; train "
+            "data-parallel (parallel/data_parallel.py)")
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise NotImplementedError(
+            "capturing row-sharded inference as a CUDA graph is ROADMAP "
+            "item 11b: its collectives are issued from the host; "
+            "make_shard_inference_fn runs eagerly")
 
 
 def _encode(encoder: nn.Module, x: torch.Tensor, config: RAFTConfig
@@ -363,7 +409,8 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
                  all_flows: Optional[bool] = None,
                  flow_init: Optional[torch.Tensor] = None,
                  sizes: Optional[torch.Tensor] = None, train: bool = False,
-                 freeze_bn: bool = False, dropout_masks=None) -> RAFTOutput:
+                 freeze_bn: bool = False, dropout_masks=None,
+                 sync_axis: Optional[spmd.Axis] = None) -> RAFTOutput:
     """RAFT on the device of the inputs, the JAX package's ``raft_forward``.
     image1/image2 [B, H, W, 3] float32 in [0, 1], H and W multiples of 8;
     ``flow_init`` [B, H/8, W/8, 2] or None.  ``config`` selects the paths
@@ -398,9 +445,14 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     gradient reaches the masters through the cast; the batch-norm
     statistics stay float32 buffers (:class:`~raft_tpu_torch.ops.norm.
     BatchNorm` reads them rounded to bfloat16 and writes the update back
-    in float32, or under ``freeze_bn`` leaves them untouched)."""
+    in float32, or under ``freeze_bn`` leaves them untouched).
+
+    ``sync_axis`` (the JAX package's ``axis_name``): the data axis of a
+    data-parallel step; a training forward's batch norms then use the
+    global batch's statistics (``ops/norm.py::SyncStats``)."""
     all_flows = train if all_flows is None else all_flows
     check_port_support(config)
+    _check_sharded(config, ragged=sizes is not None, train=train)
     _check_model_dtype(model, config, train)
     B = check_images(image1, image2)[0]
     if sizes is not None:
@@ -414,7 +466,7 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     cast = MasterCast(model, config)
 
     def forward():
-        with bn_training(model, not freeze_bn):
+        with bn_training(model, not freeze_bn, sync_axis):
             core = _pair_core(model, image1, image2, config, flow_init, sizes,
                               dropout_masks)
         return _train_iterations(model, core, config, iters, all_flows, cast)
@@ -459,20 +511,23 @@ class MasterCast:
 
 
 @contextlib.contextmanager
-def bn_training(model: nn.Module, on: bool):
+def bn_training(model: nn.Module, on: bool,
+                sync_axis: Optional[spmd.Axis] = None):
     """Every batch norm of ``model`` on its batch's statistics (``on``) or
     on its running ones inside the block (``ops/norm.py::BatchNorm.
-    batch_stats``), each module's setting restored after it."""
+    batch_stats``), the batch's synchronized over ``sync_axis`` when one is
+    given (``BatchNorm.sync_axis``), each module's settings restored after
+    it."""
     from ..ops.norm import BatchNorm
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
-    saved = [m.batch_stats for m in norms]
+    saved = [(m.batch_stats, m.sync_axis) for m in norms]
     for m in norms:
-        m.batch_stats = on
+        m.batch_stats, m.sync_axis = on, sync_axis
     try:
         yield
     finally:
-        for m, t in zip(norms, saved):
-            m.batch_stats = t
+        for m, (t, a) in zip(norms, saved):
+            m.batch_stats, m.sync_axis = t, a
 
 
 def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
@@ -566,6 +621,7 @@ def forward_from_features(model: RAFT, fmap1: torch.Tensor,
     ragged batch), each or None.  What :func:`raft_forward` computes on
     the frames the features came from."""
     check_port_support(config)
+    _check_sharded(config, ragged=sizes8 is not None)
     _check_model_dtype(model, config)
     core = _features_core(fmap1, fmap2, cnet1, config, flow_init, active, sizes8)
     return _iterate_flow(model, *core[:4], config,
@@ -598,12 +654,27 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
     batch under 'dense' or 'blockwise' takes the masked plain twin, as in
     JAX (the volume has no ragged form).  The context terms are hoisted
     unless ``gru_ctx_hoist=False`` under ``gru_impl='xla'``."""
+    _check_sharded(config, ragged=sizes8 is not None)
     B, _, h, w = fmap1.shape
     f1 = to_nhwc(fmap1)
     f2 = to_nhwc(fmap2)
     r, L, prec = config.corr_radius, config.corr_levels, config.corr_precision
     pallas = config.corr_impl == "pallas"
-    if sizes8 is not None and pallas:
+    axis = spmd.spatial_axis()
+    if axis is not None:
+        # row-sharded (parallel/spatial.py): the correlation must see all
+        # of fmap2, which is sharded -> the ring pass; under 'pallas' each
+        # slab's partial is a lookup kernel's call
+        from ..parallel.spatial import make_ring_lookup_local
+        lookup = make_ring_lookup_local(
+            f1, f2, L, r, axis, precision=prec,
+            kernel="pallas" if pallas else "onehot",
+            pallas_opts=dict(q_blk=config.pallas_q_blk,
+                             p_blk_target=config.pallas_p_blk,
+                             lookup_style=config.pallas_lookup_style,
+                             p_select=config.pallas_p_select,
+                             pack_rows=config.pallas_pack))
+    elif sizes8 is not None and pallas:
         lookup = make_ragged_fused_lookup(f1, f2, sizes8, L, r, prec)
     elif sizes8 is not None:                # the masked plain twin
         f1m, levels = lookup_operands(f1, f2, L, prec, sizes8)
@@ -630,6 +701,9 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
             return sample(f1p, levels, coords, r)
 
     coords0 = coords_grid(B, h, w, device=f1.device)
+    if axis is not None:
+        # slab -> global rows: the queries address the whole image's plane
+        coords0[..., 1] += float(axis.index * h)
     gru = model.update_block.gru
     if not (config.gru_ctx_hoist or config.gru_impl == "pallas"):
         return LoopState(lookup, None, None, None, coords0, inp)

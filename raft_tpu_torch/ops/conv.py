@@ -13,6 +13,11 @@ bfloat16 (two roundings).  ``F.conv2d`` with a bias would round once, after
 the add, on the CPU.  On the GPU the bias is a separate add after cuDNN's
 conv either way, so the launches are the same.  Float32 convs keep
 ``F.conv2d``'s bias.
+
+Inside an active ``ops/spmd.py::spatial_sharding`` context the activations
+are row slabs: :func:`conv_nchw` takes its H padding from a halo exchange
+with the neighbouring ranks instead of zeros (the JAX package's
+``conv2d``), so a row-sharded model convolves as the unsharded one.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from . import spmd
 
 KernelSize = Union[int, Tuple[int, int]]
 
@@ -42,8 +49,13 @@ def conv_nchw(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
               stride: int = 1) -> torch.Tensor:
     """``F.conv2d`` of NCHW ``x`` with OIHW ``w`` and symmetric ``k//2``
     padding; a bfloat16 conv's bias is added after its output is rounded
-    (the module docstring)."""
-    pad = (w.shape[2] // 2, w.shape[3] // 2)
+    (the module docstring); row-sharded, the H padding is a halo."""
+    kh = w.shape[2]
+    pad = (kh // 2, w.shape[3] // 2)
+    if kh > 1 and spmd.spatial_axis() is not None:
+        # exchanged as NHWC rows, so a channels_last slab stays one
+        x = to_nchw(spmd.halo_exchange(to_nhwc(x), kh // 2, dim=1))
+        pad = (0, pad[1])
     if b is None or w.dtype != torch.bfloat16:
         return F.conv2d(x, w, b, stride=stride, padding=pad)
     return F.conv2d(x, w, None, stride=stride, padding=pad).add_(b[:, None, None])

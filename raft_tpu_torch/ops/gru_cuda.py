@@ -54,10 +54,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
-from .conv import to_nchw, to_nhwc
+from .conv import conv_nchw, to_nchw, to_nhwc
 from ..telemetry.trace import stage
 from .corr_cuda import LIB
 
@@ -177,10 +176,10 @@ def sep_conv_gru_plain(fw: Dict[str, torch.Tensor], h: torch.Tensor,
         c = to_nchw(cs.float())
 
         def conv(x, w, s=s):
+            # conv_nchw: row-sharded, the 5x1 pass's H padding is a halo
             w = w.permute(2, 1, 0)                        # [Cout, Cin, 5]
-            if s == "1":
-                return F.conv2d(x, w[:, :, None, :], padding=(0, 2))
-            return F.conv2d(x, w[:, :, :, None], padding=(2, 0))
+            return conv_nchw(x, w[:, :, None, :] if s == "1"
+                             else w[:, :, :, None], None)
 
         zr = conv(torch.cat([hf, mot], dim=1), fw["wzr" + s])
         z = torch.sigmoid(zr[:, :hidden] + c[:, :hidden])

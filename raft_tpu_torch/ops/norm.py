@@ -22,23 +22,52 @@ written back to the buffers, float32 masters under bfloat16 training).  That is 
 ``nn.BatchNorm2d``'s update, whose defaults are close; the port holds
 JAX's formula.  In eval mode (``freeze_bn``) the running statistics are
 used and left untouched, and the affine parameters still get gradients.
+
+Two statistics are reduced across ranks, as the JAX package reduces them:
+
+* row-sharded (``ops/spmd.py::spatial_sharding`` active), instance norm
+  takes the mean over the ranks of the slabs' mean and ``E[x^2]``, and
+  ``var = max(E[x^2] - mean^2, 0)`` (so a one-rank run is not bitwise the
+  unsharded norm, whose variance is two-pass);
+* data-parallel training (a data :class:`~raft_tpu_torch.ops.spmd.Axis`
+  given to :func:`batch_norm_train`, which :class:`BatchNorm` passes from
+  its ``sync_axis``), the batch mean and ``E[x^2]`` are averaged over the
+  ranks (synchronized batch norm): :class:`SyncStats` takes the mean in the
+  forward and all-reduces the two statistics' cotangents in the backward,
+  the transpose of JAX's ``pmean``.  ``nn.SyncBatchNorm`` is not used: it
+  runs on CUDA only and its Welford statistics are not this formula.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn as nn
+
+from . import spmd
 
 EPS = 1e-5
 
 
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Per-sample, per-channel normalization over H, W of NCHW ``x``; the
-    statistics in float32, rounded to ``x``'s dtype before they apply."""
+    statistics in float32, rounded to ``x``'s dtype before they apply.
+    Row-sharded, the statistics of the whole image (the module
+    docstring)."""
     xf = x.float()
-    mean = xf.mean(dim=(2, 3), keepdim=True)
-    var = xf.var(dim=(2, 3), unbiased=False, keepdim=True)
+    ax = spmd.spatial_axis()
+    if ax is None:
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = xf.var(dim=(2, 3), unbiased=False, keepdim=True)
+    else:
+        # equal slabs: the mean of the slabs' means is the image's
+        stats = spmd.pmean(torch.stack([xf.mean(dim=(2, 3)),
+                                        xf.square().mean(dim=(2, 3))]), ax)
+        mean = stats[0][:, :, None, None]
+        # E[x^2] - mean^2 can cancel below 0 in float32: NaN via rsqrt
+        var = (stats[1][:, :, None, None] - mean.square()).clamp_min(0.0)
     return (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
 
 
@@ -51,17 +80,41 @@ def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     return (x - c(mean)) * torch.rsqrt(c(var) + eps) * c(gamma) + c(beta)
 
 
+class SyncStats(torch.autograd.Function):
+    """``(mean, mean2) -> their means over the ranks of axis``: JAX's
+    ``pmean`` of the two batch statistics, whose transpose is the
+    ``pmean`` of the cotangents, all-reduced here in the backward."""
+
+    @staticmethod
+    def forward(ctx, mean, mean2, axis):
+        ctx.axis = axis
+        both = spmd.pmean(torch.stack([mean, mean2]), axis)
+        return both[0], both[1]
+
+    @staticmethod
+    def backward(ctx, g_mean, g_mean2):
+        both = spmd.pmean(torch.stack([g_mean, g_mean2]), ctx.axis)
+        return both[0], both[1], None
+
+
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
-                     beta: torch.Tensor, eps: float = EPS):
+                     beta: torch.Tensor, eps: float = EPS,
+                     axis: Optional[spmd.Axis] = None):
     """Training-mode batch norm of NCHW ``x``: returns the output and the
     batch statistics ``(mean, var_unbiased)`` [C] for the running update,
     the mean in ``x``'s dtype and the unbiased variance in float32 (the
-    JAX package's types: its biased variance times a float32 ratio)."""
+    JAX package's types: its biased variance times a float32 ratio).
+    ``axis``: the data axis of a data-parallel step; the statistics are
+    then those of the global batch (:class:`SyncStats`), ``n`` counting
+    every rank's pixels."""
     def c(t):
         return t[None, :, None, None]
     n = x.shape[0] * x.shape[2] * x.shape[3]
     mean = x.mean(dim=(0, 2, 3))
     mean2 = torch.square(x).mean(dim=(0, 2, 3))
+    if axis is not None and axis.group is not None:
+        mean, mean2 = SyncStats.apply(mean, mean2, axis)
+        n *= axis.size
     var = mean2 - torch.square(mean)
     out = (x - c(mean)) * torch.rsqrt(c(var) + eps) * c(gamma) + c(beta)
     # n / max(n - 1, 1) in float32, as the JAX package computes it, on the
@@ -88,6 +141,7 @@ class BatchNorm(nn.Module):
 
     momentum = 0.1
     batch_stats = False
+    sync_axis = None          # the data axis of a data-parallel step
 
     def __init__(self, c: int):
         super().__init__()
@@ -104,7 +158,8 @@ class BatchNorm(nn.Module):
         var_r = self.running_var.to(x.dtype)
         if not self.batch_stats:
             return batch_norm(x, mean_r, var_r, self.weight, self.bias)
-        out, (mean, var) = batch_norm_train(x, self.weight, self.bias)
+        out, (mean, var) = batch_norm_train(x, self.weight, self.bias,
+                                            axis=self.sync_axis)
         m = self.momentum
         with torch.no_grad():
             # the JAX package's types: the mean's update in x's dtype, the

@@ -17,8 +17,9 @@ for trying the stack out)::
 ``.pth``, the reference's npz, a training checkpoint, the native npz).
 Without it the server uses seeded random weights and warns.  ``--dtype``
 defaults to float32 (the JAX CLI picks bfloat16 only on a TPU).
-``--engine-cache-dir`` (the AOT cache, ROADMAP item 9c) and ``--serve-dp``
-above 1 (data-parallel serving, item 11) raise NotImplementedError.
+``--serve-dp N`` serves each batch over ``cuda:0..N-1`` (one replica a
+card; batch steps rounded up to multiples of N).  ``--engine-cache-dir``
+(the AOT cache, ROADMAP item 9c) raises NotImplementedError.
 """
 
 from __future__ import annotations

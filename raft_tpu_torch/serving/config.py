@@ -7,10 +7,11 @@ batch steps.  The engine warms the full (bucket x batch-step) grid before
 the first request — in the port each key's CUDA graph is captured
 (``models/capture.py``) — so steady-state serving only replays.
 
-Two values the port does not implement yet raise ``NotImplementedError``
-naming their ROADMAP item (no quiet fallback): ``engine_cache_dir`` (the
-AOT engine cache, item 9c) and ``dp_devices > 1`` (data-parallel serving,
-item 11).
+``dp_devices = N`` serves each device call over N devices
+(``parallel/data_parallel.py::make_dp_eval_fn``): the batch steps are
+rounded up to multiples of N, and ragged serving with N > 1 raises, as in
+the JAX package.  ``engine_cache_dir`` (the AOT engine cache, ROADMAP item
+9c) raises ``NotImplementedError`` naming its item (no quiet fallback).
 """
 
 from __future__ import annotations
@@ -84,9 +85,9 @@ class ServeConfig:
     # available as FlowServer.port — what the bench and tests use).
     host: str = "127.0.0.1"
     port: int = 8000
-    # Shard each device call over N local devices; batch steps are rounded
-    # up to multiples of N.  1 = single device (the port's only value so
-    # far: > 1 raises, ROADMAP item 11).
+    # Shard each device call over N local devices (cuda:0..N-1, one replica
+    # of the captured forward each); batch steps are rounded up to
+    # multiples of N.  1 = single device.
     dp_devices: int = 1
     # Capture every (bucket, batch-step) key's CUDA graph before accepting
     # traffic.  Off skips straight to lazy captures (the first request per
@@ -205,10 +206,6 @@ class ServeConfig:
             raise ValueError(f"queue_depth must be >= 1, got {self.queue_depth}")
         if self.dp_devices < 1:
             raise ValueError(f"dp_devices must be >= 1, got {self.dp_devices}")
-        if self.dp_devices > 1:
-            raise NotImplementedError(
-                f"dp_devices={self.dp_devices}: data-parallel serving is not "
-                f"ported yet (ROADMAP item 11); serve on one device")
         if self.engine_cache_dir is not None:
             raise NotImplementedError(
                 "engine_cache_dir: the AOT engine cache is not ported yet "
@@ -266,6 +263,11 @@ class ServeConfig:
         steps = tuple(sorted(set(self.batch_steps)))
         if not steps or steps[0] < 1:
             raise ValueError(f"batch_steps must be positive, got {steps}")
+        if self.dp_devices > 1:
+            # the batch splits evenly over the devices, so every executed
+            # size must divide: round each step UP to a multiple of N
+            n = self.dp_devices
+            steps = tuple(sorted({-(-s // n) * n for s in steps}))
         if steps[-1] < self.max_batch:
             raise ValueError(f"largest batch step {steps[-1]} < max_batch "
                              f"{self.max_batch}: full batches could never run")
@@ -274,6 +276,11 @@ class ServeConfig:
         if self.ragged_batch_pixels < 0:
             raise ValueError(f"ragged_batch_pixels must be >= 0 (0 = no "
                              f"cap), got {self.ragged_batch_pixels}")
+        if self.ragged and self.dp_devices > 1:
+            raise NotImplementedError(
+                "ragged serving under dp_devices > 1 is not wired: the "
+                "ragged model entry points are single-mesh; use dense "
+                "buckets or dp_devices=1")
 
     @property
     def max_box(self) -> Tuple[int, int]:

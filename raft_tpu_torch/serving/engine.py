@@ -29,6 +29,12 @@ model on the host with no lock held, and runs the probe's device work on
 the engine's one probe thread, whose cuDNN choices warmup makes (see
 :meth:`InferenceEngine._on_probe_thread`).
 
+``ServeConfig(dp_devices=N)``: each pair call splits its batch over
+``cuda:0..N-1`` (``parallel/data_parallel.py::make_dp_eval_fn``, one
+replica of the model and of the captured forward a card; on the CPU, N
+replicas of the CPU model), and the engine raises when fewer cards exist.
+The streaming calls stay on the first device, as in the JAX package.
+
 On CUDA the engine turns ``torch.backends.cudnn.benchmark`` on before it
 captures anything: a graph keeps the cuDNN algorithms it was captured
 with, and with TF32 off the heuristic choice of some motion-encoder convs
@@ -140,14 +146,31 @@ class InferenceEngine:
         if self._cuda:
             torch.backends.cudnn.benchmark = True
         dev = self.device
-        if self.ragged:
-            make = (rm.make_ragged_counted_inference_fn if self.adaptive
-                    else rm.make_ragged_inference_fn)
+        self._replicas = None
+        if sconfig.dp_devices > 1:
+            from ..parallel.data_parallel import make_dp_eval_fn, replicate
+            n = sconfig.dp_devices
+            if self._cuda:
+                have = torch.cuda.device_count()
+                if have < n:
+                    raise ValueError(f"dp_devices={n} but only {have} "
+                                     f"device(s) visible")
+                devices = [torch.device("cuda", i) for i in range(n)]
+            else:
+                devices = [dev] * n       # one process, n CPU replicas
+            self._replicas = replicate(self.model, devices)
+            self._fn = make_dp_eval_fn(config, devices, iters=iters,
+                                       with_iters=self.adaptive)
+            self._factories = list(self._fn.factories)
         else:
-            make = (rm.make_counted_inference_fn if self.adaptive
-                    else rm.make_inference_fn)
-        self._fn = make(config, iters=iters, device=dev)
-        self._factories = [self._fn]
+            if self.ragged:
+                make = (rm.make_ragged_counted_inference_fn if self.adaptive
+                        else rm.make_ragged_inference_fn)
+            else:
+                make = (rm.make_counted_inference_fn if self.adaptive
+                        else rm.make_inference_fn)
+            self._fn = make(config, iters=iters, device=dev)
+            self._factories = [self._fn]
         self.stream = stream
         self.pool = pool                  # session.SlotPool (stream servers)
         if stream:
@@ -191,6 +214,21 @@ class InferenceEngine:
         with the shape, so a graph can never be reused under a different
         compute policy than it was warmed with."""
         return (kind, h, w, b, self.iters_policy)
+
+    def _pair_models(self):
+        """What the pair function takes: the model, or under
+        ``dp_devices > 1`` its replicas, one a device."""
+        return self.model if self._replicas is None else self._replicas
+
+    def _models(self):
+        """Every distinct model the engine serves from (a reload copies
+        into each)."""
+        seen, out = set(), []
+        for m in [self.model] + list(self._replicas or []):
+            if id(m) not in seen:
+                seen.add(id(m))
+                out.append(m)
+        return out
 
     def captures(self) -> int:
         """CUDA graphs captured so far by the engine's factories (0 on the
@@ -246,7 +284,7 @@ class InferenceEngine:
         img = np.zeros((b, h, w, 3), np.float32)
         sz = (self._sizes_arg(b, None),) if self.ragged else ()
         if kind == "pair":
-            return lambda: self._fn(self.model, img, img, *sz)
+            return lambda: self._fn(self._pair_models(), img, img, *sz)
         if kind == "encode":
             return lambda: self._encode_fn(self.model, img)
         if kind == "stream":
@@ -462,9 +500,10 @@ class InferenceEngine:
         probed = probe and self._probe(staged)
         with self._device_lock:
             with torch.no_grad():
-                live = self.model.state_dict(keep_vars=True)
-                for name, t in live.items():
-                    t.copy_(staged[name])
+                for model in self._models():
+                    live = model.state_dict(keep_vars=True)
+                    for name, t in live.items():
+                        t.copy_(staged[name])
         with self._lock:
             self.weight_version += 1
             self.weight_tag = tag
@@ -507,7 +546,7 @@ class InferenceEngine:
             # dispatch vs ready: the replay returns once its work is
             # enqueued; the copy to the host is what waits for the device
             times.append(time.monotonic())
-            out = self._fn(self.model, *args)
+            out = self._fn(self._pair_models(), *args)
             times.append(time.monotonic())
             out = ((_host(out[0]), _host(out[1])) if self.adaptive
                    else _host(out))

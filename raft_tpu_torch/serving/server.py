@@ -659,6 +659,7 @@ def serve_cli(args, config: RAFTConfig, load_model) -> int:
             queue_depth=args.queue_depth,
             default_deadline_ms=args.deadline_ms,
             host=args.host, port=args.port,
+            dp_devices=getattr(args, "serve_dp", None) or 1,
             warmup=not args.no_warmup,
             iters_policy=getattr(args, "iters_policy", None),
             trace_sample=getattr(args, "trace_sample", 1.0),

@@ -37,6 +37,15 @@ so.  A preempted training run
 (SIGTERM/SIGINT) writes an emergency checkpoint and exits 17; the same
 command resumes from the newest readable checkpoint in
 ``<--out>/checkpoints``.
+
+Multi-process (data-parallel) training runs this command once per rank
+with ``--coordinator HOST:PORT --num-processes N --process-id I`` (or
+``RAFT_TPU_COORDINATOR`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID``), each rank
+on its own card (``cuda:<rank>``; ``--cpu``: gloo on the CPU).
+``--batch`` is the global batch: each rank keeps its slice of the same
+deterministic sample stream, or with ``--shard-data`` reads its own 1/N of
+the dataset (seeds offset by rank); ``--workers`` needs ``--shard-data``.
+Rank 0 alone writes checkpoints and ``metrics.jsonl``.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--mode", default="train", choices=["train", "val"],
                    help="train (default) or val: EPE over a dataset")
     cli.add_train_flags(p, dataset_default="synthetic")
+    cli.add_multiprocess_flags(p)
     cli.add_model_flags(p)
     cli.add_dtype_flag(p)
     cli.add_telemetry_flags(p)
@@ -106,16 +116,52 @@ def make_train_config(args):
     return TrainConfig.for_stage(args.dataset, **overrides)
 
 
+def _local_slices(batches, sl: slice):
+    for b in batches:
+        yield tuple(x[sl] for x in b)
+
+
 def make_batches(args, tconfig, device, faults):
     """The training batches of ``--dataset``/``--data``: (PrefetchLoader,
-    MPSampleLoader or None).  The caller closes both."""
-    from ..data.datasets import make_training_dataset
+    MPSampleLoader or None).  The caller closes both.
+
+    Multi-process: ``tconfig.batch_size`` is the global batch.  Every rank
+    builds the same deterministic stream and keeps its
+    ``local_batch_slice`` (the single-process batches, cut); with
+    ``--shard-data`` it reads only its 1/N of the dataset
+    (``ShardedDataset``), its local batch straight from it, seeds offset
+    by ``1000003 * rank``.  The device augmentation's seed is offset by
+    ``999983 * rank`` (each rank augments other samples)."""
+    from ..data.datasets import ShardedDataset, make_training_dataset
     from ..data.pipeline import BatchBuffers, PrefetchLoader, batched
+    from ..parallel.distributed import local_batch_slice, process_info
+    pid, pcount = process_info()
+    if pcount > 1 and tconfig.batch_size % pcount:
+        raise ValueError(
+            f"global batch {tconfig.batch_size} must divide evenly across "
+            f"{pcount} processes (each loads batch/processes samples)")
+    shard_data = pcount > 1 and args.shard_data
+    if pcount > 1 and not shard_data and args.workers >= 1:
+        # worker arrival order is scheduling-dependent (data/mp_loader.py),
+        # so each rank would slice a differently ordered stream: samples
+        # trained twice or never, silently.  Refuse before anything starts
+        raise ValueError(
+            "--workers needs --shard-data under multi-host training: "
+            "the worker pool reorders samples per host, breaking the "
+            "identical-global-stream slicing. Pass --shard-data (each "
+            "host trains on its own 1/N of the data) or drop --workers "
+            "(decode runs in the prefetch thread).")
     device_aug = args.device_aug
     ds = make_training_dataset(args.dataset, args.data, tconfig.image_size,
                                device_aug=device_aug)
     print(f"[train] {args.dataset}: {len(ds)} samples, crop "
           f"{tconfig.image_size}, on {device}")
+    seed, local_batch = tconfig.seed, tconfig.batch_size
+    if shard_data:
+        ds = ShardedDataset(ds, pid, pcount)
+        seed = tconfig.seed + 1000003 * pid
+        local_batch = tconfig.batch_size // pcount
+        print(f"[train] data shard {pid}/{pcount}: {len(ds)} samples")
     augment_fn = None
     if device_aug:
         from ..data.augment_device import (DecodeOnlyDataset,
@@ -132,7 +178,7 @@ def make_batches(args, tconfig, device, faults):
         from ..data.mp_loader import MPSampleLoader
         transport = "pickle" if args.shm_slots == 0 else "shm"
         loader = MPSampleLoader(
-            ds, num_workers=args.workers, seed=tconfig.seed,
+            ds, num_workers=args.workers, seed=seed,
             start_method=args.mp_start,
             stall_timeout=args.stall_timeout or None, transport=transport,
             shm_slots=args.shm_slots or None, faults=faults,
@@ -143,12 +189,15 @@ def make_batches(args, tconfig, device, faults):
               f"{'' if device_aug else '/augment'} worker processes "
               f"({transport} transport)")
     else:
-        samples = ds.sample_iter(seed=tconfig.seed)
+        samples = ds.sample_iter(seed=seed)
     depth = args.prefetch_depth
-    raw = batched(samples, tconfig.batch_size,
-                  collator=BatchBuffers.for_loader(tconfig.batch_size, depth))
+    raw = batched(samples, local_batch,
+                  collator=BatchBuffers.for_loader(local_batch, depth))
+    if pcount > 1 and not shard_data:
+        raw = _local_slices(raw, local_batch_slice(tconfig.batch_size))
     return (PrefetchLoader(raw, device, buffer_size=depth,
-                           augment_fn=augment_fn, augment_seed=tconfig.seed),
+                           augment_fn=augment_fn,
+                           augment_seed=seed + 999_983 * pid),
             loader)
 
 
@@ -157,6 +206,8 @@ def train_cli(args, config) -> int:
     batches, the loop; returns the exit code (17 when preempted)."""
     from ..telemetry import events as tlm_events
     from .faults import make_train_injector
+    from ..parallel.distributed import process_info
+    from ..parallel.mesh import rank_device
     from .loop import train
     from .resilience import PREEMPT_EXIT_CODE, TrainingPreempted
 
@@ -169,6 +220,9 @@ def train_cli(args, config) -> int:
             print(f"ERROR: --{flag.replace('_', '-')} out of range: {val}")
             return 2
     device = cli.device_of(args)
+    rank, world = process_info()
+    if world > 1 and device.type == "cuda":
+        device = rank_device(rank, world)     # this rank's own card
     chaos_spec = args.chaos_train or os.environ.get("RAFT_TPU_CHAOS_TRAIN")
     faults = make_train_injector(chaos_spec, run_log=tlm_events.current())
     if faults is not None:
@@ -220,6 +274,8 @@ def main(argv=None) -> int:
         os.environ["RAFT_TPU_WATCHDOGS"] = "1"
     config = make_config(args)
     cli.start_run_log(args, config)
+    if args.mode == "train":
+        cli.init_distributed(args)
     if args.mode == "val":
         from .evaluate import evaluate_cli
         return evaluate_cli(args, config, cli.load_model)

@@ -12,9 +12,21 @@ the captured step (``training/capture.py``, the JAX loop's jitted step
 with the state donated): one capture per batch shape, the state updated
 in place, and every restore (resume, rollback) copied in place, so the
 graph reads it; on the CPU the step is eager.  The model holds float32
-master weights under both compute dtypes.  Data-parallel and multi-host
-training are ROADMAP item 11; the JAX loop's recompile watchdog has no
-counterpart here (a capture is per key, counted by ``captures``).
+master weights under both compute dtypes.  The JAX loop's recompile
+watchdog has no counterpart here (a capture is per key, counted by
+``captures``).
+
+Multi-process (``torch.distributed`` initialized with more than one rank,
+``parallel/distributed.py::initialize``): every rank runs this loop on its
+own device and its share of each global batch (``tconfig.batch_size`` is
+the global batch and must divide over the ranks), stepping through
+``parallel/data_parallel.py::make_dp_train_step`` (eager: the gradients,
+metrics and batch-norm statistics averaged over the ranks), from the same
+seeded initial state.  Only rank 0 writes checkpoints and
+``metrics.jsonl``; a resume is checked consistent first (every rank must
+have restored the same step, or the run raises); the divergence rollback
+is single-process only, as in the JAX loop (a per-rank rollback decision
+would split the replicated state).
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ from .resilience import (CheckpointWriter, LastGood, PreemptionGuard,
 from .state import TrainState
 from .step import make_train_step
 from ..convert.weights import from_jax_train_state
+from ..parallel.distributed import allgather_int, process_info
 
 
 def step_seed(seed: int, step: int, rollbacks: int = 0) -> int:
@@ -66,6 +79,21 @@ def train(config: RAFTConfig, tconfig: TrainConfig, batch_iter: Iterable,
     ``faults``: an armed ``training/faults.py::TrainFaultInjector`` or
     None.  ``device``: CUDA unless ``"cpu"`` is passed."""
     dev = resolve_device(device)
+    rank, world = process_info()
+    multihost = world > 1
+    is_main = rank == 0
+    mesh = None
+    if multihost:
+        if tconfig.batch_size % world:
+            raise ValueError(f"multi-host training requires global batch "
+                             f"{tconfig.batch_size} divisible by {world} "
+                             f"processes")
+        from ..parallel.mesh import DATA_AXIS, make_mesh
+        # this rank's card (cuda:<rank>), or the device the caller passed
+        mesh = make_mesh((DATA_AXIS,),
+                         device=None if device is None else dev)
+        dev = mesh.device
+    local_batch = tconfig.batch_size // world
     tx = make_optimizer(tconfig)
     # float32 masters under both compute dtypes (a bfloat16 forward casts
     # them in each step)
@@ -76,11 +104,20 @@ def train(config: RAFTConfig, tconfig: TrainConfig, batch_iter: Iterable,
         warm.load_state_dict(init_state, strict=True)
         model = warm.to(dev, torch.float32).eval()
     state = TrainState.create(model, tx)
-    if tconfig.batch_size % tconfig.accum_steps:
+    if local_batch % tconfig.accum_steps:
         raise ValueError(f"accum_steps {tconfig.accum_steps} must divide "
-                         f"the batch {tconfig.batch_size}")
-    step_fn = (GraphedTrainStep(config, tconfig, tx)
-               if dev.type == "cuda" else make_train_step(config, tconfig, tx))
+                         f"the batch {local_batch}" + (
+                             f" of each of the {world} processes (global "
+                             f"batch {tconfig.batch_size})" if multihost
+                             else ""))
+    if multihost:
+        from ..parallel.data_parallel import make_dp_train_step
+        step_fn = make_dp_train_step(config, tconfig, tx, mesh)
+        log_fn(f"[train] multi-host: {world} processes x 1 local device "
+               f"(global batch {tconfig.batch_size}) on {dev}")
+    else:
+        step_fn = (GraphedTrainStep(config, tconfig, tx) if dev.type == "cuda"
+                   else make_train_step(config, tconfig, tx))
 
     start_step = 0
     if ckpt_dir and resume:
@@ -90,6 +127,17 @@ def train(config: RAFTConfig, tconfig: TrainConfig, batch_iter: Iterable,
             state = restored
             start_step = state.step
             log_fn(f"[train] resumed from {latest} at step {start_step}")
+    if multihost:
+        # only rank 0 writes checkpoints, so a resume is consistent only
+        # when every rank restored the same state (a shared file system, or
+        # the checkpoints copied to every host); a divergent resume would
+        # train inconsistent replicas: fail loudly instead
+        steps = allgather_int(start_step, dev)
+        if len(set(steps)) != 1:
+            raise RuntimeError(
+                f"inconsistent multi-host resume: per-process restored steps "
+                f"{steps}; point every process at the same checkpoint "
+                f"directory (shared filesystem)")
 
     # profiler window: steps 5..5+trace_steps after the start (steady
     # state); a short run starts it at its first step
@@ -121,7 +169,8 @@ def train(config: RAFTConfig, tconfig: TrainConfig, batch_iter: Iterable,
             "raft_fault_injected_total",
             "Training chaos-harness fires by arm", labelnames=("arm",))
 
-    metrics_path = Path(ckpt_dir) / "metrics.jsonl" if ckpt_dir else None
+    metrics_path = (Path(ckpt_dir) / "metrics.jsonl"
+                    if ckpt_dir and is_main else None)
     if metrics_path:
         metrics_path.parent.mkdir(parents=True, exist_ok=True)
         if metrics_path.exists():
@@ -153,12 +202,14 @@ def train(config: RAFTConfig, tconfig: TrainConfig, batch_iter: Iterable,
     run_log = tlm_events.current()
     guard = PreemptionGuard().install()
     last_good = LastGood()
+    # the rollback is single-process: under multi-host a per-rank decision
+    # would diverge the replicated state
     sentinel_on = (bool(ckpt_dir) and tconfig.max_rollbacks > 0
-                   and tconfig.halt_on_nonfinite)
+                   and tconfig.halt_on_nonfinite and not multihost)
     if sentinel_on:
         last_good.update(start_step, host_state(state))
     writer = None
-    if ckpt_dir:
+    if ckpt_dir and is_main:
         writer = CheckpointWriter(
             log_fn=log_fn, sync=not tconfig.async_checkpointing,
             keep=tconfig.keep_checkpoints, faults=faults,

@@ -32,6 +32,7 @@ import torch
 
 from ..config import RAFTConfig, TrainConfig, adaptive_iters
 from ..models.raft import draw_dropout_masks, raft_forward, tf32_off
+from ..ops import spmd
 from .loss import sequence_loss
 from .optim import Optimizer, all_finite
 from .state import TrainState
@@ -74,8 +75,20 @@ def _on(batch, device: torch.device) -> Batch:
     return Batch(*(torch.as_tensor(x).to(device) for x in batch))
 
 
+def pmean_tensors(tensors, axis: spmd.Axis) -> list:
+    """The mean over ``axis``'s ranks of each tensor, as one all-reduce of
+    their concatenation (a bucket), in their dtypes."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = spmd.pmean(flat, axis)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
 def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
-                    tx: Optimizer):
+                    tx: Optimizer, axis: Optional[spmd.Axis] = None):
     """Returns ``step(state, batch, seed) -> (state, metrics)``.
 
     ``batch``: a :class:`Batch` (or a 4-tuple) of tensors or arrays,
@@ -95,6 +108,15 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
     clipping; under a converge policy ``metrics['mean_iters']`` is the
     mean of the samples' live iterations.
 
+    ``axis``: the data axis of a data-parallel step
+    (``parallel/data_parallel.py``): each rank steps on its rows of the
+    global batch, the training forward's batch-norm statistics are the
+    global batch's, and the gradients and the metrics are averaged over
+    the ranks after the backward (and the accumulation), before the
+    non-finite check, the clipping and the optimizer (the JAX package's
+    ``pmean`` over ``axis_name``): every rank sees the same gradients, so
+    all agree on skipping a non-finite one.
+
     ``step.compute(state, batch, masks)`` is the step's device work alone
     (``batch`` a :class:`Batch` of device tensors already checked,
     ``masks`` one :func:`step_masks` entry per micro-batch, each on the
@@ -105,7 +127,7 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
     def grad_fn(model, params, batch: Batch, masks):
         out = raft_forward(model, batch.image1, batch.image2, config,
                            train=True, freeze_bn=tconfig.freeze_bn,
-                           dropout_masks=masks)
+                           dropout_masks=masks, sync_axis=axis)
         loss, metrics = sequence_loss(
             out.flow_iters, batch.flow, batch.valid, gamma=tconfig.gamma,
             max_flow=tconfig.max_flow,
@@ -135,6 +157,11 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
                 grads = [g / accum for g in gsum]
                 metrics = {k: torch.stack([m[k] for m in mlist]).mean()
                            for k in mlist[0]}
+            if axis is not None and axis.group is not None:
+                grads = pmean_tensors(grads, axis)
+                keys = sorted(metrics)
+                metrics = dict(zip(keys, pmean_tensors(
+                    [metrics[k] for k in keys], axis)))
             if before is not None:
                 finite = all_finite(grads)
                 with torch.no_grad():

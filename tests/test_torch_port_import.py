@@ -45,6 +45,8 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch.cli, raft_tpu_torch.convert\n"
             "import raft_tpu_torch.utils.profiling\n"
             "import raft_tpu_torch.telemetry.watchdogs\n"
+            "import raft_tpu_torch.parallel, raft_tpu_torch.parallel.launch\n"
+            "import raft_tpu_torch.parallel.distributed, raft_tpu_torch.ops.spmd\n"
             "assert raft_tpu_torch.cli.build_parser().parse_args([]).mode == 'test'\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")

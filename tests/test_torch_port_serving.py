@@ -111,6 +111,14 @@ def test_main_serving_grid_is_jax_twelve_keys():
     (dict(dp_devices=2), "item 11"),
 ], ids=["engine_cache_dir", "dp_devices"])
 def test_serve_config_rejects_unported_values(kw, item):
+    """An unported value raises naming its ROADMAP item; ``dp_devices``
+    (item 11) is ported now: its batch steps round up to multiples of the
+    devices, as the JAX package's do."""
+    if item == "item 11":
+        sc = ServeConfig(max_batch=3, **kw)
+        assert sc.batch_steps == JaxServeConfig(max_batch=3, **kw).batch_steps
+        assert all(s % kw["dp_devices"] == 0 for s in sc.batch_steps)
+        return
     with pytest.raises(NotImplementedError, match=item):
         ServeConfig(**kw)
 
