@@ -207,7 +207,7 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    buckets (box 440x1248): 9 sequential and 3 clients x 6 mixed requests,
    each device batch bitwise make_ragged_inference_fn on it, each
    response its unpadded row, no serve-time capture.  Then the timings,
-   3 windows of 5 s each (hundreds of requests): the HTTP median at one
+   2 windows of 5 s each (hundreds of requests): the HTTP median at one
    client beside the captured factory's (the serving overhead), pairs/s
    and the mean device batch with several clients, S1's stream advances
    from 3 sessions; warmup seconds, the graph pools and peak allocated
@@ -333,9 +333,25 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    exits 2 ("needs 2 devices") and an engine with ``dp_devices=2``
    raises.  The ``parallel`` JSON line; its launches join the kernels'
    record (B1, B3, B5 and their bf16 entries; B2 from (c) and (d)).
+13. the fleet (``fleet_phases``, after phase 12): ``python -m
+   raft_tpu_torch.cli -m serve_fleet`` of f32 main (432x1024, 12
+   iterations, batch 1, streaming on), every replica a process of its own
+   on this card, booting through one ``--engine-cache-dir``: (a) a cold
+   fleet of 2 from a copy of the package with no ``build/`` (replica 0
+   builds the kernels and writes the entries), (b) a warm fleet of 2 from
+   another such copy (every key a hit, no compiler run), (c) routed pairs
+   bitwise each replica's own answer and held to this process's captured
+   call (bitwise when its probe digest is the entry's), (d) a rolling
+   reload under load (no failure, every answer the old or the new
+   weights' flow, no serve-time capture), (e) a stream session's replica
+   SIGKILLed (the session migrates; the respawn boots from the cache), (f)
+   pairs/s through the router at 4 clients with 2 replicas and with 1,
+   the router's HTTP median beside a replica's, the card's memory.  The
+   ``fleet`` JSON line; the replicas' launches (their ``/metrics``) join
+   B1's and B2's records.
 
-Before the last lines the serving, train, data, cli, parallel and e2e JSON
-records (PERF.md §2
+Before the last lines the serving, train, data, cli, parallel, fleet and
+e2e JSON records (PERF.md §2
 says what each key means); the line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
@@ -737,7 +753,7 @@ def _watch(engine, name: str, keep, before=None) -> dict:
     return st
 
 
-def _windows(n_clients: int, request, calls=None, n_win: int = 3,
+def _windows(n_clients: int, request, calls=None, n_win: int = 2,
              secs: float = 5.0):
     """``n_clients`` clients, each calling ``request(c, i)`` (returns its
     ms) back to back, over ``n_win`` windows of ``secs`` seconds each.
@@ -814,7 +830,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
     and FlyingChairs requests, sequential then from 3 clients, held as
     (a)-(c) against make_ragged_inference_fn on each batch the engine ran.
 
-    After the checks, the timings: 3 windows of 5 s at one client and at
+    After the checks, the timings: 2 windows of 5 s at one client and at
     several (and, in S1, of 3 sessions streaming), each request a frame
     pair of its own client's 8 encoded anew; the device batches of sizes
     the checks had not run are kept too.  Then the kernels of every
@@ -1274,7 +1290,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"{got1}, by "
               f"{flow_replays} graph replays {replayed1}; peak allocated "
               f"{peak1:.0f} MiB")
-        print(f"S1 timings, 3 windows of 5 s each: 1 client "
+        print(f"S1 timings, 2 windows of 5 s each: 1 client "
               f"{sum(w['requests'] for w in one1)} requests, HTTP median "
               f"{http_ms:.2f} ms vs the captured factory {factory1:.2f} ms "
               f"(serving overhead {http_ms - factory1:.2f} ms; server spans, "
@@ -1406,7 +1422,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"capture + probe warm-up {got2} (B4-bf16 {got2.get('corr_ragged', 0)}, "
               f"B2-bf16 {got2.get('sep_conv_gru', 0)}), by {flow_replays2} "
               f"graph replays {replayed2}; peak allocated {peak2:.0f} MiB")
-        print(f"S2 timings, 3 windows of 5 s each: 1 client "
+        print(f"S2 timings, 2 windows of 5 s each: 1 client "
               f"{sum(w['requests'] for w in one2)} requests, HTTP median "
               f"{http_ms:.2f} ms vs the captured factory {factory2:.2f} ms "
               f"(overhead {http_ms - factory2:.2f} ms; spans "
@@ -3757,6 +3773,490 @@ def parallel_phases(dev, smi: str) -> dict:
     return {"record": rec, "launches": launches}
 
 
+# -- 13. the fleet: serve processes on the card behind the port's router -----
+
+FLEET_ARGS = ("--corr-impl", "pallas", "--gru-impl", "pallas",
+              "--iters", str(ITERS), "--buckets", f"{H_IMG}x{W_IMG}",
+              "--max-batch", "1", "--max-sessions", "2", "--port", "0",
+              "--pin-cpus", "--health-poll-s", "0.5")
+# the warm grid of FLEET_ARGS: pair, encode, stream, szero, sbatch and
+# scommit, each at batch 1 (lint/budget.py::enumerate_warmup_grid)
+FLEET_KEYS = 6
+
+
+def _tree_copy() -> "Path":
+    """A copy of the package in a new directory: no ``build/`` beside it,
+    so nothing is built there yet."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    tree = Path(tempfile.mkdtemp(prefix="raft_fleet_tree_"))
+    shutil.copytree(Path(__file__).resolve().parent / "raft_tpu_torch",
+                    tree / "raft_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return tree
+
+
+def _pids_of(needle: str) -> list:
+    """Pids of the live processes whose command line holds ``needle``."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if needle in cmd:
+            out.append(int(d))
+    return out
+
+
+class _Fleet:
+    """One ``python -m raft_tpu_torch.cli -m serve_fleet`` launcher run
+    from ``tree`` (PYTHONPATH pinned to it), its output in
+    ``<out>.log``; the constructor returns once the router listens."""
+
+    def __init__(self, tree, out, extra, timeout_s: float):
+        import re
+        self.tree, self.out = tree, out
+        self.log = out.with_name(out.name + ".log")
+        env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=str(tree))
+        self.t0 = time.time()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "raft_tpu_torch.cli", "-m",
+                 "serve_fleet", *FLEET_ARGS, *extra, "--out", str(out)],
+                cwd=tree, env=env, stdout=log, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + timeout_s
+        while True:
+            text = self.log.read_text()
+            m = re.search(r"\[fleet\] router listening on (\S+)", text)
+            if m:
+                self.url = m.group(1)
+                break
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.stop()
+                raise AssertionError(
+                    f"fleet {out.name}: no router after "
+                    f"{time.time() - self.t0:.0f} s (exit "
+                    f"{self.proc.returncode}); its log ends:\n{text[-3000:]}"
+                    + "".join(f"\nreplica log {p}:\n{p.read_text()[-3000:]}"
+                              for p in sorted(out.glob("replica-*/serve.log"))))
+            time.sleep(0.2)
+        self.ready_s = time.time() - self.t0
+
+    def health(self) -> dict:
+        return json.loads(_http(self.url + "/healthz", None)[1])
+
+    def replicas(self) -> dict:
+        """{idx: url} of the routable replicas."""
+        return {r["idx"]: r["url"] for r in self.health()["replicas"]
+                if r["state"] in ("ready", "degraded")}
+
+    def boot(self, idx: int) -> dict:
+        """Replica ``idx``'s ``[serve] boot`` record (its serve.log)."""
+        for line in (self.out / f"replica-{idx}" / "serve.log").read_text(
+                ).splitlines():
+            if line.startswith("[serve] boot "):
+                return json.loads(line[len("[serve] boot "):])
+        raise AssertionError(f"replica {idx} printed no boot line")
+
+    def launches(self, url: str) -> dict:
+        """A replica's kernel launches (its /metrics)."""
+        import re
+        text = _http(url + "/metrics", None)[1].decode()
+        return {m.group(1): int(float(m.group(2))) for m in re.finditer(
+            r'^raft_kernel_launches\{kernel="(\w+)"\} (\S+)$', text, re.M)}
+
+    def stop(self) -> None:
+        """SIGTERM the launcher (it drains and stops its replicas), then
+        SIGKILL whatever of this fleet is left."""
+        import signal
+        _drop_conns()
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(90)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        for pid in _pids_of(f"--out {self.out}/replica-"):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+
+def _card_used_mib() -> int:
+    """The card's used memory, MiB, as ``nvidia-smi`` reads it (every
+    process on it, CUDA contexts included)."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
+def fleet_phases(dev, smi: str) -> dict:
+    """Phase 13: ``python -m raft_tpu_torch.cli -m serve_fleet`` on the
+    card — raft-things f32 at full width with the kernels (``--corr-impl
+    pallas --gru-impl pallas``), bucket 432x1024, 12 iterations, streaming
+    on, seeded weights with C1's biases saved as a native npz and given by
+    ``--load``, every replica a process of its own on cuda:0.
+
+    (a) cold boot: a fleet of 2 on an empty ``--engine-cache-dir`` from a
+    copy of the package with no ``build/``: replica 0 builds the kernels
+    (a compiler run) and writes an entry per key, each replica's boot
+    split into its parts.  (b) warm boot on the filled directory, from a
+    new copy with no ``build/``: every replica hits on every key, misses 0,
+    runs no compiler (the kernel objects come from the cache).  (c)
+    routing: seeded pairs through the router from 2 clients at once, each
+    response tagged with its replica and bitwise that replica's own answer
+    to the pair (asked directly), and each held bitwise to a captured
+    call of this process on the same weights; the phase fails when this
+    process's probe digest of the pair key is not the cache entry's (its
+    graph computes other bits, which no tolerance at 12 iterations can
+    judge).  (d) a rolling /admin/reload of new weights
+    through the router while a client sends a pair: no request fails,
+    each answer bitwise the old or the new weights' flow of its replica,
+    no replica captures at serve time.  (e) SIGKILL the replica a stream
+    session is pinned to: its next advance migrates, bitwise the flow of
+    a session opened on the survivor with the same previous frame and
+    advanced with the same frame; the respawn boots from the cache with
+    misses 0.  (f) pairs/s through the router at 4 clients, 2 windows
+    with 2 replicas and, after ``POST /admin/scale?replicas=1`` retired
+    one, 2 with 1; at 1 client, the HTTP latency through the router and
+    direct to a replica, windows of each taken in turns; the card's memory
+    with 2 replicas (nvidia-smi's used memory over this process's own,
+    and each replica's allocator).  The replicas' kernel
+    launches (their /metrics, read before each replica stops) are the
+    phase's launches.  Every fleet is stopped in ``finally``."""
+    import shutil
+    import signal
+    import tempfile
+    from pathlib import Path
+    from raft_tpu_torch import RAFT, RAFTConfig, init_raft_torch, make_inference_fn
+    from raft_tpu_torch.convert.weights import (from_jax_params,
+                                                load_params_npz,
+                                                save_params_npz)
+    from raft_tpu_torch.serving.aot_cache import digest_outputs, probe_rng
+
+    t_phase = time.perf_counter()
+
+    def mark(what):
+        print(f"fleet: {what} at {time.perf_counter() - t_phase:.1f} s "
+              f"into phase 13", flush=True)
+    torch.cuda.empty_cache()
+    used0 = _card_used_mib()              # this process alone on the card
+    work = Path(tempfile.mkdtemp(prefix="raft_fleet_"))
+    trees = []
+    cfg = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas", iters=ITERS)
+    wpath = {}
+    for tag, seed in (("old", 13), ("new", 14)):
+        m = init_raft_torch(cfg, generator=torch.Generator().manual_seed(seed),
+                            device="cpu", dtype=torch.float32)
+        c1_weights(m, seed=1000 + seed)
+        wpath[tag] = work / f"weights_{tag}.npz"
+        save_params_npz(m.state_dict(), wpath[tag])
+    cache = work / "engine-cache"
+    common = ["--load", str(wpath["old"]), "--engine-cache-dir", str(cache)]
+    launches = {"corr_lookup": 0, "sep_conv_gru": 0}
+    boots = []                      # every replica boot's record
+
+    def take_launches(fleet, url):
+        for k, v in fleet.launches(url).items():
+            if k in launches:
+                launches[k] += v
+
+    def new_fleet(name, extra, timeout_s):
+        trees.append(_tree_copy())
+        fl = _Fleet(trees[-1], work / name, common + extra, timeout_s)
+        fleets.append(fl)
+        return fl
+
+    rec = {"device": smi, "keys_per_replica": FLEET_KEYS}
+    fleets = []
+    try:
+        # (a) cold boot
+        fa = new_fleet("cold", ["--replicas", "2"], 600)
+        mark(f"(a) cold fleet ready in {fa.ready_s:.1f} s")
+        cold = {i: fa.boot(i) for i in fa.replicas()}
+        for i, b in sorted(cold.items()):
+            print(f"fleet: (a) cold replica {i} boot: {json.dumps(b)}")
+        assert (cold[0]["compiler_runs"] > 0
+                and cold[0]["kernels"] == "built"), cold[0]
+        assert cold[0]["engine_cache"]["saves"] == FLEET_KEYS, cold[0]
+        boots += [("cold", i, b) for i, b in sorted(cold.items())]
+        for url in fa.replicas().values():
+            take_launches(fa, url)
+        fa.stop()
+        mark("(a) cold fleet stopped")
+
+        # (b) warm boot from a copy with no build/
+        fb = new_fleet("warm", ["--replicas", "2"], 300)
+        mark(f"(b) warm fleet ready in {fb.ready_s:.1f} s")
+        warm = {i: fb.boot(i) for i in fb.replicas()}
+        boots += [("warm", i, b) for i, b in sorted(warm.items())]
+        for i, b in sorted(warm.items()):
+            print(f"fleet: (b) warm replica {i} boot: {json.dumps(b)}")
+        for i in sorted(cold):
+            print(f"fleet: spawn to ready, replica {i}: cold "
+                  f"{cold[i]['spawn_to_ready_s']:.2f} s, warm "
+                  f"{warm[i]['spawn_to_ready_s']:.2f} s")
+        ec = fb.health()
+        print(f"fleet: (b) router /healthz: {json.dumps(ec)}")
+        stats = [(w, i, b["engine_cache"]) for w, i, b in boots]
+        print(f"fleet: probe digests: " + "; ".join(
+            f"{w} replica {i}: hits {e['hits']} misses {e['misses']} "
+            f"mismatches {e['mismatches']}" for w, i, e in stats))
+        for i, b in warm.items():
+            e = b["engine_cache"]
+            assert (e["hits"] == FLEET_KEYS and e["misses"] == 0
+                    and b["compiler_runs"] == 0
+                    and b["kernels"] == "found"), (i, b)
+        rec["cold"] = cold
+        rec["warm"] = warm
+
+        # (c) routing
+        reps = fb.replicas()
+        rng = np.random.RandomState(130)
+        pairs = [tuple(rng.rand(H_IMG, W_IMG, 3).astype(np.float32)
+                       for _ in range(2)) for _ in range(3)]
+
+        def flow_of(url, k):
+            hdr = {}
+            _, body = _http(url + "/v1/flow", _npz(image1=pairs[k][0],
+                                                   image2=pairs[k][1]),
+                            headers=hdr)
+            return hdr.get("X-Raft-Replica"), _unnpz(body)["flow"]
+        own = {(i, k): flow_of(url, k)[1] for i, url in reps.items()
+               for k in range(len(pairs))}
+        _drop_conns()
+
+        def client(c):
+            return [(k, *flow_of(fb.url, k)) for _ in range(2)
+                    for k in range(len(pairs))]
+        routed = [x for got in _clients(2, client) for x in got]
+        used = sorted({int(r) for _, r, _ in routed})
+        for k, r, f in routed:
+            assert np.array_equal(f, own[(int(r), k)]), (k, r)
+        print(f"fleet: (c) {len(routed)} routed answers from replicas "
+              f"{used}, each bitwise its replica's own answer")
+        model = RAFT(cfg)
+        model.load_state_dict(from_jax_params(load_params_npz(wpath["old"])),
+                              strict=True)
+        model = model.to(dev).eval()
+        direct_fn = make_inference_fn(cfg, iters=ITERS, device=dev)
+        entry = json.loads(next(
+            (cache).glob(f"*/pair-{H_IMG}x{W_IMG}-b1-*.bin")).read_text())
+        prng = probe_rng(int(entry["seed"]))
+        p1, p2 = (prng.rand(1, H_IMG, W_IMG, 3).astype(np.float32)
+                  for _ in range(2))
+        own_digest = digest_outputs(direct_fn(model, p1, p2))
+        same = own_digest == entry["digest"]
+        worst = 0.0
+        for (i, k), f in sorted(own.items()):
+            want = direct_fn(model, pairs[k][0][None],
+                             pairs[k][1][None])[0].cpu().numpy()
+            worst = max(worst, float(np.abs(f - want).max()))
+        print(f"fleet: (c) this process's probe digest of the pair key "
+              f"{'equals' if same else 'differs from'} the replicas' entry; "
+              f"largest |fleet - direct| {worst:.3g} over {len(own)} answers")
+        assert same, ("(c) this process's captured graph computes other bits "
+                      "than the replicas' (cuDNN chose other algorithms); "
+                      "at 12 iterations no tolerance can hold the answers")
+        assert worst == 0.0, worst
+        rec["routing"] = {"answers": len(routed), "replicas": used,
+                          "direct_digest_equal": same,
+                          "direct_max_abs_diff": worst}
+        del model, direct_fn
+        torch.cuda.empty_cache()
+        mark("(c) routing checked")
+
+        # (d) rolling hot swap under a client
+        new_body = wpath["new"].read_bytes()
+        old0 = {i: own[(i, 0)] for i in reps}
+        stop_client = threading.Event()
+        seen = []
+
+        def swap_client(_):
+            while not stop_client.is_set():
+                seen.append(flow_of(fb.url, 0))
+        errors = []
+
+        def run_client():
+            try:
+                _clients(1, swap_client)
+            except BaseException as e:      # noqa: BLE001 — raised below
+                errors.append(e)
+        th = threading.Thread(target=run_client)
+        th.start()
+        time.sleep(0.5)
+        t_roll = time.perf_counter()
+        _, body = _http(fb.url + "/admin/reload", new_body, timeout=300)
+        roll_s = time.perf_counter() - t_roll
+        roll = json.loads(body)
+        time.sleep(0.5)
+        stop_client.set()
+        th.join(120)
+        if errors:
+            raise errors[0]
+        assert roll["status"] == "reloaded", roll
+        new0 = {i: flow_of(url, 0)[1] for i, url in reps.items()}
+        n_old = n_new = 0
+        for r, f in seen:
+            if np.array_equal(f, old0[int(r)]):
+                n_old += 1
+            else:
+                assert np.array_equal(f, new0[int(r)]), r
+                n_new += 1
+        misses = {i: _metric(_http(url + "/metrics", None)[1].decode(),
+                             "raft_serving_compile_cache_misses_total")
+                  for i, url in reps.items()}
+        assert all(v == 0 for v in misses.values()), misses
+        assert all(not np.array_equal(old0[i], new0[i]) for i in reps)
+        print(f"fleet: (d) rolling reload in {roll_s:.2f} s "
+              f"({[r['status'] for r in roll['replicas']]}); {len(seen)} "
+              f"answers during it, none failed: {n_old} old, {n_new} new "
+              f"weights' flow; serve-time captures {misses}")
+        rec["hot_swap"] = {"roll_s": roll_s, "answers": len(seen),
+                           "old": n_old, "new": n_new,
+                           "serve_time_captures": misses}
+        mark("(d) hot swap checked")
+
+        # (e) SIGKILL the replica a stream session is pinned to
+        frames = [rng.rand(H_IMG, W_IMG, 3).astype(np.float32)
+                  for _ in range(3)]
+        hdr = {}
+        _, body = _http(fb.url + "/v1/stream", _npz(op=np.asarray("open"),
+                                                    image=frames[0]),
+                        headers=hdr)
+        sid, pinned = str(_unnpz(body)["session"]), int(hdr["X-Raft-Replica"])
+        hdr = {}
+        _http(fb.url + "/v1/stream", _npz(session=np.asarray(sid),
+                                          image=frames[1]), headers=hdr)
+        assert int(hdr["X-Raft-Replica"]) == pinned
+        take_launches(fb, reps[pinned])
+        (pid,) = _pids_of(f"--out {fb.out}/replica-{pinned} ")
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        hdr = {}
+        _, body = _http(fb.url + "/v1/stream", _npz(session=np.asarray(sid),
+                                                    image=frames[2]),
+                        headers=hdr)
+        got = _unnpz(body)
+        survivor = int(hdr["X-Raft-Replica"])
+        migrate_s = time.perf_counter() - t_kill
+        assert bool(got["migrated"]) and survivor != pinned, (got, survivor)
+        # migration is open(previous frame) + advance on the survivor: a
+        # session opened there on frames[1] and advanced with frames[2]
+        # runs the same graphs on the same weights
+        _, body = _http(reps[survivor] + "/v1/stream",
+                        _npz(op=np.asarray("open"), image=frames[1]))
+        fresh = str(_unnpz(body)["session"])
+        _, body = _http(reps[survivor] + "/v1/stream",
+                        _npz(session=np.asarray(fresh), image=frames[2]))
+        want = _unnpz(body)["flow"]
+        _http(reps[survivor] + "/v1/stream", _npz(op=np.asarray("close"),
+                                                  session=np.asarray(fresh)))
+        assert np.array_equal(got["flow"], want), float(
+            np.abs(got["flow"] - want).max())
+        print(f"fleet: (e) replica {pinned} killed; the session's next "
+              f"advance migrated to replica {survivor} in {migrate_s:.2f} s, "
+              f"bitwise a session opened there on the same frames")
+        deadline = time.monotonic() + 240
+        while not set(fb.replicas()) - set(reps):
+            assert time.monotonic() < deadline, "no respawn in 240 s"
+            time.sleep(0.5)
+        respawned = max(fb.replicas())
+        rb = fb.boot(respawned)
+        boots.append(("respawn", respawned, rb))
+        print(f"fleet: (e) respawned replica {respawned} ready "
+              f"{time.perf_counter() - t_kill:.1f} s after the kill; its "
+              f"boot: {json.dumps(rb)}")
+        assert (rb["engine_cache"]["misses"] == 0
+                and rb["compiler_runs"] == 0), rb
+        _http(fb.url + "/v1/stream", _npz(op=np.asarray("close"),
+                                          session=np.asarray(sid)))
+        rec["death"] = {"killed": pinned, "survivor": survivor,
+                        "migrate_s": migrate_s,
+                        "migrated_bitwise_fresh_session": True,
+                        "respawn": rb}
+        mark("(e) death and respawn checked")
+
+        # (f) timings with 2 replicas, then 1
+        def timed(url):
+            def request(c, i):
+                t0 = time.perf_counter()
+                _http(url + "/v1/flow", _npz(image1=pairs[i % 3][0],
+                                             image2=pairs[i % 3][1]))
+                return (time.perf_counter() - t0) * 1e3
+            return request
+        reps = fb.replicas()
+        two, _ = _windows(4, timed(fb.url), n_win=2, secs=4.0)
+        _drop_conns()
+        # one client, router and direct (replica min(reps)) in turns
+        lat = {"router": [], "direct": []}
+        turns = {"router": [], "direct": []}
+        for _ in range(4):
+            for via, url in (("router", fb.url), ("direct", reps[min(reps)])):
+                win, every = _windows(1, timed(url), n_win=1, secs=3.5)
+                lat[via] += every
+                turns[via].append(win[0]["ms_median"])
+        _drop_conns()
+        used2 = _card_used_mib()
+        rep_mib = {i: fb.boot(i)["cuda_reserved_mib"] for i in reps}
+        for url in reps.values():
+            take_launches(fb, url)
+        _, body = _http(fb.url + "/admin/scale?replicas=1", b"")
+        assert json.loads(body)["desired"] == 1
+        assert len(fb.replicas()) == 1
+        one, _ = _windows(4, timed(fb.url), n_win=2, secs=4.0)
+        _drop_conns()
+        fb.stop()
+        med = {via: statistics.median(v) for via, v in lat.items()}
+        p90 = {via: float(np.percentile(v, 90)) for via, v in lat.items()}
+        per_s = {n: [w["per_s"] for w in ws] for n, ws in (("2", two),
+                                                           ("1", one))}
+        rec["timings"] = {
+            "pairs_per_s_4_clients": per_s,
+            "windows": {"2": two, "1": one},
+            "http_ms_1_client": {
+                via: {"requests": len(lat[via]), "median": med[via],
+                      "p90": p90[via], "turn_medians": turns[via]}
+                for via in lat},
+            "card_mib": {"two_replicas": used2 - used0,
+                         "reserved_by_replica": rep_mib}}
+        print(f"fleet: (f) pairs/s through the router at 4 clients, per "
+              f"4 s window: {per_s['2']} with 2 replicas, {per_s['1']} "
+              f"with 1; at 1 client, HTTP median (p90) {med['router']:.2f} "
+              f"({p90['router']:.2f}) ms through the router over "
+              f"{len(lat['router'])} requests, {med['direct']:.2f} "
+              f"({p90['direct']:.2f}) ms direct over {len(lat['direct'])}, "
+              f"per-turn medians {turns}; card memory of 2 replicas "
+              f"{used2 - used0} MiB (nvidia-smi, over this process's "
+              f"{used0}), their allocators {rep_mib} MiB; {smi}")
+    finally:
+        for fl in fleets:
+            fl.stop()
+        _drop_conns()
+        for tree in trees:
+            shutil.rmtree(tree, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    hits = sum(b["engine_cache"]["hits"] for _, _, b in boots)
+    loads = sum(b["engine_cache"]["loads"] for _, _, b in boots)
+    mism = sum(b["engine_cache"]["mismatches"] for _, _, b in boots)
+    rec["digests"] = {"boots": len(boots), "entries_checked": loads,
+                      "matched": hits, "mismatched": mism}
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: probe digests over {len(boots)} boots: {hits} of {loads} "
+          f"entries checked matched bitwise, {mism} differed; replicas' "
+          f"launches {launches}; phase 13 took {rec['phase_s']:.1f} s; {smi}")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # cuBLAS's deterministic mode (phase 9.5) needs its workspace fixed
@@ -5866,6 +6366,11 @@ def main() -> int:
     par_launches = par["launches"]
     print(json.dumps({"parallel": par["record"]}))
 
+    # -- 13. the fleet: serve_fleet's replicas on this card
+    fleet = fleet_phases(dev, smi)
+    fleet_launches = fleet.pop("launches")
+    print(json.dumps({"fleet": fleet}))
+
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall time {wall_s:.1f} s")
     print(json.dumps({"e2e": {"latency_ms_median": med_k, "pairs_per_s": 1e3 / med_k,
@@ -5914,14 +6419,16 @@ def main() -> int:
 
     def entry(name, source, replaces, runs, err, ms, plain_ms, bound, by):
         # train_launches: phase 9's share of launches (its captures and
-        # eager steps, f32 main and BF)
+        # eager steps, f32 main and BF); fleet_launches: phase 13's (the
+        # replicas' captures, probe-thread forwards and reload probes)
         dtype_key = "bf16" if name.endswith("_bf16") else "f32"
         trained = train_launches[dtype_key].get(name.replace("_bf16", ""), 0)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": runs, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": None,
-                "train_launches": trained}
+                "train_launches": trained,
+                "fleet_launches": fleet_launches.get(name, 0)}
 
     # phase 12's main-path launches: the ring (B1, B3, B5 in both dtypes),
     # the row-sharded model (B1), the DP train step and serving (B1, B2)
@@ -5933,13 +6440,15 @@ def main() -> int:
               launches["corr_lookup"] + launches_s["corr_lookup"]
               + new_launches["f32"].get("corr_lookup", 0)
               + train_launches["f32"]["corr_lookup"] + data_launches["corr_lookup"]
-              + cli_launches["corr_lookup"] + par_f32.get("corr_lookup", 0),
+              + cli_launches["corr_lookup"] + par_f32.get("corr_lookup", 0)
+              + fleet_launches["corr_lookup"],
               corr_err, corr_ms, corr_plain_ms, corr_bound, corr_by),
         entry("sep_conv_gru", "raft_tpu_torch/csrc/sep_conv_gru.cu",
               "raft_tpu/ops/gru_pallas.py:242",
               launches["sep_conv_gru"] + new_launches["f32"].get("sep_conv_gru", 0)
               + train_launches["f32"]["sep_conv_gru"] + data_launches["sep_conv_gru"]
-              + cli_launches["sep_conv_gru"] + par_f32.get("sep_conv_gru", 0),
+              + cli_launches["sep_conv_gru"] + par_f32.get("sep_conv_gru", 0)
+              + fleet_launches["sep_conv_gru"],
               gru_err, gru_ms, gru_plain_ms, gru_bound_ms, gru_by),
         entry("corr_window", "raft_tpu_torch/csrc/corr_lookup.cu",
               "raft_tpu/ops/corr_pallas.py:342",

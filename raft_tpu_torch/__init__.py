@@ -33,6 +33,12 @@ data-parallel serving.
     flow, flow_lr, fmap, cnet = step(model, frame1, fmap, cnet, flow_init)
 """
 
+import time as _time
+
+# the wall-clock second this package began importing: a serve replica's
+# boot record splits its start into the interpreter's and the imports'
+IMPORT_T0 = _time.time()
+
 from .config import (RAFTConfig, adaptive_iters, check_port_support,
                      parse_iters_policy)
 from .convert.weights import (from_jax_params, load_checkpoint_auto,

@@ -6,9 +6,10 @@ a build takes seconds).  ``csrc/imageio.cpp``, the PNG codec of
 ``raft_tpu_torch/imageio.py``, is host code: the host C++ compiler builds
 it, linked to zlib, with no ``nvcc`` and no GPU (so it builds on the CPU
 too).  Libraries go to ``build/raft_tpu_torch/<hash>/`` at the root of the
-checkout, keyed by a hash of every source and of the compiler flags; a
-file lock keeps concurrent processes from building the same directory at
-once.  Nothing is built at import: the first call of a kernel wrapper on a
+checkout (in a process that attached an AOT engine cache, to the cache's
+``kernels/<hash>/``), keyed by a hash of every source and of the compiler
+flags; a file lock keeps concurrent processes from building the same
+directory at once.  Nothing is built at import: the first call of a kernel wrapper on a
 CUDA tensor, or of the codec, builds (or loads) its library.
 """
 
@@ -34,6 +35,9 @@ CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 CXX_LIBS = ("-lz",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# compiler processes this process started (nvcc or the host compiler): the
+# AOT engine cache calls a warm boot one that ran none
+COMPILER_RUNS = 0
 
 
 def find_nvcc() -> str:
@@ -79,10 +83,20 @@ def build_dir() -> Path:
     return BUILD_ROOT / _digest()
 
 
+def use_root(root) -> None:
+    """Build into and load from ``<root>/<hash>/`` from now on in this
+    process (the AOT engine cache's ``kernels/`` directory, shared by every
+    replica that attaches it; the file lock guards it as it guards
+    ``build/``)."""
+    global BUILD_ROOT
+    BUILD_ROOT = Path(root)
+
+
 def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
     """Compile every source not built yet, all compiler processes started
     together; returns ``{source: library path}``.  Raises with the
     compiler's output when a build fails."""
+    global COMPILER_RUNS
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {s: out_dir / (Path(s).stem + ".so") for s in sources}
@@ -90,6 +104,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
         fcntl.flock(lock, fcntl.LOCK_EX)
         todo = [s for s in sources if not libs[s].exists()]
         if todo:
+            COMPILER_RUNS += len(todo)
             procs = []
             for s in todo:
                 tmp = libs[s].with_suffix(f".so.tmp{os.getpid()}")

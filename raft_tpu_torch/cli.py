@@ -25,6 +25,11 @@ Modes:
   flops   the parameter table and count, and the products' FLOPs of the
           eval forward at 1x256x448 (``utils/profiling.py``)
   serve   the HTTP server (``serving/``)
+  serve_fleet  N serve processes behind the fleet's router
+          (``fleet/``: least-loaded pairs, stream affinity and migration,
+          the autoscaler, rolling hot-swap), every replica booting
+          through one shared ``--engine-cache-dir`` (default
+          ``<--out>/engine-cache``)
 
 ``--load`` reads every checkpoint format the JAX package reads
 (:func:`load_state_dict`): the official torch ``.pth``/``.pt`` (its stem
@@ -38,10 +43,8 @@ Deviations from the JAX CLI, by design: ``--dtype`` defaults to float32
 over); ``-m export`` writes a ``torch.export`` program in place of
 StableHLO; the frames are resized by :func:`~raft_tpu_torch.data.synthetic.
 resize_linear_u8`, bitwise OpenCV's uint8 resize, with no OpenCV.  What the
-port does not have raises NotImplementedError naming its ROADMAP item:
-``-m serve_fleet`` (item 14b), ``--engine-cache-dir`` (item 9c) and
-``--show`` (``cv2.imshow``: the card's machine has no OpenCV and no
-display).
+port does not have raises NotImplementedError: ``--show``
+(``cv2.imshow``: the card's machine has no OpenCV and no display).
 
 The parallel layer (``raft_tpu_torch/parallel``):
 
@@ -324,7 +327,9 @@ def add_serve_flags(p: argparse.ArgumentParser) -> None:
                    help="flight-recorder dump path (default "
                         "<--out>/flightrec.jsonl; '' disables the file)")
     p.add_argument("--engine-cache-dir", default=None, metavar="DIR",
-                   help="the AOT engine cache (ROADMAP item 9c: raises)")
+                   help="the AOT engine cache: kernel objects and a probe "
+                        "digest per warm key (serve_fleet default: "
+                        "<--out>/engine-cache)")
     p.add_argument("--history-interval-s", type=float, default=1.0,
                    metavar="T", help="metric-history sampling interval; 0 "
                                      "disables history and sentinels")
@@ -371,28 +376,35 @@ def build_parser() -> argparse.ArgumentParser:
     add_telemetry_flags(p)
     add_train_flags(p, dataset_default="sintel")
     add_serve_flags(p)
-    # serve_fleet's flags, accepted so a JAX command line parses; the mode
-    # raises (ROADMAP item 14b)
-    p.add_argument("--replicas", type=int, default=2)
-    p.add_argument("--min-replicas", type=int, default=None)
-    p.add_argument("--max-replicas", type=int, default=None)
-    p.add_argument("--autoscale", action="store_true")
-    p.add_argument("--fleet-port", type=int, default=None)
-    p.add_argument("--pin-cpus", action="store_true")
-    p.add_argument("--health-poll-s", type=float, default=None)
-    p.add_argument("--scale-poll-s", type=float, default=None)
+    add_fleet_flags(p)
     return p
 
 
+def add_fleet_flags(p: argparse.ArgumentParser) -> None:
+    """``-m serve_fleet``'s flags (the serve flags go to every replica)."""
+    p.add_argument("--replicas", type=int, default=2,
+                   help="serve_fleet: initial replica count")
+    p.add_argument("--min-replicas", type=int, default=None,
+                   help="serve_fleet: autoscaler floor (default 1)")
+    p.add_argument("--max-replicas", type=int, default=None,
+                   help="serve_fleet: autoscaler ceiling (default "
+                        "max(replicas, 2))")
+    p.add_argument("--autoscale", action="store_true",
+                   help="serve_fleet: run the autoscaler")
+    p.add_argument("--fleet-port", type=int, default=None,
+                   help="serve_fleet: the router's port (default --port)")
+    p.add_argument("--pin-cpus", action="store_true",
+                   help="serve_fleet: pin each replica to its own slice "
+                        "of the host's cores")
+    p.add_argument("--health-poll-s", type=float, default=None,
+                   help="serve_fleet: replica health-poll period")
+    p.add_argument("--scale-poll-s", type=float, default=None,
+                   help="serve_fleet: autoscaler poll period")
+
+
 def check_unported(args) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for each flag
-    or mode given that the port does not have."""
-    if getattr(args, "mode", None) == "serve_fleet":
-        raise NotImplementedError("-m serve_fleet (the replica fleet and "
-                                  "its router) is ROADMAP item 14b")
-    if getattr(args, "engine_cache_dir", None):
-        raise NotImplementedError("--engine-cache-dir (the AOT engine "
-                                  "cache) is ROADMAP item 9c")
+    """Raise NotImplementedError for each flag given that the port does
+    not have."""
     if getattr(args, "show", False):
         raise NotImplementedError(
             "--show is cv2.imshow: the port has no OpenCV and the card's "
@@ -715,6 +727,13 @@ def mode_serve(args) -> int:
     return serve_cli(args, config, load_model)
 
 
+def mode_serve_fleet(args) -> int:
+    from .fleet import serve_fleet_cli
+    config = make_config(args)
+    start_run_log(args, config)
+    return serve_fleet_cli(args, config)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.demo_train:
@@ -744,7 +763,8 @@ def main(argv=None) -> int:
         init_distributed(args)
     return {"test": mode_test, "flops": mode_flops, "export": mode_export,
             "val": mode_val, "train": mode_train,
-            "serve": mode_serve}[args.mode](args)
+            "serve": mode_serve,
+            "serve_fleet": mode_serve_fleet}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -76,6 +76,7 @@ Rules:
 
 from __future__ import annotations
 
+import time
 import weakref
 from typing import Callable, NamedTuple, Tuple
 
@@ -134,6 +135,14 @@ def _key(args, spec) -> tuple:
     return tuple(key)
 
 
+# Host seconds spent in :func:`capture` by this process: ``warmup`` is the
+# eager run's issue on the side stream (on a new shape it holds cuDNN's
+# benchmark of every conv's algorithms, which synchronizes), ``capture``
+# the recording and instantiation of the graph.  The serving engine reads
+# their rise per warmup key.
+SECONDS = {"warmup": 0.0, "capture": 0.0}
+
+
 def capture(fn: Callable[[], object], pool=None, after_warmup=None):
     """Run ``fn()`` once eagerly on a side stream, then capture one call
     into a new ``torch.cuda.CUDAGraph`` drawing on ``pool`` (None: a pool of
@@ -141,7 +150,9 @@ def capture(fn: Callable[[], object], pool=None, after_warmup=None):
     replay writes.  ``after_warmup()``, if given, runs on the side stream
     right after the warm-up (a train step puts back the state its warm-up
     updated).  The capture raises on a host sync or any other call not
-    allowed in a capture."""
+    allowed in a capture.  Adds its two parts' seconds to
+    :data:`SECONDS`."""
+    t0 = time.perf_counter()
     main = torch.cuda.current_stream()
     side = torch.cuda.Stream()
     side.wait_stream(main)
@@ -149,10 +160,13 @@ def capture(fn: Callable[[], object], pool=None, after_warmup=None):
         fn()
         if after_warmup is not None:
             after_warmup()
+    t1 = time.perf_counter()
     main.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
         out = fn()
+    SECONDS["warmup"] += t1 - t0
+    SECONDS["capture"] += time.perf_counter() - t1
     return graph, out
 
 

@@ -19,7 +19,9 @@ Without it the server uses seeded random weights and warns.  ``--dtype``
 defaults to float32 (the JAX CLI picks bfloat16 only on a TPU).
 ``--serve-dp N`` serves each batch over ``cuda:0..N-1`` (one replica a
 card; batch steps rounded up to multiples of N).  ``--engine-cache-dir``
-(the AOT cache, ROADMAP item 9c) raises NotImplementedError.
+attaches the AOT engine cache (``serving/aot_cache.py``): the kernel
+objects come from it where ``build/`` lacks them, and each warm key is
+checked against its probe entry (``/healthz`` ``engine_cache``).
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@ the first request — in the port each key's CUDA graph is captured
 ``dp_devices = N`` serves each device call over N devices
 (``parallel/data_parallel.py::make_dp_eval_fn``): the batch steps are
 rounded up to multiples of N, and ragged serving with N > 1 raises, as in
-the JAX package.  ``engine_cache_dir`` (the AOT engine cache, ROADMAP item
-9c) raises ``NotImplementedError`` naming its item (no quiet fallback).
+the JAX package.  ``engine_cache_dir`` attaches the AOT engine cache
+(``serving/aot_cache.py``): the kernel objects and a probe digest per
+warm key, shared by a fleet's replicas.
 """
 
 from __future__ import annotations
@@ -146,8 +147,10 @@ class ServeConfig:
     # recompile watchdog / shutdown; None = /debug/traces only).
     flightrec_traces: int = 64
     flightrec_path: Optional[str] = None
-    # AOT engine cache directory: not ported (a value raises, ROADMAP
-    # item 9c).  None: warmup captures every key.
+    # AOT engine cache directory (serving/aot_cache.py): the kernel
+    # objects and one probe-digest entry per warm key, shared by a
+    # fleet's replicas.  None: no cache (warmup captures every key either
+    # way; a CUDA graph does not serialize).
     engine_cache_dir: Optional[str] = None
     # Engine-failure containment (batcher): same-group retries (with
     # backoff) before poisoned-batch bisection splits the blame.
@@ -206,10 +209,6 @@ class ServeConfig:
             raise ValueError(f"queue_depth must be >= 1, got {self.queue_depth}")
         if self.dp_devices < 1:
             raise ValueError(f"dp_devices must be >= 1, got {self.dp_devices}")
-        if self.engine_cache_dir is not None:
-            raise NotImplementedError(
-                "engine_cache_dir: the AOT engine cache is not ported yet "
-                "(ROADMAP item 9c); warmup captures every key's CUDA graph")
         if self.iters_policy is not None:
             parse_iters_policy(self.iters_policy)   # typo -> raise, up front
         if self.max_sessions < 0:

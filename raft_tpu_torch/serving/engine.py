@@ -39,6 +39,15 @@ On CUDA the engine turns ``torch.backends.cudnn.benchmark`` on before it
 captures anything: a graph keeps the cuDNN algorithms it was captured
 with, and with TF32 off the heuristic choice of some motion-encoder convs
 is hundreds of times slower than the benchmarked one.
+
+With an AOT engine cache attached (``serving/aot_cache.py``,
+``ServeConfig(engine_cache_dir=...)``) warmup first takes the kernel
+objects from the cache where the build directory lacks them, then, per
+key, captures as always and runs the key once more on its seeded probe
+input: a hit when the sha256 of that output is the entry's, a miss (the
+entry written) otherwise.  ``warmup_loaded`` counts the hits and
+``boot`` holds the seconds of each part (kernels, per key the warm-up
+with cuDNN's benchmark, the capture and the probe).
 """
 
 from __future__ import annotations
@@ -114,7 +123,7 @@ class InferenceEngine:
 
     def __init__(self, config: RAFTConfig, model, sconfig: ServeConfig,
                  iters: Optional[int] = None, stream: bool = False,
-                 faults=None, pool=None):
+                 faults=None, pool=None, cache=None):
         from ..models import raft as rm
 
         # chaos harness (serving/faults.py): injected engine exceptions,
@@ -205,6 +214,12 @@ class InferenceEngine:
         self.weight_version = 1   # bumped by reload(); healthz reports it
         self.weight_tag = None
         self.warmup_seconds = 0.0
+        # the AOT engine cache (serving/aot_cache.EngineCache) or None;
+        # each warm key's (probe seed, probe digest), what an export writes
+        self.cache = cache
+        self._digests: Dict[Tuple[str, int, int, int, str], tuple] = {}
+        self.warmup_loaded = 0
+        self.boot: dict = {}
 
     # -- key bookkeeping ---------------------------------------------------
 
@@ -314,10 +329,98 @@ class InferenceEngine:
         assert kind == "spoison", kind
         return lambda: None       # warming a poison would poison the pool
 
+    def _probe_call(self, kind: str, h: int, w: int, b: int, seed: int):
+        """The key's device work on its seeded probe input (a replay of its
+        graph on CUDA), or None for a kind with nothing captured."""
+        from .aot_cache import probe_rng
+        from ..models.raft import compute_dtype
+        rng = probe_rng(seed)
+        img = rng.rand(b, h, w, 3).astype(np.float32)
+        sz = (self._sizes_arg(b, None),) if self.ragged else ()
+        if kind == "pair":
+            img2 = rng.rand(b, h, w, 3).astype(np.float32)
+            return lambda: self._fn(self._pair_models(), img, img2, *sz)
+        if kind == "encode":
+            return lambda: self._encode_fn(self.model, img)
+        if kind == "stream":
+            cdt = compute_dtype(self.config)
+            fmap, cnet = (torch.as_tensor(
+                rng.rand(b, h // 8, w // 8, c).astype(np.float32),
+                device=self.device).to(cdt)
+                for c in (self.config.fnet_dim, self.config.cnet_dim))
+            flow = (rng.randn(b, h // 8, w // 8, 2) * 2).astype(np.float32)
+            return lambda: self._stream_fn(self.model, img, fmap, cnet, flow,
+                                           *sz)
+        if kind == "sbatch":
+            fbuf, cbuf, flbuf = self.pool.buffers((h, w))
+            slots = np.asarray([self.pool.scratch] * b, np.int32)
+            active = np.zeros((b,), bool)
+            return lambda: self._sbatch_fn(self.model, img, fbuf, cbuf,
+                                           flbuf, slots, active, *sz)
+        return None               # szero, scommit, spoison: eager writes
+
+    def _prepare_kernels(self) -> None:
+        """Before the first capture: with a cache, the kernel objects are
+        built into and loaded from its ``kernels/`` directory; then (on
+        CUDA, for a configuration that runs the kernels) every kernel is
+        loaded, or built, timed apart from the keys."""
+        from .. import _build
+        t0 = time.monotonic()
+        runs0 = _build.COMPILER_RUNS
+        if self.cache is not None:
+            _build.use_root(self.cache.kernel_root)
+        kernels = None
+        if self._cuda and "pallas" in (self.config.corr_impl,
+                                       self.config.gru_impl):
+            _build.build_all()
+            kernels = "built" if _build.COMPILER_RUNS > runs0 else "found"
+        if self.cache is not None:
+            self.cache.kernels = kernels
+        self.boot["kernels"] = kernels
+        self.boot["kernels_s"] = time.monotonic() - t0
+        self.boot["compiler_runs"] = _build.COMPILER_RUNS - runs0
+
+    def _warm_key(self, key, kind: str, h: int, w: int, b: int) -> bool:
+        """Build one key (capture it on CUDA) and, with a cache, check it
+        against its entry; True on a cache hit."""
+        from ..models import capture as capture_mod
+        from .aot_cache import digest_outputs, probe_seed
+        before = dict(capture_mod.SECONDS)
+        t0 = time.monotonic()
+        self._device_call(key, self._warm_call(kind, h, w, b), warm=True)
+        times = {"key_s": time.monotonic() - t0}
+        times.update({f"{k}_s": capture_mod.SECONDS[k] - before[k]
+                      for k in before})
+        hit = False
+        if self.cache is not None:
+            t1 = time.monotonic()
+            entry = self.cache.entry(key)
+            usable = entry is not None and not entry.get("corrupt")
+            seed = int(entry["seed"]) if usable else probe_seed(key)
+            call = self._probe_call(kind, h, w, b, seed)
+            digest = (None if call is None else digest_outputs(
+                self._device_call(key, call, warm=True)))
+            with self._lock:
+                self._digests[key] = (seed, digest)
+            hit = self.cache.judge(key, entry, digest,
+                                   time.monotonic() - t1)
+            if not hit:
+                self.cache.save(key, seed, digest,
+                                overwrite=not self.cache.validate()
+                                or (entry is not None and not usable))
+            times["probe_s"] = time.monotonic() - t1
+        self.boot.setdefault("keys", []).append(
+            {"key": list(key[:4]), "hit": hit, **times})
+        return hit
+
     def warmup(self, verbose: bool = True) -> int:
         """Build every declared key — on CUDA, capture its graph — and
         return the number built.  Warmup calls are neither hits nor misses:
-        ``compile_misses`` measures serve-time surprises."""
+        ``compile_misses`` measures serve-time surprises.  With a cache,
+        each key is also checked against its entry (hit or miss, the entry
+        written on a miss), and the manifest is written after the grid
+        (the kernel objects are built into the cache, if at all, before
+        the first key)."""
         t0 = time.monotonic()
         n = 0
         # the grid is enumerated by lint/budget.py and consumed here, so
@@ -325,16 +428,21 @@ class InferenceEngine:
         grid = enumerate_warmup_grid(self.config, self.sconfig,
                                      stream=self.stream,
                                      chaos=self.faults is not None)
+        self._prepare_kernels()
         for (kind, h, w, b, _policy) in grid:
             key = self._key(h, w, b, kind)
             with self._lock:
                 if key in self._exec:
                     continue
-            self._device_call(key, self._warm_call(kind, h, w, b), warm=True)
+            loaded = self._warm_key(key, kind, h, w, b)
             n += 1
+            self.warmup_loaded += int(loaded)
             if verbose:
-                _log.info(f"warmed {kind} bucket {h}x{w} batch {b} "
+                verb = "warmed (cache hit)" if loaded else "warmed"
+                _log.info(f"{verb} {kind} bucket {h}x{w} batch {b} "
                           f"({time.monotonic() - t0:.1f}s elapsed)")
+        if self.cache is not None:
+            self.cache.write_manifest(grid)
         probe_key = self._probe_key()
         if self._cuda and probe_key is not None:
             # the probe thread's cuDNN choices, made now: one eager forward
@@ -342,9 +450,31 @@ class InferenceEngine:
             def warm():
                 with self._device_lock:
                     self._eager_finite(self.model, *probe_key)
+            t1 = time.monotonic()
             self._on_probe_thread(warm)
+            self.boot["probe_thread_s"] = time.monotonic() - t1
         self.warmup_seconds = time.monotonic() - t0
+        self.boot["warmup_s"] = self.warmup_seconds
         return n
+
+    def export_cache(self) -> dict:
+        """Write every warm key's entry that the attached cache lacks and
+        the manifest (the /admin/cache/prestage hook
+        the fleet's rolling updater calls before a weight flip: the
+        probes are of the graphs, which a reload leaves in place).
+        Idempotent; a no-op without a cache."""
+        if self.cache is None:
+            return {"exported": 0, "entries": 0, "dir": None}
+        with self._lock:
+            items = sorted(self._digests.items())
+        exported = sum(1 for key, (seed, digest) in items
+                       if self.cache.save(key, seed, digest))
+        grid = enumerate_warmup_grid(self.config, self.sconfig,
+                                     stream=self.stream,
+                                     chaos=self.faults is not None)
+        self.cache.write_manifest(grid)
+        return {"exported": exported, "entries": len(items),
+                "dir": str(self.cache.dir)}
 
     # -- the slot pool's buffers ---------------------------------------------
 

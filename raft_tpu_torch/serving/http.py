@@ -31,7 +31,10 @@ Endpoints:
                       (default 500, max 60000) milliseconds on the LIVE
                       replica; single-flight (409 while one runs), 200
                       returns the trace_dir and the Chrome trace written.
-  POST /admin/cache/prestage  409: the port has no AOT engine cache.
+  POST /admin/cache/prestage  write every warm key's entry and the
+                      manifest into the attached AOT engine cache
+                      (serving/aot_cache.py); 409 without a cache
+                      (--engine-cache-dir).
 
 Request tracing (OBSERVABILITY.md): every traced request carries a
 ``trace_id`` — minted server-side, or adopted from an ``X-Raft-Trace-Id``
@@ -323,6 +326,15 @@ class _Handler(BaseHTTPRequestHandler):
                         "sample": app.sconfig.trace_sample,
                         "open_traces": app.tracer.open_traces,
                     }
+                cache = getattr(app, "engine_cache", None)
+                if cache is not None:
+                    # the fleet's stagger-skip reads this: misses == 0 with
+                    # hits > 0 means the replica booted from the cache
+                    ec = cache.stats.as_dict()
+                    ec["dir"] = str(cache.dir)
+                    ec["kernels"] = cache.kernels
+                    ec["compiler_runs"] = cache.compiler_runs()
+                    health["engine_cache"] = ec
                 anomaly = getattr(app, "anomaly", None)
                 if anomaly is not None:
                     # CI smoke gate: a clean run must report {} here; the
@@ -512,10 +524,22 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, {"status": "reloaded", "weights": info})
 
     def _post_admin_cache_prestage(self):
-        """The AOT cache's pre-stage hook: the port has no cache (ROADMAP
-        item 9c), so this answers 409 as a cacheless server does."""
-        self._send_json(409, {"error": "no engine cache attached "
-                                       "(--engine-cache-dir)"})
+        """Write every warm key's entry and the manifest into the
+        attached cache directory (serving/aot_cache.py)
+        — what the rolling updater calls on one healthy replica BEFORE
+        flipping weights, so a later spawn boots from a full directory.
+        Runs on this handler thread like /admin/reload."""
+        app = self.server_app
+        if getattr(app, "engine_cache", None) is None:
+            self._send_json(409, {"error": "no engine cache attached "
+                                           "(--engine-cache-dir)"})
+            return
+        try:
+            info = app.prestage_cache()
+        except Exception as e:
+            self._send_json(500, {"error": f"prestage failed: {e}"})
+            return
+        self._send_json(200, {"status": "prestaged", "cache": info})
 
     def _post_debug_profile(self):
         """On-demand profiler capture (?ms=, default 500): the handler

@@ -245,6 +245,33 @@ def make_robustness_metrics(registry: Registry,
     return m
 
 
+def make_engine_cache_metrics(registry: Registry) -> Dict[str, _Metric]:
+    """AOT engine-cache families (serving/aot_cache.py) — registered only
+    when --engine-cache-dir attaches a cache, so a cacheless server's
+    /metrics exposition is untouched.  The counters are filled from the
+    cache's warmup stats after start(); the histogram prices reading an
+    entry and checking its probe (a replay and a sha256)."""
+    return {
+        "hits": registry.counter(
+            "raft_engine_cache_hits_total",
+            "Warmup keys whose cache entry held: identity matched, no "
+            "compiler ran, the captured graph's probe output bitwise the "
+            "writer's"),
+        "misses": registry.counter(
+            "raft_engine_cache_misses_total",
+            "Warmup keys that missed (absent, corrupt or stale entry, a "
+            "compiler run, or a probe output other than the writer's)"),
+        "loads": registry.counter(
+            "raft_engine_cache_loads_total",
+            "Cache entries read"),
+        "load_seconds": registry.histogram(
+            "raft_engine_cache_load_seconds",
+            "Seconds to read a cache entry and check its probe (one replay "
+            "of the key's graph and a sha256 of its output)",
+            buckets=(0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0)),
+    }
+
+
 def make_fault_metrics(registry: Registry) -> Dict[str, _Metric]:
     """Registered only when --chaos/RAFT_TPU_CHAOS arms the injector, so
     an un-drilled server's /metrics exposition carries no chaos families."""

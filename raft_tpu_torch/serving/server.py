@@ -23,6 +23,7 @@ serve_cli is the ``python -m raft_tpu_torch.serving`` entry point
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Optional
@@ -240,6 +241,18 @@ class FlowServer:
             for k in ("steps", "step_seconds", "step_batch",
                       "step_occupancy"):
                 self.metrics[f"stream_{k}"] = stream_metrics[k]
+        # AOT engine cache (serving/aot_cache.py): keyed by the RESOLVED
+        # config (the engine applies the sconfig iters-policy override, so
+        # the cache identity must match the warmed keys) and the model
+        self.engine_cache = None
+        if engine is None and sconfig.engine_cache_dir:
+            from .aot_cache import EngineCache
+            rconfig = config
+            if sconfig.iters_policy is not None:
+                rconfig = dataclasses.replace(
+                    config, iters_policy=sconfig.iters_policy)
+            self.engine_cache = EngineCache(sconfig.engine_cache_dir,
+                                            rconfig, model)
         # engine injection: tests drive the batching policy with stubs.
         # A streaming engine shares the coordinator's slot pool: the
         # store owns the alloc/free policy, the engine owns the device
@@ -247,7 +260,8 @@ class FlowServer:
         self.engine = engine if engine is not None else InferenceEngine(
             config, model, sconfig, iters=iters,
             stream=sconfig.max_sessions > 0, faults=self.faults,
-            pool=self.streams.pool if self.streams else None)
+            pool=self.streams.pool if self.streams else None,
+            cache=self.engine_cache)
         self.batcher = MicroBatcher(
             self.queue, self._run_engine, sconfig.pad_batch_to,
             sconfig.max_batch, sconfig.max_wait_ms, metrics=self.metrics,
@@ -357,6 +371,19 @@ class FlowServer:
             run_log.event("profile_capture", **info)
         return info
 
+    def prestage_cache(self) -> dict:
+        """POST /admin/cache/prestage: write every warm key's entry and
+        the manifest into the attached cache directory
+        (engine.export_cache) — what the fleet's rolling updater calls on
+        a replica before a weight flip, so a replica spawned during or
+        after the roll boots from a full directory.  Returns {exported,
+        entries, dir}."""
+        info = self.engine.export_cache()
+        run_log = tlm_events.current()
+        if run_log is not None:
+            run_log.event("serve_cache_prestaged", **info)
+        return info
+
     # -- self-healing hooks ------------------------------------------------
 
     def _batcher_crashed(self, exc: Exception) -> None:
@@ -423,6 +450,18 @@ class FlowServer:
             self.registry.gauge("raft_serving_compile_cache_entries",
                                 "Warm executables resident",
                                 fn=self.engine_executables)
+            from ..ops import corr_cuda, gru_cuda
+            launches = self.registry.gauge(
+                "raft_kernel_launches",
+                "CUDA kernel launches issued by this process's wrappers, "
+                "by kernel (a capture issues them; a graph's replays "
+                "issue none through the wrappers)",
+                labelnames=("kernel",))
+            for w in (corr_cuda.corr_lookup_cuda, corr_cuda.corr_window_cuda,
+                      corr_cuda.corr_ragged_cuda, corr_cuda.corr_packed_cuda,
+                      gru_cuda.sep_conv_gru_cuda):
+                launches.labels(w.__name__.replace("_cuda", "")).set_fn(
+                    lambda w=w: w.launches)
             if tlm_watchdogs.lock_watch_enabled():
                 # runtime lock-order validator (RAFT_TPU_LOCK_WATCH=1):
                 # the serving locks were created through watched_lock, so
@@ -451,8 +490,23 @@ class FlowServer:
         if self.sconfig.warmup and hasattr(self.engine, "warmup"):
             n = self.engine.warmup(verbose=self.verbose)
             if self.verbose:
-                _log.info(f"warmup built {n} key(s) in "
+                loaded = getattr(self.engine, "warmup_loaded", 0)
+                cache = ("" if self.engine_cache is None else
+                         f" ({loaded} cache hit(s), {n - loaded} miss(es))")
+                _log.info(f"warmup built {n} key(s){cache} in "
                           f"{self.engine.warmup_seconds:.1f}s")
+        if self.engine_cache is not None:
+            # fill the cache families from the warmup stats (registered
+            # only with a cache, so a cacheless /metrics is untouched)
+            from .metrics import make_engine_cache_metrics
+            fam = make_engine_cache_metrics(self.registry)
+            st = self.engine_cache.stats
+            for name in ("hits", "misses", "loads"):
+                count = getattr(st, name)
+                if count:
+                    fam[name].inc(count)
+            for sec in st.load_seconds:
+                fam["load_seconds"].observe(sec)
         if self._recompile_watch is not None:
             self._recompile_watch.arm()
         if self.history is not None:
@@ -633,6 +687,7 @@ class FlowServer:
 def serve_cli(args, config: RAFTConfig, load_model) -> int:
     """Build, warm, serve until SIGINT/SIGTERM, drain, exit 0.
     ``load_model(args, config)`` returns the model to serve."""
+    import json
     import os
     import signal
 
@@ -673,6 +728,7 @@ def serve_cli(args, config: RAFTConfig, load_model) -> int:
             session_ttl_s=getattr(args, "session_ttl_s", 300.0),
             ragged=getattr(args, "ragged", False),
             ragged_batch_pixels=getattr(args, "ragged_batch_pixels", 0),
+            engine_cache_dir=getattr(args, "engine_cache_dir", None),
             history_interval_s=getattr(args, "history_interval_s", 1.0),
             history_window=getattr(args, "history_window", 600),
             history_path=history_path or None,
@@ -694,7 +750,22 @@ def serve_cli(args, config: RAFTConfig, load_model) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"ERROR: {e}")
         return 2
+    from .. import IMPORT_T0
+    boot = {"imports_s": time.time() - IMPORT_T0}
+    spawned = os.environ.get("RAFT_TPU_SPAWN_T")
+    if spawned:
+        # set by the fleet's spawner: from its Popen to this package's
+        # first import (the interpreter's start)
+        boot["interpreter_s"] = IMPORT_T0 - float(spawned)
+    t = time.monotonic()
+    if not args.cpu:
+        import torch
+        torch.empty(1, device="cuda")   # the CUDA context
+        torch.cuda.synchronize()
+        boot["cuda_init_s"] = time.monotonic() - t
+        t = time.monotonic()
     model = load_model(args, config)
+    boot["model_s"] = time.monotonic() - t
     server = FlowServer(config, model, sconfig, iters=args.iters,
                         verbose=True,
                         trace_dir=getattr(args, "trace", None),
@@ -704,6 +775,22 @@ def serve_cli(args, config: RAFTConfig, load_model) -> int:
         server.profile_dir = os.path.join(out, "profiles")
     t0 = time.monotonic()
     server.start()
+    boot.update({k: v for k, v in getattr(server.engine, "boot", {}).items()
+                 if k != "keys"})
+    keys = getattr(server.engine, "boot", {}).get("keys", [])
+    for part in ("key_s", "warmup_s", "capture_s", "probe_s"):
+        boot[f"keys_{part}"] = sum(k.get(part, 0.0) for k in keys)
+    boot["start_to_ready_s"] = time.monotonic() - t0
+    if not args.cpu:
+        # this process's allocator (graph pools, weights, pool buffers),
+        # without the CUDA context
+        boot["cuda_reserved_mib"] = torch.cuda.memory_reserved() / 2 ** 20
+    if spawned:
+        boot["spawn_to_ready_s"] = time.time() - float(spawned)
+    if server.engine_cache is not None:
+        boot["engine_cache"] = server.engine_cache.stats.as_dict()
+    # one JSON line: a fleet's spawner and the chip smoke read it
+    print(f"[serve] boot {json.dumps(boot, default=str)}", flush=True)
     print(f"[serve] listening on {server.url}  "
           f"buckets={[f'{h}x{w}' for h, w in sconfig.buckets]}  "
           f"max_batch={sconfig.max_batch}  "

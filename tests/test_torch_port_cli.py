@@ -79,8 +79,6 @@ def test_mode_test_matches_jax(case, tmp_path, capsys):
     (["--process-id", "0"], "item 11"),
     (["--shard-data"], "item 11"),
     (["--serve-dp", "2"], "item 11"),
-    (["-m", "serve_fleet"], "item 14b"),
-    (["--engine-cache-dir", "cache"], "item 9c"),
     (["--show"], "OpenCV"),
 ], ids=lambda v: v if isinstance(v, str) else v[-1] if len(v) < 2 else v[0])
 def test_unported_flags_raise_naming_their_item(argv, item):

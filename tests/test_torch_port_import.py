@@ -47,6 +47,9 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch.telemetry.watchdogs\n"
             "import raft_tpu_torch.parallel, raft_tpu_torch.parallel.launch\n"
             "import raft_tpu_torch.parallel.distributed, raft_tpu_torch.ops.spmd\n"
+            "import raft_tpu_torch.serving.aot_cache, raft_tpu_torch.fleet\n"
+            "import raft_tpu_torch.fleet.manager, raft_tpu_torch.fleet.router\n"
+            "import raft_tpu_torch.fleet.controller, raft_tpu_torch.fleet.launch\n"
             "assert raft_tpu_torch.cli.build_parser().parse_args([]).mode == 'test'\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
