@@ -207,7 +207,7 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    buckets (box 440x1248): 9 sequential and 3 clients x 6 mixed requests,
    each device batch bitwise make_ragged_inference_fn on it, each
    response its unpadded row, no serve-time capture.  Then the timings,
-   2 windows of 5 s each (hundreds of requests): the HTTP median at one
+   2 windows of 2.5 s each (hundreds of requests): the HTTP median at one
    client beside the captured factory's (the serving overhead), pairs/s
    and the mean device batch with several clients, S1's stream advances
    from 3 sessions; warmup seconds, the graph pools and peak allocated
@@ -232,10 +232,10 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    B1 and B2) and BF (pallas-bf16corr-ctx-gru-winpack under
    ``compute_dtype='bfloat16'``, B5-bf16 and B2-bf16).  For each: the
    captured step (``training/capture.py``, what the loop runs on CUDA)
-   first, 2 warm-up calls (the first captures) and 10 timed replays, then
-   the eager step in the same process, 2 + 10 the same way; every loss
+   first, 2 warm-up calls (the first captures) and 3 timed replays, then
+   the eager step in the same process, 2 + 3 the same way; every loss
    finite; the launch counters read the capture's two steps (its warm-up
-   and the captured step; a replay counts none) and 12 eager steps
+   and the captured step; a replay counts none) and 5 eager steps
    (corr_lookup 24 and sep_conv_gru 96 a step in f32, corr_packed 24 and
    sep_conv_gru 96 in BF, also over one eager BF step alone: each
    iteration's forward and its recompute under remat; the backward runs
@@ -245,7 +245,7 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    one replay against one eager step from one state and batch,
    deterministic algorithms on: loss, gradient norm and every parameter,
    moment and statistic bitwise (else within phase 9's gradient bounds,
-   the reason printed); 20 captured steps on one fixed batch (the chairs
+   the reason printed); 6 captured steps on one fixed batch (the chairs
    lr held constant) lower its loss; freeze_bn (statistics bitwise,
    affines moved, masters float32) through a captured step; a NaN batch
    through the captured step skipped (params, moments, statistics
@@ -281,7 +281,7 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    375x1242 and 2 at 370x1224).  The chairs stage as ``python -m
    raft_tpu_torch.training --dataset chairs --data ROOT --workers 4``
    builds it (``MPSampleLoader``, 4 workers, shm), with the host
-   augmentor and then with ``--device-aug``: 2 warm-up and 5 timed steps
+   augmentor and then with ``--device-aug``: 2 warm-up and 3 timed steps
    each, every loss finite, corr_lookup 24 and sep_conv_gru 96 launches a
    step.  The device augmentor on a decoded batch of 10, card against
    CPU on the same ``params_from_host`` params, within 1e-4 x (1 +
@@ -331,8 +331,28 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    2x432x1024 against the factory's batch of 2 at phase 4's bound (3
    iterations), then timed at 12.  (e) On a one-card machine ``-m test --spatial 2``
    exits 2 ("needs 2 devices") and an engine with ``dp_devices=2``
-   raises.  The ``parallel`` JSON line; its launches join the kernels'
-   record (B1, B3, B5 and their bf16 entries; B2 from (c) and (d)).
+   raises.  (f) The row-sharded train step (``make_pjit_train_step(
+   spatial_axis='spatial')``, dp 1 x sp 2 over the two gloo ranks):
+   raft-things f32 (the B1 ring, remat on, AdamW, C1 weights) at
+   2x512x1024, at 3 iterations under ``gru_impl='xla'`` and ``'pallas'``
+   (B2 on the halo'd slab) against one single-process eager step on the
+   whole batch from the same state: the loss at 1e-5 relative, the
+   gradient at phase 9's bounds, the BN statistics at 1e-5, the ranks'
+   updated states bitwise equal; the ring's backward alone on (a)'s maps
+   (B1, B3, B5, f32): each rank's gradients of its f1 and f2 slabs
+   against the whole-map kernel's vjp at rtol = atol = 1e-5; B2 on a
+   halo'd slab against the whole-image B2 call and the plain twin at
+   1e-5; at 12 iterations (corr_lookup 48 and sep_conv_gru 96 launches a
+   rank a step: the forward and the remat recompute) 2 timed steps a
+   rank, the collectives' and staging's share (forward and backward
+   apart), the peak a rank, beside the single process's step.  (g) On
+   the NCCL rank, ``make_dp_train_step`` (batch 2 at 368x496), the dp x
+   sp step (batch 2 at 384x496) at 3 iterations and
+   ``make_shard_inference_fn`` (512x1024) each captured as one CUDA
+   graph, the collectives recorded in it counted (> 0), the replay
+   bitwise equal to the eager call; one rank issues no P2P (printed, not
+   covered).  The ``parallel`` JSON line; its launches join the kernels'
+   record (B1, B3, B5 and their bf16 entries; B2 from (c), (d) and (f)).
 13. the fleet (``fleet_phases``, after phase 12): ``python -m
    raft_tpu_torch.cli -m serve_fleet`` of f32 main (432x1024, 12
    iterations, batch 1, streaming on), every replica a process of its own
@@ -393,6 +413,7 @@ CROPS = ((436, 1024), (375, 1242), (384, 512))   # Sintel, KITTI, FlyingChairs
 TOL = 1e-5
 T_START = time.perf_counter()   # the script's clock (fault reports)
 STALL_S = 10.0               # phase 8: no answer for this long dumps stacks
+SERVE_WINDOW_S = 2.5         # phase 8: a timing window's seconds
 _CONNS = threading.local()   # _http's keep-alive connections, per thread
 
 
@@ -754,7 +775,7 @@ def _watch(engine, name: str, keep, before=None) -> dict:
 
 
 def _windows(n_clients: int, request, calls=None, n_win: int = 2,
-             secs: float = 5.0):
+             secs: float = SERVE_WINDOW_S):
     """``n_clients`` clients, each calling ``request(c, i)`` (returns its
     ms) back to back, over ``n_win`` windows of ``secs`` seconds each.
     Per window: requests, requests/s (requests over the time until the
@@ -830,7 +851,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
     and FlyingChairs requests, sequential then from 3 clients, held as
     (a)-(c) against make_ragged_inference_fn on each batch the engine ran.
 
-    After the checks, the timings: 2 windows of 5 s at one client and at
+    After the checks, the timings: 2 windows of 2.5 s at one client and at
     several (and, in S1, of 3 sessions streaming), each request a frame
     pair of its own client's 8 encoded anew; the device batches of sizes
     the checks had not run are kept too.  Then the kernels of every
@@ -1290,7 +1311,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"{got1}, by "
               f"{flow_replays} graph replays {replayed1}; peak allocated "
               f"{peak1:.0f} MiB")
-        print(f"S1 timings, 2 windows of 5 s each: 1 client "
+        print(f"S1 timings, 2 windows of {SERVE_WINDOW_S:g} s each: 1 client "
               f"{sum(w['requests'] for w in one1)} requests, HTTP median "
               f"{http_ms:.2f} ms vs the captured factory {factory1:.2f} ms "
               f"(serving overhead {http_ms - factory1:.2f} ms; server spans, "
@@ -1422,7 +1443,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
               f"capture + probe warm-up {got2} (B4-bf16 {got2.get('corr_ragged', 0)}, "
               f"B2-bf16 {got2.get('sep_conv_gru', 0)}), by {flow_replays2} "
               f"graph replays {replayed2}; peak allocated {peak2:.0f} MiB")
-        print(f"S2 timings, 2 windows of 5 s each: 1 client "
+        print(f"S2 timings, 2 windows of {SERVE_WINDOW_S:g} s each: 1 client "
               f"{sum(w['requests'] for w in one2)} requests, HTTP median "
               f"{http_ms:.2f} ms vs the captured factory {factory2:.2f} ms "
               f"(overhead {http_ms - factory2:.2f} ms; spans "
@@ -1441,7 +1462,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
 # -- 9. training: the chairs stage on the card --------------------------------
 
 TRAIN_HW, TRAIN_B = (368, 496), 10      # TrainConfig.for_stage('chairs')
-TIMED_STEPS, FIT_STEPS = 10, 20
+TIMED_STEPS, FIT_STEPS = 3, 6
 LEAF_RTOL, GRAD_RTOL, ZERO_ATOL = 3e-2, 1e-2, 1e-5
 
 
@@ -2267,7 +2288,7 @@ def training_phases(dev, smi: str, kernels) -> dict:
 CHAIRS_HW, CHAIRS_PAIRS = (384, 512), 24          # FlyingChairs' frames
 SINTEL_HW, SINTEL_FRAMES = (436, 1024), 6          # one scene
 KITTI_SIZES = ((375, 1242), (375, 1242), (370, 1224), (370, 1224))
-DATA_STEPS = 5                                     # timed, after 2 warm-up
+DATA_STEPS = 3                                     # timed, after 2 warm-up
 KILL_DEADLINE_S = 60.0
 AUG_ATOL = 1e-4
 
@@ -2485,7 +2506,7 @@ def data_phases(dev, smi: str, kernels) -> dict:
                   f"worker mid-stream: respawns 1, 10 more samples in "
                   f"{secs:.2f} s (deadline {KILL_DEADLINE_S:g} s)")
         rec["loader_samples_per_s"] = {
-            f"{transport}_{w}": mp_rate(aug_ds, w, 16, transport)
+            f"{transport}_{w}": mp_rate(aug_ds, w, 8, transport)
             for w in (1, 2, 4) for transport in ("pickle", "shm")}
         print(f"data: loader samples/s (chairs host recipe, 384x512 -> "
               f"368x496): {rec['loader_samples_per_s']}")
@@ -3135,7 +3156,8 @@ PAR_MAP_HW = (512, 1024)      # (a): the ring's maps are these images' 1/8
 PAR_MODEL_HW = (1024, 1920)   # (b): raft-things row-sharded over 2 ranks
 PAR_NCCL_HW = (512, 1024)     # (b): the 1-rank NCCL run
 PAR_ITERS_HELD = 3            # (b): per iteration over this many
-PAR_TIMED = 5
+PAR_TIMED = 2
+PAR_CUDNN_TRIES = 3           # the ranks' cuDNN benchmark: algorithms tried
 
 
 def _par_mark(who: str, t0: float, what: str) -> None:
@@ -3213,6 +3235,41 @@ def _par_configs():
     return spatial, train, TrainConfig.for_stage("chairs")
 
 
+PAR_SP_HW, PAR_SP_B = (512, 1024), 2   # (f): the row-sharded step's batch
+PAR_SP_TIMED = 2                       # (f): timed steps a rank
+PAR_G_HW = (384, 496)                  # (g): the chairs crop, H rounded up
+#                                        to required_h_multiple at 1 rank (64)
+PAR_G_B = 2                            # (g): the captured steps' batch
+
+
+def _par_sp_batch(hw=PAR_SP_HW, B=PAR_SP_B, seed=18):
+    """(f)'s global batch (and (g)'s sp batch), seeded: frames, flows of a
+    few pixels, about 70% of the pixels valid."""
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    return (rng.rand(B, H, W, 3).astype(np.float32),
+            rng.rand(B, H, W, 3).astype(np.float32),
+            (3.0 * rng.randn(B, H, W, 2)).astype(np.float32),
+            (rng.rand(B, H, W) > 0.3).astype(np.float32))
+
+
+def _par_sp_config(gru_impl: str, iters: int):
+    """(f)'s raft-things f32: the B1 ring, ``remat_iters`` on (the chairs
+    stage's default), the GRU as asked."""
+    from raft_tpu_torch import RAFTConfig
+    return RAFTConfig.full(corr_impl="pallas", gru_impl=gru_impl, iters=iters)
+
+
+def _par_digest(state) -> str:
+    """A hash of a train state's parameters, statistics and moments (two
+    ranks' states compared bitwise)."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in _state_leaves(state):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 class _Capture:
     """An optimizer that keeps the gradients it is handed (after any
     averaging over the ranks) and then steps."""
@@ -3260,6 +3317,7 @@ def _parallel_rank(rank: int, world: int, go: str) -> dict:
                                          lookup_window_plain)
     from raft_tpu_torch.parallel import (DATA_AXIS, SPATIAL_AXIS, make_mesh,
                                          make_dp_train_step,
+                                         make_pjit_train_step,
                                          make_shard_inference_fn, shard_batch,
                                          shard_rows)
     from raft_tpu_torch.parallel.mesh import rank_device
@@ -3269,6 +3327,10 @@ def _parallel_rank(rank: int, world: int, go: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
+    # a rank's cuDNN benchmark of every new training shape is most of its
+    # checks' time: it tries the heuristic's first PAR_CUDNN_TRIES
+    # algorithms, not 10 (the default)
+    torch.backends.cudnn.benchmark_limit = PAR_CUDNN_TRIES
     dev = torch.device("cuda", 0)
     out = {"rank": rank}
     t0 = time.perf_counter()
@@ -3380,6 +3442,87 @@ def _parallel_rank(rank: int, world: int, go: str) -> dict:
     out["train"]["param_sum"] = float(sum(p.detach().double().sum()
                                           for p in state.model.parameters()))
     _par_mark(who, t0, "(c) checked")
+    del state
+
+    # (f) the row-sharded train step, dp 1 x sp 2, raft-things f32 at
+    # 2x512x1024, 3 iterations, under both GRUs (B2 on the halo'd slab)
+    fmesh = make_mesh((DATA_AXIS, SPATIAL_AXIS), shape=(1, world), device=dev)
+    flocal = shard_batch(fmesh, Batch(*_par_sp_batch()), DATA_AXIS,
+                         SPATIAL_AXIS)
+    out["sp"] = {}
+    for gi in ("xla", "pallas"):
+        cfg_f = _par_sp_config(gi, PAR_ITERS_HELD)
+        cap_f = _Capture(tx)
+        st = TrainState.create(_par_model(cfg_f, dev), tx)
+        step = make_pjit_train_step(cfg_f, tc, cap_f, fmesh,
+                                    spatial_axis=SPATIAL_AXIS)
+        st, m = step(st, flocal, 0)
+        rec = {"loss": float(m["loss"]), "digest": _par_digest(st)}
+        if rank == 0:
+            rec["grads"] = {n: g.cpu().numpy() for n, g in
+                            zip(names, cap_f.grads)}
+            rec["bn"] = {n: v.detach().cpu().numpy()
+                         for n, v in st.model.named_buffers()}
+        out["sp"][gi] = rec
+        del st, step, cap_f
+        _par_mark(who, t0, f"(f) sp step gru_impl={gi!r} checked")
+    # the ring's backward alone (B1, B3, B5, f32): each rank's gradients of
+    # its f1 and f2 slabs against the whole-map kernel's vjp
+    f1, f2, coords = _par_ring_maps(dev, "noisy")
+    hl = f1.shape[1] // world
+    rows = slice(rank * hl, (rank + 1) * hl)
+    c_loc = coords[:, rows].contiguous()
+    ct = torch.from_numpy(np.random.RandomState(19).randn(
+        1, f1.shape[1], f1.shape[2], 4 * 81).astype(np.float32)).to(dev)
+    ring_bwd = {}
+    for name, wrap, opts in (
+            ("corr_lookup", corr_cuda.fused_lookup, {"p_select": "all"}),
+            ("corr_window", corr_cuda.window_lookup, {"p_select": "window"}),
+            ("corr_packed", lambda a, b, c, r: corr_cuda.packed_lookup(
+                a, b, c, r, "all"), {"p_select": "all", "pack_rows": True})):
+        F1, F2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+        n1, lv = lookup_operands(F1, F2, 4, "highest")
+        w1, w2 = torch.autograd.grad(wrap(n1, lv, coords, 4), [F1, F2], ct)
+        a1 = f1[:, rows].clone().requires_grad_()
+        a2 = f2[:, rows].clone().requires_grad_()
+        got = make_ring_lookup_local(a1, a2, 4, 4, ax, kernel="pallas",
+                                     pallas_opts=opts)(c_loc)
+        g1, g2 = torch.autograd.grad(got, [a1, a2], ct[:, rows].contiguous())
+        ring_bwd[name] = [
+            _par_close(f"parallel (f) ring backward {name} rank {rank} "
+                       f"d/d{which}", g, w[:, rows])
+            for which, g, w in (("f1", g1, w1), ("f2", g2, w2))]
+        print(f"parallel (f) ring backward {name} rank {rank}: d/df1, d/df2 "
+              f"vs the whole-map kernel's vjp max abs err {ring_bwd[name]} "
+              f"(rtol=atol={TOL:g}) ok", flush=True)
+    out["ring_bwd"] = ring_bwd
+    del f1, f2, coords, ct, F1, F2, w1, w2, a1, a2, g1, g2
+    # B2 on the halo'd slab against the whole-image kernel and the plain twin
+    from raft_tpu_torch.ops.gru_cuda import fuse_gru_weights, prepare_gru_weights
+    gh, gm, (gc1, gc2) = gru_inputs(np.random.RandomState(20), dev, 1,
+                                    PAR_MAP_HW[0] // 8, PAR_MAP_HW[1] // 8)
+    fw = fuse_gru_weights(_par_model(_par_sp_config("pallas", 1), dev)
+                          .update_block.gru, 128, 128)
+    with torch.no_grad():
+        fw = {k: v.detach() for k, v in fw.items()}
+        kw = prepare_gru_weights(fw, torch.float32)
+
+        def slab(t):
+            return t[:, rows].contiguous()
+        got = gru_cuda.sep_conv_gru_rows(fw, slab(gh), slab(gm),
+                                         (slab(gc1), slab(gc2)), kw, axis=ax)
+        whole = gru_cuda.sep_conv_gru(fw, gh, gm, (gc1, gc2), kw)[:, rows]
+        plain = gru_cuda.sep_conv_gru_plain(fw, gh, gm, (gc1, gc2))[:, rows]
+    out["gru_slab"] = {
+        "vs_whole_kernel": _par_close(f"parallel (f) B2 halo'd slab rank "
+                                      f"{rank} vs the whole-image kernel",
+                                      got, whole),
+        "vs_plain": _par_close(f"parallel (f) B2 halo'd slab rank {rank} vs "
+                               f"the plain twin", got, plain)}
+    print(f"parallel (f) B2 on the halo'd slab rank {rank}: {out['gru_slab']}"
+          f" (rtol=atol={TOL:g}) ok", flush=True)
+    del gh, gm, gc1, gc2, got, whole, plain
+    _par_mark(who, t0, "(f) checked")
 
     # -- the timings, the card shared by the two ranks alone ----------------
     _par_wait(go, who, t0)
@@ -3445,6 +3588,44 @@ def _parallel_rank(rank: int, world: int, go: str) -> dict:
     out["train"]["allreduce_bytes"] = 4 * sum(g.numel() for g in grads)
     out["train"]["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     _par_mark(who, t0, "(c) timed")
+    del state, step
+    # (f) the row-sharded step at 12 iterations (B1 ring, B2 slab): the
+    # launches, PAR_SP_TIMED timed steps, the last with its collectives
+    # timed (forward and backward apart), the peak a rank
+    cfg_f = _par_sp_config("pallas", ITERS)
+    st = TrainState.create(_par_model(cfg_f, dev), tx)
+    step = make_pjit_train_step(cfg_f, tc, cap, fmesh,
+                                spatial_axis=SPATIAL_AXIS)
+    # no warm-up step: the parity steps above ran every conv's shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(corr_cuda.corr_lookup_cuda, gru_cuda.sep_conv_gru_cuda)
+    ms = []
+    for i in range(PAR_SP_TIMED):
+        # the last step's collectives timed too: under gloo every one of
+        # them waits for its host copies anyway, so the timers' syncs add
+        # little
+        spmd.reset_stats(timed=i == PAR_SP_TIMED - 1)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        st, m = step(st, flocal, i + 1)
+        float(m["loss"])
+        ms.append((time.perf_counter() - ts) * 1e3)
+    wall = ms[-1] / 1e3
+    stc = spmd.STATS.snapshot()
+    spmd.reset_stats(timed=False)
+    out["sp_launches"] = {
+        "corr_lookup": corr_cuda.corr_lookup_cuda.launches // PAR_SP_TIMED,
+        "sep_conv_gru": gru_cuda.sep_conv_gru_cuda.launches // PAR_SP_TIMED}
+    out["sp_launches_total"] = {
+        "corr_lookup": corr_cuda.corr_lookup_cuda.launches,
+        "sep_conv_gru": gru_cuda.sep_conv_gru_cuda.launches}
+    out["sp_timing"] = {
+        "step_ms": ms, "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+        "collectives": {**stc, "wall_s": wall},
+        "share_fwd": stc["seconds"] / wall, "share_bwd": stc["bwd_seconds"] / wall,
+        "loss": float(m["loss"])}
+    _par_mark(who, t0, "(f) timed")
     return out
 
 
@@ -3461,6 +3642,7 @@ def _nccl_rank(rank: int, world: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark_limit = PAR_CUDNN_TRIES
     dev = torch.device("cuda", 0)
     mesh = make_mesh((SPATIAL_AXIS,), device=dev)
     ax = mesh[SPATIAL_AXIS]
@@ -3479,8 +3661,116 @@ def _nccl_rank(rank: int, world: int) -> dict:
                          want)
         print(msg, flush=True)
         worst.append(w)
-    return {**spmd.STATS.snapshot(), "worst_ratio_to_bound": worst,
-            "backend": str(dist.get_backend())}
+    out = {**spmd.STATS.snapshot(), "worst_ratio_to_bound": worst,
+           "backend": str(dist.get_backend())}
+    out["captured"] = _nccl_captures(dev, model, u1, u2)
+    return out
+
+
+def _nccl_captures(dev, model, u1, u2) -> dict:
+    """(g): on the one NCCL rank, each of ``make_dp_train_step`` (batch 2
+    at the chairs crop, 3 iterations), the dp x sp step (batch 2 at
+    384x496, 3 iterations) and ``make_shard_inference_fn`` (512x1024, 12
+    iterations) captured as one CUDA graph with its collectives inside:
+    the collectives recorded in the graph counted (> 0), and the first
+    replay after the capture bitwise equal to the eager call from the same
+    state (phase 9's recipe: the replay and the eager step under
+    deterministic algorithms).  At one rank the ring and the halos move
+    nothing by point to point: no P2P is issued, and none is covered."""
+    import copy
+    from raft_tpu_torch.ops import spmd
+    from raft_tpu_torch.parallel import (DATA_AXIS, SPATIAL_AXIS, make_mesh,
+                                         make_dp_train_step,
+                                         make_pjit_train_step,
+                                         make_shard_inference_fn)
+    from raft_tpu_torch.training import TrainState, make_optimizer
+    from raft_tpu_torch.training.capture import GraphedTrainStep
+    from raft_tpu_torch.training.step import Batch
+    cfg_s, cfg_t, tc = _par_configs()
+    cfg_3 = dataclasses.replace(cfg_t, iters=PAR_ITERS_HELD)
+    tx = make_optimizer(tc)
+    cudnn = torch.backends.cudnn
+
+    def deterministic(on: bool):
+        torch.use_deterministic_algorithms(on, warn_only=True)
+        cudnn.deterministic, cudnn.benchmark = on, not on
+
+    def hold(label, step, batch):
+        if not isinstance(step, GraphedTrainStep):
+            raise AssertionError(f"parallel (g) {label}: not captured over "
+                                 f"NCCL: {type(step)}")
+        state = TrainState.create(_par_model(cfg_3, dev), tx)
+        spmd.reset_stats()
+        state, _ = step(state, batch, 0)          # warm-up, capture, replay
+        torch.cuda.synchronize()
+        st = spmd.STATS.snapshot()
+        deterministic(True)
+        try:
+            a, b = copy.deepcopy(state), copy.deepcopy(state)
+            a, ma = step(a, batch, 1)
+            b, mb = step.eager(b, batch, 1)
+            torch.cuda.synchronize()
+        finally:
+            deterministic(False)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(_state_leaves(a), _state_leaves(b))) and all(
+            float(ma[k]) == float(mb[k]) for k in ("loss", "grad_norm"))
+        rec = {"collectives_in_graph": st["captured_calls"],
+               "p2p_calls": st["p2p_calls"] + st["bwd_p2p_calls"],
+               "captures": step.captures, "replay_bitwise_eager": same,
+               "loss": float(ma["loss"])}
+        print(f"parallel (g) {label}: {rec['collectives_in_graph']} "
+              f"collectives recorded in the graph, replay bitwise equal to "
+              f"eager: {same}; P2P issued {rec['p2p_calls']} (one rank: the "
+              f"ring and the halos exchange nothing, P2P in a graph is not "
+              f"covered here)", flush=True)
+        if not same or rec["collectives_in_graph"] == 0:
+            raise AssertionError(f"parallel (g) {label}: {rec}")
+        return rec
+
+    out = {}
+    dmesh = make_mesh((DATA_AXIS,), device=dev)
+    dbatch = Batch(*(torch.from_numpy(x).to(dev) for x in _par_sp_batch(
+        TRAIN_HW, PAR_G_B, 22)))
+    out["dp_step"] = hold(f"make_dp_train_step, batch {PAR_G_B} at the chairs "
+                          f"crop {TRAIN_HW[0]}x{TRAIN_HW[1]}, {PAR_ITERS_HELD} "
+                          f"iterations", make_dp_train_step(cfg_3, tc, tx, dmesh),
+                          dbatch)
+    del dbatch
+    smesh = make_mesh((DATA_AXIS, SPATIAL_AXIS), shape=(1, 1), device=dev)
+    sbatch = Batch(*(torch.from_numpy(x).to(dev) for x in _par_sp_batch(
+        PAR_G_HW, PAR_G_B, 21)))
+    out["sp_step"] = hold(
+        f"make_pjit_train_step(spatial_axis), batch {PAR_G_B} at "
+        f"{PAR_G_HW[0]}x{PAR_G_HW[1]} (368 rounded up to the 1-rank "
+        f"required_h_multiple 64), {PAR_ITERS_HELD} iterations",
+        make_pjit_train_step(cfg_3, tc, tx, smesh, spatial_axis=SPATIAL_AXIS),
+        sbatch)
+    del sbatch
+    mesh = make_mesh((SPATIAL_AXIS,), device=dev)
+    fn = make_shard_inference_fn(cfg_s, mesh, iters=ITERS)
+    if fn.graphs is None:
+        raise AssertionError("parallel (g): the shard forward is not captured "
+                             "over NCCL")
+    spmd.reset_stats()
+    got = fn(model, u1, u2)
+    torch.cuda.synchronize()
+    st = spmd.STATS.snapshot()
+    again = fn(model, u1, u2)
+    eager = fn.graphs._eager(model, u1, u2)[0]
+    same = torch.equal(again, eager) and torch.equal(got, again)
+    out["shard_inference"] = {"collectives_in_graph": st["captured_calls"],
+                              "p2p_calls": st["p2p_calls"],
+                              "replay_bitwise_eager": same,
+                              "captures": fn.graphs.captures}
+    print(f"parallel (g) make_shard_inference_fn 1x{PAR_NCCL_HW[0]}x"
+          f"{PAR_NCCL_HW[1]}, {ITERS} iterations: {st['captured_calls']} "
+          f"collectives recorded in the graph, replay bitwise equal to eager: "
+          f"{same}; P2P issued {st['p2p_calls']} (one rank)", flush=True)
+    if not same or st["captured_calls"] == 0:
+        raise AssertionError(f"parallel (g) shard inference: "
+                             f"{out['shard_inference']}")
+    return out
 
 
 def parallel_phases(dev, smi: str) -> dict:
@@ -3502,7 +3792,13 @@ def parallel_phases(dev, smi: str) -> dict:
     timed steps of the stage and the gradient all-reduce; (d)
     ``make_dp_eval_fn`` over [cuda:0, cuda:0] at 2x432x1024 against the
     factory's batch of 2; (e) ``-m test --spatial 2`` and ``dp_devices=2``
-    refused on a one-card machine.  Returns the
+    refused on a one-card machine; (f) the row-sharded train step (dp 1 x
+    sp 2) of raft-things at 2x512x1024 under both GRUs against one
+    single-process step at 3 iterations, the ring's backward (B1, B3, B5)
+    and B2's halo'd slab held at 1e-5, then timed at 12 iterations beside
+    the single process; (g) on the NCCL rank, the DP step, the dp x sp
+    step and the shard forward captured, collectives inside, each replay
+    bitwise equal to eager.  Returns the
     ``parallel`` record and the launches by kernel (``launches``)."""
     import gc
     import shutil
@@ -3543,8 +3839,25 @@ def parallel_phases(dev, smi: str) -> dict:
         nccl_group = start_ranks(_nccl_rank, 1,
                                  init_method=f"file://{tmp}/nccl",
                                  backend="nccl", group_timeout_s=120,
-                                 deadline_s=300)
+                                 deadline_s=400)
         _par_mark("main", t_phase, "ranks started")
+        # (f) the single-process eager steps on the whole batch, both GRUs,
+        # first: the ranks' own first checks, (a) and (b), are light
+        tx = make_optimizer(tc)
+        fwhole = Batch(*(torch.from_numpy(x).to(dev) for x in _par_sp_batch()))
+        f_ref = {}
+        for gi in ("xla", "pallas"):
+            cfg_f = _par_sp_config(gi, PAR_ITERS_HELD)
+            st = TrainState.create(_par_model(cfg_f, dev), tx)
+            capf = _Capture(tx)
+            st, m = make_train_step(cfg_f, tc, capf)(st, fwhole, 0)
+            f_ref[gi] = {"loss": float(m["loss"]),
+                         "grads": {n: g for (n, _), g in
+                                   zip(st.model.named_parameters(), capf.grads)},
+                         "bn": {n: v.detach().clone()
+                                for n, v in st.model.named_buffers()}}
+            del st, capf
+        _par_mark("main", t_phase, "(f) whole-batch steps done")
         # (b) references while the ranks run: per iteration, and the peak
         model = _par_model(cfg_s, dev).eval()
         im1, im2 = _par_frames(PAR_MODEL_HW, 14)
@@ -3556,7 +3869,6 @@ def parallel_phases(dev, smi: str) -> dict:
         _par_mark("main", t_phase, "(b) references done")
 
         # (c) the single-process eager step on the whole batch
-        tx = make_optimizer(tc)
         state = TrainState.create(_par_model(cfg_t, dev), tx)
         cap = _Capture(tx)
         whole = Batch(*(torch.from_numpy(x).to(dev) for x in _par_batch()))
@@ -3667,6 +3979,24 @@ def parallel_phases(dev, smi: str) -> dict:
             single_factory_ms=_par_ms(lambda: single(served, p1, p2),
                                       PAR_TIMED))
         del dp, single, served
+        # (f) the single process's step on the whole batch at 12 iterations
+        cfg_f = _par_sp_config("pallas", ITERS)
+        st = TrainState.create(_par_model(cfg_f, dev), tx)
+        one = make_train_step(cfg_f, tc, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        st, m = one(st, fwhole, 0)
+        float(m["loss"])
+        single_sp_peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        single_sp_ms = []
+        for i in range(PAR_SP_TIMED):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            st, m = one(st, fwhole, i + 1)
+            float(m["loss"])
+            single_sp_ms.append((time.perf_counter() - ts) * 1e3)
+        del st, one, fwhole
         _par_mark("main", t_phase, "its own timings done")
         for r in ranks:
             if r["own_card"] is not True and r["rank"] == 0:
@@ -3762,6 +4092,77 @@ def parallel_phases(dev, smi: str) -> dict:
             "allreduce_mib": r0["allreduce_bytes"] / 2 ** 20,
             "peak_mib_per_rank": [r["train"]["peak_mib"] for r in ranks],
             "launches_per_rank_first_step": per_step}
+        # (f)
+        sp_rec = {}
+        for gi in ("xla", "pallas"):
+            per = [r["sp"][gi] for r in ranks]
+            if len({p["digest"] for p in per}) != 1 or \
+                    len({p["loss"] for p in per}) != 1:
+                raise AssertionError(f"parallel (f) gru_impl={gi!r}: the "
+                                     f"ranks' updated states differ")
+            ref = f_ref[gi]
+            rel = abs(per[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+            print(f"parallel (f) sp step gru_impl={gi!r}: loss "
+                  f"{per[0]['loss']:.6f} vs whole batch {ref['loss']:.6f}, "
+                  f"{PAR_ITERS_HELD} iterations (rel {rel:.2e}, bound 1e-5); "
+                  f"the ranks' states bitwise equal")
+            if rel > 1e-5:
+                raise AssertionError(f"parallel (f) gru_impl={gi!r}: the sp "
+                                     f"step's loss disagrees")
+            held = hold_grads(
+                f"parallel (f) sp step gru_impl={gi!r} vs whole-batch step, "
+                f"{PAR_ITERS_HELD} iterations",
+                {k: torch.from_numpy(v).to(dev)
+                 for k, v in per[0]["grads"].items()},
+                ref["grads"], small=False)
+            bn_w = 0.0
+            for k, v in ref["bn"].items():
+                if k.rsplit(".", 1)[-1] in ("running_mean", "running_var"):
+                    d = float((torch.from_numpy(per[0]["bn"][k]).to(dev)
+                               - v).abs().max())
+                    bn_w = max(bn_w, d / float(v.abs().max()))
+            print(f"parallel (f) sp step gru_impl={gi!r}: BN statistics worst "
+                  f"{bn_w:.2e} of a leaf's max (bound 1e-5)")
+            if bn_w > 1e-5:
+                raise AssertionError(f"parallel (f) gru_impl={gi!r}: the BN "
+                                     f"statistics disagree")
+            sp_rec[gi] = {"loss": per[0]["loss"], "single_loss": ref["loss"],
+                          "loss_rel": rel, "grads": held, "bn_worst_rel": bn_w}
+        sp_step = {"corr_lookup": 2 * 2 * ITERS,
+                   "sep_conv_gru": 2 * ITERS * gru_cuda.LAUNCHES_PER_CALL}
+        for r in ranks:
+            if r["sp_launches"] != sp_step:
+                raise AssertionError(f"parallel (f): rank {r['rank']} launches "
+                                     f"{r['sp_launches']}, want {sp_step}")
+            for k, v in r["sp_launches_total"].items():
+                add("f32", k, v)
+        tim = [r["sp_timing"] for r in ranks]
+        rec["sp_train"] = {
+            "mesh": "dp 1 x sp 2", "global_batch": PAR_SP_B,
+            "hw": list(PAR_SP_HW), "parity_iters": PAR_ITERS_HELD,
+            "parity": sp_rec,
+            "ring_backward_max_abs_err": {k: max(max(r["ring_bwd"][k])
+                                                 for r in ranks)
+                                          for k in ranks[0]["ring_bwd"]},
+            "gru_slab_max_abs_err": {k: max(r["gru_slab"][k] for r in ranks)
+                                     for k in ranks[0]["gru_slab"]},
+            "launches_per_rank_step": sp_step,
+            "step_ms_per_rank": [t["step_ms"] for t in tim],
+            "collective_share_fwd": [t["share_fwd"] for t in tim],
+            "collective_share_bwd": [t["share_bwd"] for t in tim],
+            "collectives": [t["collectives"] for t in tim],
+            "peak_mib_per_rank": [t["peak_mib"] for t in tim],
+            "single_process_step_ms": single_sp_ms,
+            "single_process_peak_mib": single_sp_peak}
+        print(f"parallel (f): the sp step at {ITERS} iterations, "
+              f"{PAR_SP_B}x{PAR_SP_HW[0]}x{PAR_SP_HW[1]}: "
+              f"{rec['sp_train']['step_ms_per_rank']} ms a rank, collectives "
+              f"and staging fwd {rec['sp_train']['collective_share_fwd']} bwd "
+              f"{rec['sp_train']['collective_share_bwd']} of a step, peak "
+              f"{rec['sp_train']['peak_mib_per_rank']} MiB a rank; one "
+              f"process {single_sp_ms} ms, peak {single_sp_peak:.0f} MiB; {smi}")
+        # (g)
+        rec["captured_nccl"] = nccl["captured"]
         rec["phase_s"] = time.perf_counter() - t_phase
         print(f"parallel: phase 12 took {rec['phase_s']:.1f} s; {smi}")
     finally:
@@ -4194,14 +4595,14 @@ def fleet_phases(dev, smi: str) -> dict:
                 return (time.perf_counter() - t0) * 1e3
             return request
         reps = fb.replicas()
-        two, _ = _windows(4, timed(fb.url), n_win=2, secs=4.0)
+        two, _ = _windows(4, timed(fb.url), n_win=1, secs=3.0)
         _drop_conns()
         # one client, router and direct (replica min(reps)) in turns
         lat = {"router": [], "direct": []}
         turns = {"router": [], "direct": []}
-        for _ in range(4):
+        for _ in range(2):
             for via, url in (("router", fb.url), ("direct", reps[min(reps)])):
-                win, every = _windows(1, timed(url), n_win=1, secs=3.5)
+                win, every = _windows(1, timed(url), n_win=1, secs=3.0)
                 lat[via] += every
                 turns[via].append(win[0]["ms_median"])
         _drop_conns()
@@ -4212,7 +4613,7 @@ def fleet_phases(dev, smi: str) -> dict:
         _, body = _http(fb.url + "/admin/scale?replicas=1", b"")
         assert json.loads(body)["desired"] == 1
         assert len(fb.replicas()) == 1
-        one, _ = _windows(4, timed(fb.url), n_win=2, secs=4.0)
+        one, _ = _windows(4, timed(fb.url), n_win=1, secs=3.0)
         _drop_conns()
         fb.stop()
         med = {via: statistics.median(v) for via, v in lat.items()}
@@ -4229,7 +4630,7 @@ def fleet_phases(dev, smi: str) -> dict:
             "card_mib": {"two_replicas": used2 - used0,
                          "reserved_by_replica": rep_mib}}
         print(f"fleet: (f) pairs/s through the router at 4 clients, per "
-              f"4 s window: {per_s['2']} with 2 replicas, {per_s['1']} "
+              f"3 s window: {per_s['2']} with 2 replicas, {per_s['1']} "
               f"with 1; at 1 client, HTTP median (p90) {med['router']:.2f} "
               f"({p90['router']:.2f}) ms through the router over "
               f"{len(lat['router'])} requests, {med['direct']:.2f} "
@@ -4259,6 +4660,11 @@ def fleet_phases(dev, smi: str) -> dict:
 
 def main() -> int:
     t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        """Where the script's time goes: each phase's start, flushed."""
+        print(f"chip_smoke: phase {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
     # cuBLAS's deterministic mode (phase 9.5) needs its workspace fixed
     # before cuBLAS starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -4326,19 +4732,23 @@ def main() -> int:
         return fn
 
     # -- 2. build ------------------------------------------------------
+    stamp("2")
     secs = _build.build_all()
     print(f"build: {secs:.1f} s into {_build.build_dir()}")
     print(_build.compiler_report())
 
     # -- 9. training, first: its host-bound eager step is timed before any
     # profiler session of phases 7 and 8 (9.7 times it after one too)
+    stamp("9")
     train = training_phases(dev, smi, kernels)
     train_launches = train.pop("launches")
     # -- 10. data and evaluation, right after it
+    stamp("10")
     data = data_phases(dev, smi, kernels)
     data_launches = data.pop("launches")
 
     # -- 3. kernels vs plain at the main paths' shapes --------------------
+    stamp("3")
     rng = np.random.RandomState(0)
     h8, w8, C, L, r = H_IMG // 8, W_IMG // 8, 256, 4, 4
 
@@ -4601,6 +5011,7 @@ def main() -> int:
                 bf_err["corr_lookup"] = max(bf_err["corr_lookup"], e)
 
     # -- 4. main path: a few requests ------------------------------------
+    stamp("4")
     def frame_pair(H, W, i):
         im1 = rng.rand(1, H, W, 3).astype(np.float32)
         im2 = np.roll(im1, (i + 1, 2 * i + 3), axis=(1, 2))
@@ -4702,6 +5113,7 @@ def main() -> int:
               f"{_within('kernel vs plain', fk[-1], fp[-1])[1]}")
 
     # -- 5. window main path ---------------------------------------------
+    stamp("5")
     cfg_w = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                             pallas_p_select="window")
     run_w = eager_fn(cfg_w, ITERS)
@@ -4731,6 +5143,7 @@ def main() -> int:
                                      f"with the plain path")
 
     # -- 6. ragged path: Sintel, KITTI and Chairs frames in one batch -----
+    stamp("6")
     crops = [frame_pair(h, w, 5 + i) for i, (h, w) in enumerate(CROPS)]
     rim1 = np.concatenate([embed_to_shape(c[0], BOX) for c in crops])
     rim2 = np.concatenate([embed_to_shape(c[1], BOX) for c in crops])
@@ -4786,6 +5199,7 @@ def main() -> int:
             raise AssertionError("dead-region pixels changed a live crop's flow")
 
     # -- 6b. P32 path: pallas_pack=True under 'all' and 'window' -----------
+    stamp("6b")
     def drive(label, infer, mdl, reqs, want):
         """Run ``infer`` on each request with every count reset just
         before; check the launch counts (``want``, others 0) and that every
@@ -4831,6 +5245,7 @@ def main() -> int:
                                          f"disagrees with the plain path")
 
     # -- 6c. BF path: bfloat16 compute, 'default' corr, pack + window ------
+    stamp("6c")
     cfg_bf = RAFTConfig.full(corr_impl="pallas", gru_impl="pallas",
                              compute_dtype="bfloat16", corr_precision="default",
                              pallas_pack=True, pallas_p_select="window",
@@ -4935,6 +5350,7 @@ def main() -> int:
                              "from float32")
 
     # -- 6d. non-zero biases and batch-norm affines -------------------------
+    stamp("6d")
     # the seeded weights of `model` with every conv bias and batch-norm beta
     # drawn from U(-0.25, 0.25), every gamma from U(0.75, 1.25) and the
     # running statistics away from identity, with numpy from a seed of their
@@ -4973,6 +5389,7 @@ def main() -> int:
                              "plain path")
 
     # -- 6e. TF32 under PyTorch's defaults ------------------------------------
+    stamp("6e")
     # the float32 entry points turn TF32 off themselves: under PyTorch's
     # default switches (cuDNN TF32 on) a 3-iteration request gives the flow
     # of the same request with TF32 off in the whole process, and the
@@ -4999,6 +5416,7 @@ def main() -> int:
                              "did not restore the caller's switches")
 
     # -- 6f. the inference functions as captured CUDA graphs ---------------
+    stamp("6f")
     # each path through its factory (captured at the first call, replayed
     # after it) beside the eager raft_forward of the same requests: the
     # replay equals eager bitwise (else within phase 4's bound, the reason
@@ -5126,6 +5544,7 @@ def main() -> int:
     del model_w, infer_wt, old_storage
 
     # -- 6g. raft-small: RAFTConfig.small_model(corr_impl='pallas') --------
+    stamp("6g")
     # B1 at the small shape (r = 3, C = 128) held to its plain version, both
     # entries, its tiles by box, all on the MMA path, all on the gather
     rng8 = np.random.RandomState(8)
@@ -5251,6 +5670,7 @@ def main() -> int:
                                  f"disagrees with the plain path")
 
     # -- 6h. corr_impl='dense': RAFTConfig.full() and small_model() as they
+    stamp("6h")
     # stand, held per iteration to corr_impl='pallas' on the same weights
     cfg_d, cfg_ds = RAFTConfig.full(), RAFTConfig.small_model()
     run_d, run_ds = eager_fn(cfg_d, ITERS), eager_fn(cfg_ds, ITERS)
@@ -5291,6 +5711,7 @@ def main() -> int:
         held_replay(f"captured {label}", fn(mdl, *pairs[0]), run(mdl, *pairs[0]))
 
     # -- 6i. the converge policy (6c) ----------------------------------------
+    stamp("6i")
     # a batch of 2 (pairs 0 and 1) whose eps, picked from an eager run's
     # per-iteration dn (the mean L2 norm of each row's flow update, computed
     # as the loop computes it), freezes the rows at different iterations:
@@ -5452,6 +5873,7 @@ def main() -> int:
         raise AssertionError("ragged counted converge is not the eager one")
 
     # -- 6j. the streaming entries (6d) ----------------------------------------
+    stamp("6j")
     # a 4-frame sequence (a seeded texture translated by (3, 5) px a frame,
     # with noise): the solo step (maps cached, the warm start's seed) eager
     # and captured, bitwise; each step held to the pairwise request on the
@@ -5832,6 +6254,7 @@ def main() -> int:
             ragged=(rstep, batch_eager(cfg_rs, mdl), rargs, mdl))
 
     # -- 6k. the last of 6e: 'blockwise' + 'gather' and gru_ctx_hoist=False --
+    stamp("6k")
     # one request each, per iteration held to the 'pallas' path: the gather
     # lookup with the plain GRU (no kernel), and the un-hoisted plain GRU
     # with B1
@@ -5856,6 +6279,7 @@ def main() -> int:
         rest_fns[key] = (fn_x, run_x)
 
     # -- 7. times ----------------------------------------------------------
+    stamp("7")
     corr_ms = _time_ms(lambda: corr_cuda.corr_lookup_cuda(fmap1, levels, coords, r), 3, 50)
     corr_plain_ms = _time_ms(lambda: lookup_blockwise_onehot(fmap1, levels, coords, r), 1, 10)
     corr_bound, corr_by = _corr_bound(fmap1, levels, coords, r)
@@ -6172,12 +6596,12 @@ def main() -> int:
                                                            mma_ratio=x, stats=st),
                   L, rag_bound(a_, l_, cc), f"; corr_lookup on the same inputs {b1_ms:.4f}")
     # the new paths of 6i-6k, each captured and eager in turns (one warm-up
-    # call each, then 5 turns): converge beside the fixed policy's graph and
+    # call each, then 3 turns): converge beside the fixed policy's graph and
     # converge:0 (which runs every iteration as 12 replays, each with a
     # flag read: its excess over the fixed graph per iteration is a replay
     # launch, the flag read and the masked freeze's copies); the stream
     # steps beside the pairwise request; the batch step beside 3 solo steps
-    def timed_turns(calls, n=5):
+    def timed_turns(calls, n=3):
         for f in calls.values():
             f()
         ms = {k: [] for k in calls}
@@ -6250,7 +6674,7 @@ def main() -> int:
     rest_ms = {}
     for key, (fn_x, run_x) in rest_fns.items():
         rest_ms[key] = timed_turns({"captured": lambda: fn_x(model, *pairs[0]),
-                                    "eager": lambda: run_x(model, *pairs[0])}, n=3)
+                                    "eager": lambda: run_x(model, *pairs[0])}, n=2)
         print(f"e2e {key}: captured {rest_ms[key]['captured']:.2f} ms, eager "
               f"{rest_ms[key]['eager']:.2f}")
     from torch.profiler import ProfilerActivity, profile
@@ -6294,7 +6718,7 @@ def main() -> int:
         for how, f in hows:
             it_reqs = iter(reqs * 2)
             idle[how][key], busy_ms = profiled(
-                f"{how} {key} call", f"{how} {key} calls", 2,
+                f"{how} {key} call", f"{how} {key} calls", 1,
                 lambda: f(mdl, *next(it_reqs)))
             med = (cap_med if how == "captured" else eag_med)[key]
             idle_of_median[how][key] = 1 - busy_ms / med
@@ -6321,6 +6745,7 @@ def main() -> int:
         return {"captured": cap_med[key], "eager": eag_med[key]}
 
     # -- 8. serving ----------------------------------------------------
+    stamp("8")
     def hold_served(label, cfg_s, mdl, im1, im2, sizes=None):
         """A served device batch's kernels at that batch, on its own
         frames: every iteration's kernel step held to the plain step from
@@ -6357,16 +6782,19 @@ def main() -> int:
     print(json.dumps({"data": data}))
 
     # -- 11. the command line
+    stamp("11")
     cli_out = cli_phases(dev, smi, train["step_ms_median"])
     cli_launches = cli_out["launches"]
     print(json.dumps({"cli": cli_out["record"]}))
 
     # -- 12. the parallel layer (two ranks on this card, gloo; NCCL at 1)
+    stamp("12")
     par = parallel_phases(dev, smi)
     par_launches = par["launches"]
     print(json.dumps({"parallel": par["record"]}))
 
     # -- 13. the fleet: serve_fleet's replicas on this card
+    stamp("13")
     fleet = fleet_phases(dev, smi)
     fleet_launches = fleet.pop("launches")
     print(json.dumps({"fleet": fleet}))

@@ -65,12 +65,14 @@ encoders' weights bfloat16 (:func:`cast_encoder_weights`) and, under
 float32 compute, up-casts them in each forward, as JAX does in-graph.
 
 Row-sharded (``ops/spmd.py::spatial_sharding`` active, the forward of
-``parallel/spatial.py::make_shard_inference_fn``): the inputs are row
-slabs of the images, the ops exchange halos and reduce statistics over
-the ranks, the lookup is the ring (:func:`prepare_loop`) and the base
-coordinates are offset to the slab's global rows; the converge policy,
-``gru_impl='pallas'``, ragged batches, training and CUDA graph capture
-raise there (:func:`_check_sharded`).
+``parallel/spatial.py::make_shard_inference_fn`` and of the row-sharded
+train step): the inputs are row slabs of the images, the ops exchange
+halos and reduce statistics over the ranks (differentiably: the training
+forward's backward runs through the same collectives' transposes), the
+lookup is the ring (:func:`prepare_loop`) and the base coordinates are
+offset to the slab's global rows; ragged batches raise there, and so do
+the converge policy and ``gru_impl='pallas'`` outside training
+(:func:`_check_sharded`).
 
 Entry points (:func:`init_raft_torch` and every factory) run on CUDA
 unless the caller passes ``device="cpu"``, and raise when CUDA is absent
@@ -240,17 +242,23 @@ def _check_sharded(config: RAFTConfig, ragged: bool = False,
     """Under an active row-sharding context (``ops/spmd.py``), raise for
     what row-sharded execution does not run, with the JAX package's
     messages (``_validate_loop_config``, ``_iterate_flow``), before any
-    compute; a no-op otherwise."""
-    if spmd.spatial_axis() is None:
+    compute; a no-op otherwise.  The training forward (``train``) runs the
+    converge policy (its per-sample update norm taken over the whole
+    image) and ``gru_impl='pallas'`` (the kernel on a halo'd slab), as
+    JAX's sharding-annotation step does; inference refuses both, as JAX's
+    ``shard_map`` forward does.  A capture into a CUDA graph needs an NCCL
+    axis: gloo's collectives stage through the host."""
+    ax = spmd.spatial_axis()
+    if ax is None:
         return
     policy, _, _ = parse_iters_policy(config.iters_policy)
-    if policy == "converge":
+    if policy == "converge" and not train:
         raise NotImplementedError(
             "iters_policy='converge:...' under row-sharded (spatial) "
             "execution is not wired: each shard would measure "
             "\u2016\u0394flow\u2016 on its local slab only and freeze samples at "
             "different iterations; use iters_policy='fixed'.")
-    if config.gru_impl == "pallas":
+    if config.gru_impl == "pallas" and not train:
         raise NotImplementedError(
             "gru_impl='pallas' under row-sharded (spatial) execution is not "
             "wired: the kernel's row halo does not exchange across shards; "
@@ -260,16 +268,12 @@ def _check_sharded(config: RAFTConfig, ragged: bool = False,
             "ragged mixed-resolution batches under row-sharded (spatial) "
             "execution are not wired: per-item page schedules would "
             "straddle shard slabs; use the dense bucket path.")
-    if train:
+    if ax.staged and torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing():
         raise NotImplementedError(
-            "training under row sharding is ROADMAP item 11b: the halo "
-            "exchanges and the ring lookup have no backward yet; train "
-            "data-parallel (parallel/data_parallel.py)")
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
-        raise NotImplementedError(
-            "capturing row-sharded inference as a CUDA graph is ROADMAP "
-            "item 11b: its collectives are issued from the host; "
-            "make_shard_inference_fn runs eagerly")
+            f"capturing row-sharded work as a CUDA graph needs an NCCL "
+            f"axis: {ax} is gloo's, whose collectives stage through the "
+            f"host and cannot be captured; run it eagerly")
 
 
 def _encode(encoder: nn.Module, x: torch.Tensor, config: RAFTConfig
@@ -447,14 +451,21 @@ def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
     BatchNorm` reads them rounded to bfloat16 and writes the update back
     in float32, or under ``freeze_bn`` leaves them untouched).
 
-    ``sync_axis`` (the JAX package's ``axis_name``): the data axis of a
-    data-parallel step; a training forward's batch norms then use the
-    global batch's statistics (``ops/norm.py::SyncStats``)."""
+    ``sync_axis`` (the JAX package's ``axis_name``): the data axis (or
+    axes) of a parallel step; a training forward's batch norms then use the
+    global batch's statistics (``ops/norm.py::batch_norm_train``; the
+    active row-sharding axis joins them).  Under ``spmd.spatial_sharding``
+    the training forward runs on row slabs: H must be a multiple of
+    ``parallel/spatial.py::required_h_multiple``."""
     all_flows = train if all_flows is None else all_flows
     check_port_support(config)
     _check_sharded(config, ragged=sizes is not None, train=train)
     _check_model_dtype(model, config, train)
     B = check_images(image1, image2)[0]
+    if train and spmd.spatial_axis() is not None:
+        from ..parallel.spatial import check_rows
+        check_rows(config, image1.shape[1], spmd.spatial_axis().size,
+                   "training")
     if sizes is not None:
         sizes = check_sizes(torch.as_tensor(sizes, device=image1.device), B)
     iters = config.iters if iters is None else iters
@@ -547,11 +558,15 @@ def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
     its recompute reads what its forward read.  A
     ``converge:*`` policy runs masked over all ``iters`` iterations (the
     differentiable form of JAX's masked scan): a frozen row keeps its net,
-    coords and mask."""
+    coords and mask; row-sharded, its update norm is the whole image's
+    (the mean over the ranks of the slabs' means), so every rank freezes a
+    sample at the same iteration.  Each remat recompute enters the
+    row-sharding axis of its forward (``spmd.entered``): it runs on the
+    backward's thread."""
     policy, eps, min_iters = parse_iters_policy(config.iters_policy)
     adaptive = policy == "converge"
     loop = prepare_loop(model, core.fmap1, core.fmap2, core.inp, config,
-                        core.sizes8)
+                        core.sizes8, train=True)
     coords0 = loop.coords0
     B, h, w, _ = coords0.shape
     coords1 = (coords0 if core.flow_init is None
@@ -569,6 +584,11 @@ def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
             act = ~converged
             a = act[:, None, None, None]
             dn = delta.square().sum(dim=-1).sqrt().mean(dim=(1, 2))
+            if axis is not None:
+                # the whole image's mean (equal slabs: the slabs' mean), so
+                # every rank freezes a sample when one process would
+                with torch.no_grad():
+                    dn = spmd.pmean(dn, axis)
             net2 = torch.where(a, net2, net)
             coords2 = torch.where(a, coords2, coords1)
             if mask2 is not None:
@@ -579,12 +599,25 @@ def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
                 if all_flows else None)
         return net2, coords2, mask2, converged, nused, flow
 
+    axis = spmd.spatial_axis()
+
+    def remat():
+        calls = []
+
+        def run(*args):
+            # its second call is the recompute, on the backward's thread:
+            # the forward's axis, its collectives counted as a backward's
+            with spmd.entered(axis), spmd.backward_stats(bool(calls)):
+                calls.append(1)
+                return cast(*args)
+        return run
+
     net, flows = core.net, []
     for i in range(iters):
         args = (step, i, net, coords1, mask, converged, nused)
         if config.remat_iters:
             out = torch.utils.checkpoint.checkpoint(
-                cast, *args, use_reentrant=False, preserve_rng_state=False)
+                remat(), *args, use_reentrant=False, preserve_rng_state=False)
         else:
             out = cast(*args)
         net, coords1, mask, converged, nused, flow = out
@@ -645,7 +678,8 @@ class LoopState(NamedTuple):
 
 def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
                  inp: torch.Tensor, config: RAFTConfig,
-                 sizes8: Optional[torch.Tensor] = None) -> LoopState:
+                 sizes8: Optional[torch.Tensor] = None,
+                 train: bool = False) -> LoopState:
     """Loop-invariant work, once per forward.  fmap1/fmap2 [B, C, h, w]
     and inp [B, ctx, h, w] NCHW; ``sizes8`` [B, 2] int32 live (h, w) per
     item on the 1/8 grid for a ragged batch, else None.  The lookup's
@@ -653,8 +687,9 @@ def prepare_loop(model: RAFT, fmap1: torch.Tensor, fmap2: torch.Tensor,
     ``corr_precision='default'``), whatever the compute dtype; a ragged
     batch under 'dense' or 'blockwise' takes the masked plain twin, as in
     JAX (the volume has no ragged form).  The context terms are hoisted
-    unless ``gru_ctx_hoist=False`` under ``gru_impl='xla'``."""
-    _check_sharded(config, ragged=sizes8 is not None)
+    unless ``gru_ctx_hoist=False`` under ``gru_impl='xla'``.  ``train``:
+    a training forward's loop (what row sharding runs: ``_check_sharded``)."""
+    _check_sharded(config, ragged=sizes8 is not None, train=train)
     B, _, h, w = fmap1.shape
     f1 = to_nhwc(fmap1)
     f2 = to_nhwc(fmap2)

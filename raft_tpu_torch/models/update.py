@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import (apply_conv_fused, conv_nchw, make_conv, to_nchw,
                         to_nhwc)
-from ..ops.gru_cuda import sep_conv_gru, sep_conv_gru_plain
+from ..ops.gru_cuda import sep_conv_gru_plain, sep_conv_gru_rows
 
 # .25 mask scale as in official RAFT
 MASK_SCALE = 0.25
@@ -204,8 +204,9 @@ class BasicUpdateBlock(nn.Module):
         [B, ctx, H, W] (``gru_ctx_hoist=False``, ``gru_impl='xla'``)."""
         motion = self.encoder(flow, corr)
         if gru_impl == "pallas":
-            net = sep_conv_gru(gru_weights, net, to_nhwc(motion), gru_ctx,
-                               gru_kernel_weights)
+            # row-sharded (training), the kernel on a halo'd slab
+            net = sep_conv_gru_rows(gru_weights, net, to_nhwc(motion),
+                                    gru_ctx, gru_kernel_weights)
         elif gru_ctx is not None:
             net = sep_conv_gru_plain(gru_weights, net, to_nhwc(motion), gru_ctx)
         else:

@@ -83,6 +83,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from ..telemetry.trace import stage
+from . import spmd
 from .corr import (lookup_blockwise_onehot, lookup_operands,
                    lookup_packed_plain, lookup_ragged_plain,
                    lookup_window_plain, corr_scale)
@@ -427,7 +428,8 @@ class _Lookup(torch.autograd.Function):
     the f2 levels, coords), whatever entry ran the forward ('all',
     'window', packed or ragged: one vjp, as JAX's ``fused_lookup`` carries
     one whatever its ``p_select`` and ``pack_rows``); ``sizes8`` gets no
-    gradient.  Its products are plain matrix products (cuBLAS on CUDA):
+    gradient.  The twin is recomputed under the row-sharding context the
+    forward saw (``spmd.entered``), not the backward thread's.  Its products are plain matrix products (cuBLAS on CUDA):
     the train step holds TF32 off across the backward too
     (``training/step.py::precision``), since the switches are
     process-wide and the backward runs after the forward's context has
@@ -450,6 +452,7 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op, radius, fmap1, coords, sizes8, *f2_levels):
         ctx.radius = radius
+        ctx.axis = spmd.spatial_axis()
         ctx.save_for_backward(fmap1, coords, *f2_levels)
         extra = () if sizes8 is None else (sizes8,)
         return op(fmap1, list(f2_levels), coords, *extra, radius)
@@ -464,7 +467,8 @@ class _Lookup(torch.autograd.Function):
         grads = [None] * len(inputs)
         live = [i for i, w in enumerate(wanted) if w]
         if live:
-            with torch.enable_grad(), stage(TWIN_STAGE):
+            with torch.enable_grad(), stage(TWIN_STAGE), \
+                    spmd.entered(ctx.axis):
                 out = lookup_blockwise_onehot(inputs[0], inputs[2:], inputs[1],
                                               ctx.radius)
                 got = torch.autograd.grad(out, [inputs[i] for i in live],

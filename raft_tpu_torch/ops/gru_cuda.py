@@ -56,11 +56,16 @@ import torch
 import torch.nn as nn
 from torch.utils.flop_counter import register_flop_formula
 
+from . import spmd
 from .conv import conv_nchw, to_nchw, to_nhwc
 from ..telemetry.trace import stage
 from .corr_cuda import LIB
 
 SOURCE = "sep_conv_gru.cu"
+# the rows a row slab is widened by for the kernel (the JAX package's
+# lint/budget.py GRU_HALO): the 5x1 pass's two taps, twice (q reads r*h1,
+# r reads h1)
+GRU_HALO = 4
 LAUNCHES_PER_CALL = 4
 # the profiler range of the backward twin (what a profile of a training
 # step reads its device time by)
@@ -321,10 +326,14 @@ class _SepConvGRU(torch.autograd.Function):
     casts of a bfloat16 training forward, and their gradient goes back
     through that cast to bfloat16), h, motion and the context terms are
     upcast once, everything is differentiated in float32, and their
-    gradients come back bfloat16 (tests/test_torch_port_train_bf16.py)."""
+    gradients come back bfloat16 (tests/test_torch_port_train_bf16.py).
+    The twin is recomputed under the row-sharding context the forward saw
+    (``spmd.entered``): its 5x1 pass halo-exchanges under a context, and
+    the autograd engine's device thread has none of its own."""
 
     @staticmethod
     def forward(ctx_, kw, h, motion, c1, c2, *weights):
+        ctx_.axis = spmd.spatial_axis()
         ctx_.save_for_backward(h, motion, c1, c2, *weights)
         return sep_conv_gru_op(h, motion, c1, c2, list(weights),
                                [] if kw is None else [kw[k] for k in _WEIGHTS])
@@ -337,7 +346,8 @@ class _SepConvGRU(torch.autograd.Function):
         grads = [None] * len(inputs)
         live = [i for i, w in enumerate(wanted) if w]
         if live:
-            with torch.enable_grad(), stage(TWIN_STAGE):
+            with torch.enable_grad(), stage(TWIN_STAGE), \
+                    spmd.entered(ctx_.axis):
                 h, motion, c1, c2, *weights = inputs
                 out = sep_conv_gru_plain(dict(zip(_WEIGHTS, weights)), h,
                                          motion, (c1, c2))
@@ -360,3 +370,30 @@ def sep_conv_gru(fw: Dict[str, torch.Tensor], h: torch.Tensor,
         raise ValueError(f"unsupported device {h.device}")
     return _SepConvGRU.apply(kw, h, motion, ctx[0], ctx[1],
                              *[fw[k] for k in _WEIGHTS])
+
+
+def sep_conv_gru_rows(fw: Dict[str, torch.Tensor], h: torch.Tensor,
+                      motion: torch.Tensor,
+                      ctx: Tuple[torch.Tensor, torch.Tensor],
+                      kw: Optional[Dict[str, torch.Tensor]] = None,
+                      axis: Optional[spmd.Axis] = None) -> torch.Tensor:
+    """:func:`sep_conv_gru` on a row slab (the active row-sharding axis
+    unless ``axis`` is given; unsharded, the call itself): h, motion and
+    the two context terms are widened by :data:`GRU_HALO` rows of the
+    interior neighbours (``spmd.halo_extend``: none on an edge rank's
+    image-edge side, where the kernel's own zero padding is the image's;
+    a halo of zero rows would not be, since the 1x5 pass turns a zero row
+    into a non-zero one), the unchanged kernel (or on CPU tensors its plain
+    twin) runs on the widened slab outside the context, and the added rows
+    are cropped.  Its backward is the twin's vjp on the widened slab, the
+    halo rows' cotangents sent back to the neighbours."""
+    axis = spmd.spatial_axis() if axis is None else axis
+    if axis is None or axis.size == 1:
+        with spmd.entered(None):
+            return sep_conv_gru(fw, h, motion, ctx, kw)
+    wide, top, _ = spmd.halo_extend([h, motion, ctx[0], ctx[1]], GRU_HALO,
+                                    axis, dim=1)
+    hw, mw, c1, c2 = (t.contiguous() for t in wide)
+    with spmd.entered(None):
+        out = sep_conv_gru(fw, hw, mw, (c1, c2), kw)
+    return out.narrow(1, top, h.shape[1]).contiguous()

@@ -29,18 +29,18 @@ Two statistics are reduced across ranks, as the JAX package reduces them:
   takes the mean over the ranks of the slabs' mean and ``E[x^2]``, and
   ``var = max(E[x^2] - mean^2, 0)`` (so a one-rank run is not bitwise the
   unsharded norm, whose variance is two-pass);
-* data-parallel training (a data :class:`~raft_tpu_torch.ops.spmd.Axis`
-  given to :func:`batch_norm_train`, which :class:`BatchNorm` passes from
-  its ``sync_axis``), the batch mean and ``E[x^2]`` are averaged over the
-  ranks (synchronized batch norm): :class:`SyncStats` takes the mean in the
-  forward and all-reduces the two statistics' cotangents in the backward,
-  the transpose of JAX's ``pmean``.  ``nn.SyncBatchNorm`` is not used: it
-  runs on CUDA only and its Welford statistics are not this formula.
+* data-parallel or row-sharded training (a data
+  :class:`~raft_tpu_torch.ops.spmd.Axis`, or several, given to
+  :func:`batch_norm_train`, which :class:`BatchNorm` passes from its
+  ``sync_axis``; the active spatial axis joins them), the batch mean and
+  ``E[x^2]`` are averaged over the ranks (synchronized batch norm) by
+  ``spmd.pmean``, whose backward all-reduces the two statistics'
+  cotangents, the transpose of JAX's ``pmean``.  ``nn.SyncBatchNorm`` is
+  not used: it runs on CUDA only and its Welford statistics are not this
+  formula.
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import numpy as np
 import torch
@@ -80,41 +80,40 @@ def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     return (x - c(mean)) * torch.rsqrt(c(var) + eps) * c(gamma) + c(beta)
 
 
-class SyncStats(torch.autograd.Function):
-    """``(mean, mean2) -> their means over the ranks of axis``: JAX's
-    ``pmean`` of the two batch statistics, whose transpose is the
-    ``pmean`` of the cotangents, all-reduced here in the backward."""
-
-    @staticmethod
-    def forward(ctx, mean, mean2, axis):
-        ctx.axis = axis
-        both = spmd.pmean(torch.stack([mean, mean2]), axis)
-        return both[0], both[1]
-
-    @staticmethod
-    def backward(ctx, g_mean, g_mean2):
-        both = spmd.pmean(torch.stack([g_mean, g_mean2]), ctx.axis)
-        return both[0], both[1], None
+def _stat_axes(axis) -> list:
+    """The axes a training batch norm's statistics are reduced over: the
+    given data axis (or axes), and the active row-sharding axis, each with
+    a group."""
+    axes = [] if axis is None else (list(axis) if isinstance(
+        axis, (list, tuple)) else [axis])
+    sp = spmd.spatial_axis()
+    if sp is not None and all(a is not sp for a in axes):
+        axes.append(sp)
+    return [a for a in axes if a.group is not None]
 
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, eps: float = EPS,
-                     axis: Optional[spmd.Axis] = None):
+                     axis=None):
     """Training-mode batch norm of NCHW ``x``: returns the output and the
     batch statistics ``(mean, var_unbiased)`` [C] for the running update,
     the mean in ``x``'s dtype and the unbiased variance in float32 (the
     JAX package's types: its biased variance times a float32 ratio).
-    ``axis``: the data axis of a data-parallel step; the statistics are
-    then those of the global batch (:class:`SyncStats`), ``n`` counting
-    every rank's pixels."""
+    ``axis``: the data axis (or axes) of a data-parallel step; row-sharded,
+    the active spatial axis joins them.  The statistics are then those of
+    the whole batch over every rank, ``n`` counting every rank's pixels:
+    the mean and ``E[x^2]`` averaged over the ranks by the differentiable
+    ``spmd.pmean`` (equal shares: the mean of the means), whose transpose,
+    the ``pmean`` of the cotangents, is JAX's."""
     def c(t):
         return t[None, :, None, None]
     n = x.shape[0] * x.shape[2] * x.shape[3]
-    mean = x.mean(dim=(0, 2, 3))
-    mean2 = torch.square(x).mean(dim=(0, 2, 3))
-    if axis is not None and axis.group is not None:
-        mean, mean2 = SyncStats.apply(mean, mean2, axis)
-        n *= axis.size
+    stats = torch.stack([x.mean(dim=(0, 2, 3)),
+                         torch.square(x).mean(dim=(0, 2, 3))])
+    for ax in _stat_axes(axis):
+        stats = spmd.pmean(stats, ax)
+        n *= ax.size
+    mean, mean2 = stats[0], stats[1]
     var = mean2 - torch.square(mean)
     out = (x - c(mean)) * torch.rsqrt(c(var) + eps) * c(gamma) + c(beta)
     # n / max(n - 1, 1) in float32, as the JAX package computes it, on the
@@ -141,7 +140,7 @@ class BatchNorm(nn.Module):
 
     momentum = 0.1
     batch_stats = False
-    sync_axis = None          # the data axis of a data-parallel step
+    sync_axis = None          # the data axis (or axes) of a parallel step
 
     def __init__(self, c: int):
         super().__init__()

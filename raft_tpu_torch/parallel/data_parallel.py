@@ -5,16 +5,24 @@ one process a rank (``torch.distributed``), each holding the whole model
 and optimizer state and stepping on its rows of the global batch; the
 gradients and the metrics are averaged over the ranks after the backward
 and before clipping and the optimizer, and the batch-norm statistics of
-the training forward are the global batch's (``ops/norm.py::SyncStats``),
+the training forward are the global batch's (``ops/norm.py::batch_norm_train``),
 so every rank takes the same update and the step equals one step on the
 whole batch.  Evaluation: one process, one replica of the captured
 inference function a device, each on its share of the batch.
 
-Captured steps: a world of one keeps the captured step of
-``training/capture.py`` on CUDA; with more ranks the step runs eagerly,
-its collectives (the synchronized batch norm in the forward and backward,
-the gradient average) issued from the host, which gloo's cannot be
-captured and NCCL's are not yet (ROADMAP item 11b).
+Row-sharded training (:func:`make_pjit_train_step` with a spatial axis,
+the JAX package's dp x sp sharding-annotation step): each rank holds its
+samples' rows (``mesh.shard_batch(..., spatial_axis=...)``) and runs
+``training/step.py::make_train_step(axis=data, spatial=spatial)``, the
+global batch's step by explicit collectives.
+
+Captured steps: on CUDA, where every axis of the step is NCCL's (or has
+one rank), the step is captured as one CUDA graph
+(``training/capture.py``) with its collectives inside it (the
+synchronized batch norm in the forward and backward, the halo exchanges
+and the ring under row sharding, the gradient all-reduces); under gloo,
+whose collectives stage through the host and cannot be captured, it runs
+eagerly, its collectives issued from the host.
 """
 
 from __future__ import annotations
@@ -29,11 +37,7 @@ from ..models.raft import (RAFT, make_counted_inference_fn,
                            make_inference_fn)
 from ..training.optim import Optimizer
 from ..training.step import make_train_step
-from .mesh import DATA_AXIS, Mesh
-
-ITEM_11B = ("ROADMAP item 11b: row sharding inside training (the dp x sp "
-            "step) and capturing collectives in a CUDA graph are not "
-            "ported yet")
+from .mesh import DATA_AXIS, Mesh, capturable
 
 
 def make_dp_train_step(config: RAFTConfig, tconfig: TrainConfig,
@@ -47,12 +51,14 @@ def make_dp_train_step(config: RAFTConfig, tconfig: TrainConfig,
     stride-major, as the JAX package's step inside ``shard_map`` does.
     Dropout masks are drawn from ``seed`` over the local batch, the same
     on every rank (JAX's replicated key).  ``donate`` is the JAX API's:
-    the state is always updated in place here."""
+    the state is always updated in place here.  On CUDA over NCCL (or one
+    rank) the step is a captured graph, collectives inside; under gloo it
+    runs eagerly."""
     del donate
     ax = mesh[axis]
-    if ax.size == 1 and mesh.device.type == "cuda":
+    if capturable(mesh, ax):
         from ..training.capture import GraphedTrainStep
-        return GraphedTrainStep(config, tconfig, tx)
+        return GraphedTrainStep(config, tconfig, tx, axis=ax)
     return make_train_step(config, tconfig, tx, axis=ax)
 
 
@@ -61,14 +67,29 @@ def make_pjit_train_step(config: RAFTConfig, tconfig: TrainConfig,
                          data_axis: str = DATA_AXIS,
                          spatial_axis: Optional[str] = None,
                          donate: bool = True):
-    """The JAX package's sharding-annotation step.  Over the data axis
-    alone it is :func:`make_dp_train_step` (the global batch's
-    statistics and gradient, as XLA's partitioner computes them); a
-    spatial axis raises NotImplementedError naming ROADMAP item 11b."""
-    if spatial_axis is not None:
-        raise NotImplementedError(f"make_pjit_train_step(spatial_axis="
-                                  f"{spatial_axis!r}): {ITEM_11B}")
-    return make_dp_train_step(config, tconfig, tx, mesh, data_axis, donate)
+    """The JAX package's sharding-annotation step, ``step(state,
+    local_batch, seed) -> (state, metrics)``.  Over the data axis alone it
+    is :func:`make_dp_train_step` (the global batch's statistics and
+    gradient, as XLA's partitioner computes them).  With
+    ``spatial_axis`` (a dp x sp mesh, ``make_mesh(axes=(DATA_AXIS,
+    SPATIAL_AXIS), shape=(dp, sp))``) each rank's ``local_batch`` is its
+    samples' rows (``shard_batch(mesh, batch, data_axis, spatial_axis)``)
+    and the step is ``training/step.py::make_train_step(axis=data,
+    spatial=spatial)``: the global batch's loss, metrics, gradient,
+    batch-norm statistics and update, by explicit collectives around the
+    unchanged model code (the port has no partitioner).  H must be a
+    multiple of ``parallel/spatial.py::required_h_multiple`` (JAX's step
+    takes any H: ROADMAP, "Deviations by design").  Captured on CUDA over
+    NCCL, eager under gloo."""
+    if spatial_axis is None:
+        return make_dp_train_step(config, tconfig, tx, mesh, data_axis,
+                                  donate)
+    del donate
+    dax, sax = mesh[data_axis], mesh[spatial_axis]
+    if capturable(mesh, dax, sax):
+        from ..training.capture import GraphedTrainStep
+        return GraphedTrainStep(config, tconfig, tx, axis=dax, spatial=sax)
+    return make_train_step(config, tconfig, tx, axis=dax, spatial=sax)
 
 
 def replicate(model: RAFT, devices: Sequence) -> List[RAFT]:

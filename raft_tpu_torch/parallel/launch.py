@@ -8,8 +8,11 @@ returns every rank's result in rank order, or raises with the failing
 rank's traceback.  Nothing can outlive its deadline: the group times out
 after ``group_timeout_s``, the parent waits at most ``deadline_s`` for
 all results, and on any failure or timeout every rank still running is
-killed before the error is raised.  ``fn`` must be importable by name
-(a module-level function) and its results picklable.
+killed before the error is raised.  A rank sends its result before it
+tears its group down; once every result is in, the ranks have
+``EXIT_GRACE_S`` to exit and what is left of their teardown is killed.
+``fn`` must be importable by name (a module-level function) and its
+results picklable.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+EXIT_GRACE_S = 5.0     # seconds a rank has to exit after its result is in
+
 
 def _rank_main(fn, rank: int, world: int, init_method: str, backend: str,
                group_timeout_s: float, args: Sequence, results, threads):
@@ -39,13 +44,14 @@ def _rank_main(fn, rank: int, world: int, init_method: str, backend: str,
         out = fn(rank, world, *args)
     except BaseException:                 # noqa: BLE001 — reported to the parent
         ok, out = False, traceback.format_exc()
-    finally:
-        try:
-            if dist.is_initialized():
-                dist.destroy_process_group()
-        except Exception:                 # noqa: BLE001 — the result stands
-            pass
+    # the result first: the group's and the process's teardown (a CUDA
+    # context, gloo's) can take seconds, and the parent needs none of it
     results.put((rank, ok, out))
+    try:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    except Exception:                     # noqa: BLE001 — the result stands
+        pass
 
 
 class RankGroup:
@@ -104,8 +110,11 @@ class RankGroup:
                 if not ok:
                     raise RuntimeError(f"rank {rank} of {n} failed:\n{res}")
                 out[rank] = res
+            # every result is in: the ranks get EXIT_GRACE_S to exit on
+            # their own, then _stop kills what is left of their teardown
+            grace = time.monotonic() + EXIT_GRACE_S
             for p in procs:
-                p.join(timeout=max(1.0, self._end - time.monotonic()))
+                p.join(timeout=max(0.1, grace - time.monotonic()))
         finally:
             self._stop()
         return [out[r] for r in range(n)]

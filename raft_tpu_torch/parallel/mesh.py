@@ -52,6 +52,14 @@ class Mesh:
                 f"device={self.device})")
 
 
+def capturable(mesh: Mesh, *axes) -> bool:
+    """Whether work over ``axes`` of ``mesh`` can be captured in a CUDA
+    graph: a CUDA device, and no axis gloo's on CUDA tensors (staged
+    through the host): each NCCL's or a one-rank axis without a group."""
+    return mesh.device.type == "cuda" and not any(
+        a is not None and a.staged for a in axes)
+
+
 def rank_device(rank: int, world: int) -> torch.device:
     """This rank's card, ``cuda:<rank>``; raises when there are fewer
     cards than ranks (two ranks never share a card unless the caller
@@ -116,22 +124,32 @@ def make_mesh(axes: Sequence[str] = (DATA_AXIS,),
     return Mesh(out, shape, dev)
 
 
-def _rows(x, axis: Axis, device: torch.device) -> torch.Tensor:
+def _rows(x, axis: Axis, device: Optional[torch.device], dim: int = 0,
+          what: str = "batch") -> torch.Tensor:
     t = torch.as_tensor(x)
-    B = t.shape[0]
-    if B % axis.size:
-        raise ValueError(f"batch {B} is not divisible by the {axis.size} "
+    n = t.shape[dim]
+    if n % axis.size:
+        raise ValueError(f"{what} {n} is not divisible by the {axis.size} "
                          f"ranks of axis {axis.name!r}")
-    per = B // axis.size
-    return t[axis.index * per:(axis.index + 1) * per].to(device)
+    per = n // axis.size
+    t = t.narrow(dim, axis.index * per, per).contiguous()
+    return t if device is None else t.to(device)
 
 
-def shard_batch(mesh: Mesh, batch, axis: str = DATA_AXIS):
-    """This rank's rows of a host batch (an array or tensor, or a tuple or
-    ``NamedTuple`` of them, leading dim the batch), on this rank's device;
-    raises ValueError when the batch does not divide over the axis."""
+def shard_batch(mesh: Mesh, batch, axis: str = DATA_AXIS,
+                spatial_axis: Optional[str] = None):
+    """This rank's share of a host batch (an array or tensor, or a tuple or
+    ``NamedTuple`` of them, leading dim the batch), on this rank's device:
+    its samples over ``axis`` and, with ``spatial_axis``, its rows (dim 1,
+    H) of them over that axis (JAX's ``P(data, spatial)``); raises
+    ValueError when the batch or H does not divide over an axis."""
     ax = mesh[axis]
+    sp = None if spatial_axis is None else mesh[spatial_axis]
+
+    def one(x):
+        t = _rows(x, ax, None if sp is not None else mesh.device)
+        return t if sp is None else _rows(t, sp, mesh.device, 1, "H")
     if isinstance(batch, tuple):
-        rows = [_rows(x, ax, mesh.device) for x in batch]
+        rows = [one(x) for x in batch]
         return type(batch)(*rows) if hasattr(batch, "_fields") else tuple(rows)
-    return _rows(batch, ax, mesh.device)
+    return one(batch)

@@ -24,9 +24,13 @@ fmap2's); at high resolution the ranks each take a slab of the image rows
 The whole model row-sharded is :func:`make_shard_inference_fn`: the
 unchanged model code under ``ops/spmd.py::spatial_sharding`` (halo'd
 convolutions, instance norms over the whole image, the ring lookup,
-halo'd upsampling).  It runs eagerly, its collectives issued from the host:
-gloo's cannot be captured in a CUDA graph, and capturing NCCL's is later
-work (ROADMAP item 11b).  The JAX package's :func:`make_spatial_inference_fn`
+halo'd upsampling).  On CUDA over NCCL it is captured as a CUDA graph,
+its collectives inside; under gloo, whose collectives stage through the
+host and cannot be captured, it runs eagerly.  The same ops run under
+autograd in the row-sharded train step (``training/step.py``): the ring's
+slab pyramids come back along the inverse ring as their cotangents, and
+each kernel's backward is its twin's vjp on its slab.  The JAX package's
+:func:`make_spatial_inference_fn`
 leaves the collectives to XLA's SPMD partitioner; the port has none, so it
 runs the same explicit collectives around the same forward.
 
@@ -44,7 +48,7 @@ from ..config import RAFTConfig
 from ..ops import spmd
 from ..ops.corr import (build_pyramid, dense_corr, lookup_dense,
                         lookup_operands, lookup_partial_onehot)
-from .mesh import SPATIAL_AXIS, Mesh
+from .mesh import SPATIAL_AXIS, Mesh, capturable
 
 # the TPU kernels' tiling knobs (no value changes here) and the two that
 # choose the CUDA kernel
@@ -215,13 +219,18 @@ def gather_rows(x: torch.Tensor, mesh: Mesh,
     return spmd.all_gather(x, mesh[axis], dim=1)
 
 
-def _check_rows(config: RAFTConfig, h_local: int, n: int) -> None:
+def check_rows(config: RAFTConfig, h_local: int, n: int,
+               what: str = "inference") -> None:
+    """Raise ValueError, in the JAX command line's words, unless the whole
+    image's H (``h_local`` rows a rank, ``n`` ranks) is a multiple of
+    :func:`required_h_multiple`."""
     need = required_h_multiple(config, n)
-    if (h_local * n) % need:
+    h = h_local * n
+    if h % need:
         raise ValueError(
-            f"row-sharded inference over {n} ranks requires H divisible by "
-            f"{need} (8 * N devices * 2^(corr_levels-1)); got H="
-            f"{h_local * n}")
+            f"row-sharded {what} over {n} ranks requires H divisible by "
+            f"{need} (8 * N devices * 2^(corr_levels-1)); got H={h}. "
+            f"Pick the size accordingly, e.g. H={((h // need) + 1) * need}")
 
 
 def make_shard_inference_fn(config: RAFTConfig, mesh: Mesh,
@@ -232,22 +241,46 @@ def make_shard_inference_fn(config: RAFTConfig, mesh: Mesh,
     :func:`shard_rows`) -> this rank's rows of the flow [B, H/n, W, 2].
     ``model`` is this rank's copy of the weights, on its device.  The
     unchanged ``raft_forward`` runs under ``spatial_sharding`` (the module
-    docstring), eagerly, with TF32 off under ``compute_dtype='float32'``.
-    What row sharding does not run raises NotImplementedError with the JAX
-    package's message: ``iters_policy='converge:*'``, ``gru_impl='pallas'``,
-    ragged batches."""
-    from ..models.raft import _forward_mode, raft_forward
+    docstring), with TF32 off under ``compute_dtype='float32'``: on CUDA
+    over NCCL (or one rank) captured as a CUDA graph per (model, batch,
+    H, W), collectives inside it (``models/capture.py``; ``fn.graphs``),
+    under gloo eagerly (``fn.graphs`` None).  What row-sharded inference
+    does not run raises NotImplementedError with the JAX package's
+    message: ``iters_policy='converge:*'``, ``gru_impl='pallas'``, ragged
+    batches; an H that is not a multiple of :func:`required_h_multiple`
+    raises ValueError."""
+    from ..models.capture import GraphedForward
+    from ..models.raft import _forward_mode, check_images, raft_forward
     ax = mesh[axis]
+
+    def eager(model, im1, im2) -> tuple:
+        with spmd.spatial_sharding(ax), _forward_mode(config):
+            return (raft_forward(model, im1, im2, config, iters=iters,
+                                 all_flows=False).flow,)
+
+    def validate(image1, image2):
+        check_images(image1, image2)
+        check_rows(config, image1.shape[1], ax.size)
+        return image1, image2
+
+    if capturable(mesh, ax):
+        def check(model) -> None:
+            if next(model.parameters()).device.type != "cuda":
+                raise ValueError("a captured shard forward needs the model "
+                                 "on CUDA")
+        graphed = GraphedForward(eager, check, (torch.float32,) * 2, validate)
+
+        def fn(model, image1, image2) -> torch.Tensor:
+            return graphed(model, image1, image2)[0]
+        fn.graphs = graphed
+        return fn
 
     def fn(model, image1, image2) -> torch.Tensor:
         im1 = torch.as_tensor(image1).to(mesh.device)
         im2 = torch.as_tensor(image2).to(mesh.device)
-        _check_rows(config, im1.shape[1], ax.size)
-        with spmd.spatial_sharding(ax), _forward_mode(config):
-            out = raft_forward(model, im1, im2, config, iters=iters,
-                               all_flows=False)
-        return out.flow
-
+        validate(im1, im2)
+        return eager(model, im1, im2)[0]
+    fn.graphs = None
     return fn
 
 

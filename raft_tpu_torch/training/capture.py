@@ -84,15 +84,21 @@ def _flat(masks) -> tuple:
 class GraphedTrainStep(GraphedForward):
     """``step(state, batch, seed) -> (state, metrics)``, the eager step's
     signature and semantics, as graph replays on CUDA (the module
-    docstring).  ``eager`` is the eager step it captures; ``captures``
+    docstring).  ``axis`` and ``spatial``: the eager step's
+    (``step.make_train_step``), a data-parallel or row-sharded step whose
+    collectives (NCCL's) are recorded in the graph: the warm-up's eager
+    step issues each communicator's first collective, and each peer
+    pair's first point-to-point exchange, before the capture (NCCL sets
+    them up lazily).  ``eager`` is the eager step it captures; ``captures``
     counts the captures so far, ``recaptures`` those of them that replaced
     a held key's graph (its storage had moved)."""
 
     def __init__(self, config: RAFTConfig, tconfig: TrainConfig,
-                 tx: Optimizer):
+                 tx: Optimizer, axis=None, spatial=None):
         self.config = config
         self.accum = accum = tconfig.accum_steps
-        self.eager = make_train_step(config, tconfig, tx)
+        self.eager = make_train_step(config, tconfig, tx, axis=axis,
+                                     spatial=spatial)
         per = len(_flat(step_masks(config, accum, accum, 0))) // accum
         compute = self.eager.compute
 
@@ -109,8 +115,7 @@ class GraphedTrainStep(GraphedForward):
 
     def __call__(self, state: TrainState, batch, seed: int = 0):
         batch = checked_batch(Batch(*batch), self.accum)
-        masks = step_masks(self.config, batch.image1.shape[0], self.accum,
-                           seed)
+        masks = self.eager.masks(batch.image1.shape[0], seed)
         metrics = super().__call__(state, *batch, *_flat(masks))
         state.step += 1
         return state, metrics

@@ -26,6 +26,7 @@ the backward's products round their operands to TF32.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -75,11 +76,12 @@ def _on(batch, device: torch.device) -> Batch:
     return Batch(*(torch.as_tensor(x).to(device) for x in batch))
 
 
-def pmean_tensors(tensors, axis: spmd.Axis) -> list:
-    """The mean over ``axis``'s ranks of each tensor, as one all-reduce of
-    their concatenation (a bucket), in their dtypes."""
+def pmean_tensors(tensors, axis: spmd.Axis, op=spmd.pmean) -> list:
+    """The mean (``op=spmd.psum``: the sum) over ``axis``'s ranks of each
+    tensor, as one all-reduce of their concatenation (a bucket), in their
+    dtypes."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    flat = spmd.pmean(flat, axis)
+    flat = op(flat, axis)
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))
@@ -88,7 +90,8 @@ def pmean_tensors(tensors, axis: spmd.Axis) -> list:
 
 
 def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
-                    tx: Optimizer, axis: Optional[spmd.Axis] = None):
+                    tx: Optimizer, axis: Optional[spmd.Axis] = None,
+                    spatial: Optional[spmd.Axis] = None):
     """Returns ``step(state, batch, seed) -> (state, metrics)``.
 
     ``batch``: a :class:`Batch` (or a 4-tuple) of tensors or arrays,
@@ -117,12 +120,35 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
     ``pmean`` over ``axis_name``): every rank sees the same gradients, so
     all agree on skipping a non-finite one.
 
+    ``spatial``: the spatial axis of a row-sharded step (the JAX
+    package's ``make_pjit_train_step(spatial_axis=...)``, whose batch is
+    sharded over ``axis`` on B and over ``spatial`` on H): each rank holds
+    its rows of its samples and runs the unchanged training forward under
+    ``spmd.spatial_sharding(spatial)``; the step is the global batch's, as
+    XLA's partitioner computes it.  The loss is each rank's share
+    (``loss.sequence_loss`` over both axes: its numerators over the global
+    count, under 'valid' the psum'd valid count), so the gradient of the
+    global loss is the sum of the ranks' gradients: psum'd over
+    ``spatial``, then over ``axis``, one flattened all-reduce each; the
+    metrics are the global batch's; the batch-norm statistics are over
+    every rank's pixels; dropout masks are drawn at the global batch's
+    shape and sliced to this rank's samples (JAX's one replicated key over
+    the global array); H must be a multiple of
+    ``parallel/spatial.py::required_h_multiple``.
+
+    ``step.masks(batch, seed)`` draws one step's masks for a local batch of
+    ``batch`` samples (:func:`step_masks`, sliced as above when row-sharded).
+
     ``step.compute(state, batch, masks)`` is the step's device work alone
     (``batch`` a :class:`Batch` of device tensors already checked,
     ``masks`` one :func:`step_masks` entry per micro-batch, each on the
     device or None): what ``training/capture.py`` captures."""
     adaptive = adaptive_iters(config.iters_policy)
     accum = tconfig.accum_steps
+    data = axis if axis is not None and axis.group is not None else None
+    sharded = spatial is not None
+    loss_axes = [a for a in (axis, spatial) if a is not None] if sharded \
+        else []
 
     def grad_fn(model, params, batch: Batch, masks):
         out = raft_forward(model, batch.image1, batch.image2, config,
@@ -131,16 +157,20 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
         loss, metrics = sequence_loss(
             out.flow_iters, batch.flow, batch.valid, gamma=tconfig.gamma,
             max_flow=tconfig.max_flow,
-            normalization=tconfig.loss_normalization)
+            normalization=tconfig.loss_normalization, axes=loss_axes)
         if adaptive:
             metrics["mean_iters"] = out.iters_used.float().mean()
+            if sharded and data is not None:
+                metrics["mean_iters"] = spmd.pmean(metrics["mean_iters"],
+                                                   data)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(params, grads)], metrics
 
     def compute(state: TrainState, batch: Batch, masks) -> dict:
         params = state.params
-        with precision():
+        with precision(), (spmd.spatial_sharding(spatial) if sharded
+                           else contextlib.nullcontext()):
             bn = list(state.bn_state.values())
             before = ([b.clone() for b in bn]
                       if tconfig.skip_nonfinite_updates else None)
@@ -157,11 +187,17 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
                 grads = [g / accum for g in gsum]
                 metrics = {k: torch.stack([m[k] for m in mlist]).mean()
                            for k in mlist[0]}
-            if axis is not None and axis.group is not None:
-                grads = pmean_tensors(grads, axis)
+            if sharded:
+                # the shares' gradients summed: over the rows, then the
+                # samples (the metrics are global already)
+                for ax in (spatial, data):
+                    if ax is not None and ax.group is not None:
+                        grads = pmean_tensors(grads, ax, op=spmd.psum)
+            elif data is not None:
+                grads = pmean_tensors(grads, data)
                 keys = sorted(metrics)
                 metrics = dict(zip(keys, pmean_tensors(
-                    [metrics[k] for k in keys], axis)))
+                    [metrics[k] for k in keys], data)))
             if before is not None:
                 finite = all_finite(grads)
                 with torch.no_grad():
@@ -170,17 +206,34 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
             metrics["grad_norm"] = tx.update(grads, state.opt_state, params)
         return metrics
 
+    def masks_for(batch: int, seed: int) -> list:
+        if not sharded or data is None:
+            return step_masks(config, batch, accum, seed)
+        mb, idx = batch // accum, data.index
+        out = []
+        for m in step_masks(config, batch * data.size, accum, seed):
+            if m is None:
+                out.append(None)
+                continue
+            fmask, cmask = m
+            whole = cmask.shape[0]
+            out.append((torch.cat([fmask[idx * mb:(idx + 1) * mb],
+                                   fmask[whole + idx * mb:
+                                         whole + (idx + 1) * mb]]),
+                        cmask[idx * mb:(idx + 1) * mb]))
+        return out
+
     def train_step(state: TrainState, batch, seed: int = 0):
         dev = state.params[0].device
         batch = checked_batch(_on(batch, dev), accum)
         masks = [None if m is None else tuple(t.to(dev) for t in m)
-                 for m in step_masks(config, batch.image1.shape[0], accum,
-                                     seed)]
+                 for m in masks_for(batch.image1.shape[0], seed)]
         metrics = compute(state, batch, masks)
         state.step += 1
         return state, metrics
 
     train_step.compute = compute
+    train_step.masks = masks_for
     return train_step
 
 

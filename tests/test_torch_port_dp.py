@@ -261,16 +261,63 @@ def test_engine_serves_data_parallel():
                            fresh["fnet.conv1.weight"]) for m in dp._models())
 
 
-def test_row_sharded_training_raises_naming_11b():
-    """Row sharding inside training is ROADMAP item 11b: the pjit step
-    with a spatial axis, and a training forward under the context."""
+def _jax_ragged_error() -> str:
+    """JAX's NotImplementedError message for a ragged batch under its
+    row-sharded forward (raised while tracing, before anything compiles)."""
+    from jax.sharding import Mesh as JaxMesh
+    from jax.sharding import PartitionSpec as P
+    from raft_tpu.config import RAFTConfig as JaxConfig
+    from raft_tpu.models.raft import raft_forward as jax_forward
+    from raft_tpu.ops import spmd as jspmd
+    from raft_tpu.parallel.mesh import compat_shard_map
+    jcfg = JaxConfig.small_model(iters=2)
+    params = to_jax_params(R.biased_model(R.dp_configs("small_sgd")[0])
+                           .state_dict())
+    mesh = JaxMesh(np.array(jax.devices()[:2]), ("spatial",))
+    im = jnp.zeros((1, 128, 32, 3), jnp.float32)
+
+    def fwd(p, a, b):
+        with jspmd.spatial_sharding("spatial"):
+            return jax_forward(p, a, b, jcfg, train=True,
+                               sizes=jnp.asarray([[120, 30]]))[0].flow
+    f = compat_shard_map(fwd, mesh=mesh,
+                         in_specs=(P(), P(None, "spatial"),
+                                   P(None, "spatial")),
+                         out_specs=P(None, "spatial"))
+    with pytest.raises(NotImplementedError) as e:
+        jax.eval_shape(f, params, im, im)
+    return str(e.value)
+
+
+@pytest.mark.parametrize("case", ["ragged", "h_multiple"])
+def test_row_sharded_training_raises_as_jax(case):
+    """Row-sharded training runs (ROADMAP 11b, tests/test_torch_port_sp_
+    train.py); what it refuses raises before any compute: a ragged batch
+    under the context, with the JAX package's message, and an H that is
+    not a multiple of ``required_h_multiple`` in the pjit step, in the JAX
+    command line's words."""
     cfg, tc = R.dp_configs("small_sgd")
-    mesh = Mesh({DATA_AXIS: spmd.Axis(DATA_AXIS)}, (1,), "cpu")
-    with pytest.raises(NotImplementedError, match="11b"):
-        make_pjit_train_step(cfg, tc, make_optimizer(tc), mesh,
-                             spatial_axis="spatial")
     model = R.biased_model(cfg)
-    im = torch.zeros((1, 64, 32, 3))
-    with spmd.spatial_sharding(spmd.Axis("spatial")):
-        with pytest.raises(NotImplementedError, match="11b"):
-            rt.raft_forward(model, im, im, cfg, train=True)
+    if case == "ragged":
+        im = torch.zeros((1, 64, 32, 3))
+        with spmd.spatial_sharding(spmd.Axis("spatial")):
+            with pytest.raises(NotImplementedError) as e:
+                rt.raft_forward(model, im, im, cfg, train=True,
+                                sizes=torch.tensor([[60, 30]],
+                                                   dtype=torch.int32))
+        assert str(e.value) == _jax_ragged_error()
+        return
+    sp = _fake_axis(2, 0)
+    sp.name = "spatial"
+    mesh = Mesh({DATA_AXIS: spmd.Axis(DATA_AXIS), "spatial": sp}, (1, 2),
+                "cpu")
+    step = make_pjit_train_step(cfg, tc, make_optimizer(tc), mesh,
+                                spatial_axis="spatial")
+    batch = R.make_batch(1, 2, 48, 32)
+    local = tuple(x[:, :24] for x in batch)
+    state = rt.training.TrainState.create(model, make_optimizer(tc))
+    with pytest.raises(ValueError) as e:
+        step(state, local, 0)
+    # the JAX command line's sentence (raft_tpu/cli.py, --spatial)
+    assert ("requires H divisible by 128 (8 * N devices * "
+            "2^(corr_levels-1)); got H=48") in str(e.value)

@@ -285,3 +285,249 @@ def dp_rank(rank: int, world: int, names) -> dict:
         out[name] = ((loss, grads, bufs, total) if rank == 0
                      else (loss, None, None, total))
     return out
+
+
+# -- the row-sharded training module's ranks -----------------------------------
+
+# name -> (small, config overrides, train-config overrides, global batch);
+# every case at corr_levels=2 and H x W = 32 x 48 (the dryrun's ring shape
+# rule: H = 16 * sp, a multiple of required_h_multiple at sp = 2)
+# The raft-things cases run the converge policy at an eps between the two
+# samples' whole-image update norms after the first iteration (6.98 and
+# 8.58) and above one of sample 1's slab norms (7.84): sample 0 freezes,
+# sample 1 runs every iteration (the fixed policy's path), and a
+# slab-local norm would freeze sample 1 on one rank only
+CONVERGE = "converge:8.2:1"
+SP_CASES = {
+    "small_sgd_accum2": (True, {}, dict(optimizer="sgd", schedule="constant",
+                                        lr=1e-4, accum_steps=2), 4),
+    "things_adamw": (False, dict(iters_policy=CONVERGE),
+                     dict(optimizer="adamw"), 2),
+    "things_pallas": (False, dict(iters_policy=CONVERGE, corr_impl="pallas",
+                                  gru_impl="pallas"),
+                      dict(optimizer="adamw"), 2),
+}
+# the case whose JAX step is each case's reference: the kernels' twins
+# compute the plain path's function, so the pallas case is held to it
+SP_REFERENCE = {"things_pallas": "things_adamw"}
+SP_MESH = (2, 2)                 # dp x sp over the 4 ranks
+SP_HW = (32, 48)
+SP_BATCH_SEED = 3
+
+
+def sp_configs(name: str):
+    from raft_tpu_torch import RAFTConfig
+    from raft_tpu_torch.config import TrainConfig
+    small, kw, tkw, B = SP_CASES[name]
+    cfg = (RAFTConfig.small_model if small else RAFTConfig.full)(
+        iters=2, corr_levels=2, **kw)
+    tc = TrainConfig(**{**dict(num_steps=100, lr=4e-4, batch_size=B,
+                               image_size=SP_HW, weight_decay=1e-4), **tkw})
+    return cfg, tc
+
+
+def sp_batch(name: str):
+    return make_batch(SP_BATCH_SEED, SP_CASES[name][3], *SP_HW)
+
+
+def _digest(state) -> str:
+    """A hash of every tensor of a train state (bitwise equality)."""
+    import hashlib
+    from raft_tpu_torch.convert.weights import to_jax_train_state
+    h = hashlib.sha1()
+    for k, v in sorted(to_jax_train_state(state).items()):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def sp_step(cfg, tc, batch, mesh=None):
+    """One row-sharded step (``make_pjit_train_step(spatial_axis=
+    'spatial')`` on this rank's share of ``batch``; without ``mesh`` the
+    single-process step on the whole batch) from :func:`biased_model`;
+    returns (loss, metrics, gradients by JAX path, the JAX-named state
+    after, its digest)."""
+    from raft_tpu_torch.convert.weights import _jax_leaves, to_jax_train_state
+    from raft_tpu_torch.parallel import make_pjit_train_step, shard_batch
+    from raft_tpu_torch.training import (Batch, TrainState, make_optimizer,
+                                         make_train_step)
+    tx = make_optimizer(tc)
+    state = TrainState.create(biased_model(cfg), tx)
+    got = {}
+
+    class Capture:
+        """The optimizer, keeping the gradients it is given."""
+
+        def update(self, grads, opt_state, ps):
+            got["g"] = [g.detach().clone() for g in grads]
+            return tx.update(grads, opt_state, ps)
+    if mesh is None:
+        step = make_train_step(cfg, tc, Capture())
+        b = Batch(*map(torch.from_numpy, batch))
+    else:
+        step = make_pjit_train_step(cfg, tc, Capture(), mesh,
+                                    spatial_axis="spatial")
+        b = shard_batch(mesh, Batch(*batch), spatial_axis="spatial")
+    state, metrics = step(state, b, 0)
+    layout = _jax_leaves(state.model.state_dict().keys())
+    grads = {}
+    for (n, _), g in zip(state.model.named_parameters(), got["g"]):
+        path, kernel = layout[n]
+        g = g.numpy().astype(np.float64)
+        grads[path] = g.transpose(2, 3, 1, 0) if kernel else g
+    return (float(metrics["loss"]), {k: float(v) for k, v in metrics.items()},
+            grads, to_jax_train_state(state), _digest(state))
+
+
+def thread_backward_case(mesh):
+    """The gradients of one row-sharded training forward (raft-things,
+    ``gru_impl='pallas'`` on the CPU twin, ``remat_iters``: the three
+    backwards that recompute under the context) computed on the calling
+    thread and on a fresh ``threading.Thread`` that never entered the
+    context, as the autograd engine's device thread runs a CUDA backward;
+    returns the largest difference between the two and the norm."""
+    import threading
+    from raft_tpu_torch import RAFTConfig, raft_forward
+    from raft_tpu_torch.ops import spmd
+    from raft_tpu_torch.parallel import shard_batch
+    from raft_tpu_torch.training.loss import sequence_loss
+    from raft_tpu_torch.training.step import Batch
+    cfg = RAFTConfig.full(iters=2, corr_levels=2, gru_impl="pallas",
+                          remat_iters=True)
+    model = biased_model(cfg)
+    params = [p for p in model.parameters()]
+    b = shard_batch(mesh, Batch(*make_batch(SP_BATCH_SEED, 2, *SP_HW)),
+                    spatial_axis="spatial")
+    ax = mesh["spatial"]
+
+    def loss():
+        with spmd.spatial_sharding(ax):
+            out = raft_forward(model, b.image1, b.image2, cfg, train=True,
+                               sync_axis=(mesh["data"],))
+            return sequence_loss(out.flow_iters, b.flow, b.valid,
+                                 axes=[mesh["data"], ax])[0]
+    here = torch.autograd.grad(loss(), params)
+    box = {}
+    graph_loss = loss()
+
+    def run():
+        try:
+            box["g"] = torch.autograd.grad(graph_loss, params)
+        except BaseException as e:          # noqa: BLE001 — re-raised below
+            box["e"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "e" in box:
+        raise box["e"]
+    diff = max(float((a - c).abs().max()) for a, c in zip(here, box["g"]))
+    norm = max(float(a.abs().max()) for a in here)
+    return diff, norm
+
+
+def sp_rank(rank: int, world: int, names) -> dict:
+    """Each case of :data:`SP_CASES` through the row-sharded step on this
+    rank of the dp x sp mesh, and :func:`thread_backward_case`; rank 0
+    returns everything, the others their loss and state digest."""
+    from raft_tpu_torch.parallel import (DATA_AXIS, SPATIAL_AXIS, make_mesh,
+                                         shard_batch)
+    torch.set_num_threads(THREADS)
+    mesh = make_mesh((DATA_AXIS, SPATIAL_AXIS), shape=SP_MESH, device="cpu")
+    out = {}
+    for name in names:
+        cfg, tc = sp_configs(name)
+        loss, metrics, grads, named, digest = sp_step(cfg, tc,
+                                                      sp_batch(name), mesh)
+        out[name] = ((loss, metrics, grads, named, digest) if rank == 0
+                     else (loss, None, None, None, digest))
+    out["thread"] = thread_backward_case(mesh)
+    out["masks"] = sp_masks(mesh)
+    from raft_tpu_torch.training import epe_metrics
+    pred, gt, valid = epe_inputs()
+    axes = [mesh[DATA_AXIS], mesh[SPATIAL_AXIS]]
+    b = shard_batch(mesh, (pred, gt, valid), spatial_axis=SPATIAL_AXIS)
+    out["epe"] = {r: {k: float(v) for k, v in
+                      epe_metrics(*b, reduce=r, axes=axes).items()}
+                  for r in ("mean", "sum")}
+    return out
+
+
+def epe_inputs():
+    """A seeded prediction, ground truth and valid mask [2, 32, 48]."""
+    rng = np.random.RandomState(23)
+    gt = (3.0 * rng.randn(2, *SP_HW, 2)).astype(np.float32)
+    pred = (gt + 4.0 * rng.randn(2, *SP_HW, 2)).astype(np.float32)
+    return pred, gt, (rng.rand(2, *SP_HW) > 0.3).astype(np.float32)
+
+
+# -- the collectives' transposes ----------------------------------------------
+
+GRAD_X = rand(30, 1, 8, 3, 4)            # the global input, 2 rows a rank
+# name -> (the op on this rank's slab, the global output's rows)
+GRAD_OPS = ("psum", "pmean", "all_gather", "ring", "shift", "halo1",
+            "halo3")
+
+
+def grad_op(name: str, x, axis):
+    """Collective ``name`` of the port on ``x`` (this rank's slab)."""
+    from raft_tpu_torch.ops import spmd
+    n = axis.size
+    if name == "psum":
+        return spmd.psum(x, axis)
+    if name == "pmean":
+        return spmd.pmean(x, axis)
+    if name == "all_gather":
+        return spmd.all_gather(x, axis, dim=1)
+    if name == "ring":
+        return spmd.ppermute(x, axis, [(i, (i + 1) % n) for i in range(n)])
+    if name == "shift":
+        return spmd.ppermute(x, axis, [(i, i + 1) for i in range(n - 1)])
+    return spmd.halo_exchange(x, int(name[4:]), axis, dim=1)
+
+
+def grad_cotangent(name: str, rows: int) -> np.ndarray:
+    """The seeded cotangent of op ``name``'s global output of ``rows``
+    rows (every rank's output concatenated along H)."""
+    return rand(40 + GRAD_OPS.index(name), 1, rows, 3, 4)
+
+
+def grad_rank(rank: int, world: int) -> dict:
+    """Each collective of :data:`GRAD_OPS` on this rank's slab of
+    :data:`GRAD_X` over a 4-rank axis, and its vjp with this rank's slab
+    of the seeded cotangent; returns {name: (output, input's gradient)}
+    and the collective counts of the forwards and the backwards apart."""
+    from raft_tpu_torch.ops import spmd
+    from raft_tpu_torch.parallel import SPATIAL_AXIS, make_mesh
+    torch.set_num_threads(THREADS)
+    ax = make_mesh((SPATIAL_AXIS,), device="cpu")[SPATIAL_AXIS]
+    out = {}
+    spmd.reset_stats()
+    for name in GRAD_OPS:
+        x = torch.from_numpy(slab(GRAD_X, rank, world)).requires_grad_()
+        y = grad_op(name, x, ax)
+        rows = y.shape[1]
+        ct = torch.from_numpy(slab(grad_cotangent(name, rows * world), rank,
+                                   world))
+        (g,) = torch.autograd.grad(y, x, ct)
+        out[name] = (y.detach().numpy(), g.numpy())
+    out["stats"] = spmd.STATS.snapshot()
+    return out
+
+
+MASK_CFG = dict(iters=2, corr_levels=2, dropout=0.25)
+MASK_GLOBAL_B, MASK_ACCUM, MASK_SEED = 4, 2, 5
+
+
+def sp_masks(mesh) -> list:
+    """This rank's dropout masks of a row-sharded step (global batch
+    :data:`MASK_GLOBAL_B` over the data axis, :data:`MASK_ACCUM`
+    micro-batches), per micro-batch (fnet's, cnet's) as arrays."""
+    from raft_tpu_torch import RAFTConfig
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.training import make_optimizer, make_train_step
+    tc = TrainConfig(accum_steps=MASK_ACCUM)
+    step = make_train_step(RAFTConfig.full(**MASK_CFG), tc, make_optimizer(tc),
+                           axis=mesh["data"], spatial=mesh["spatial"])
+    local = MASK_GLOBAL_B // mesh["data"].size
+    return [tuple(t.numpy() for t in m)
+            for m in step.masks(local, MASK_SEED)]
