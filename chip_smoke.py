@@ -388,6 +388,7 @@ bfloat16 call of any shape.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -827,6 +828,73 @@ def _spread(wins, key):
     return [min(vals), statistics.median(vals), max(vals)]
 
 
+def tools_substep(url: str, watches, frame, iters: int) -> dict:
+    """Phase 8's tools sub-step: S1 driven in-process through the port's
+    load generator (``raft_tpu_torch.tools.serve_bench``): the closed loop
+    (8 clients, 24 requests), the open loop (24 Poisson arrivals at half
+    the closed loop's pairs/s) and the video arm (2 lockstep sessions of 4
+    frames).  Gates: every answer 200, the closed loop's mean device batch
+    above 1, no capture (``finish`` holds it right after); the device
+    batches the engine ran are kept by phase 8's ``_watch`` records
+    (``watches``, whose calls count the device calls) and held to the plain
+    step with the others.  Returns the ``tools``
+    record: pairs/s, latency, device calls and the kernels those calls ran
+    (graph replays: corr_lookup ``iters`` and sep_conv_gru ``iters *
+    LAUNCHES_PER_CALL`` a call)."""
+    from raft_tpu_torch.ops import gru_cuda
+    from raft_tpu_torch.tools import serve_bench as sb
+
+    host, port = url.split("//")[1].split(":")
+    port = int(port)
+    t0 = time.perf_counter()
+    body = _npz(image1=frame(H_IMG, W_IMG), image2=frame(H_IMG, W_IMG))
+    rec, calls = {}, {}
+
+    def arm(name, run):
+        c0 = sum(w["calls"] for w in watches)
+        results, elapsed = run()
+        calls[name] = sum(w["calls"] for w in watches) - c0
+        bad = {st for st, _ in results if st != 200}
+        if bad or not results:
+            raise AssertionError(f"tools {name}: statuses {sorted(bad)} "
+                                 f"({len(results)} answers)")
+        lat = sorted(ms * 1e3 for _, ms in results)
+        rec[name] = {"answers": len(results), "s": elapsed,
+                     "pairs_per_s": len(results) / elapsed,
+                     "ms_median": statistics.median(lat),
+                     "ms_p90": float(np.percentile(lat, 90)),
+                     "device_calls": calls[name],
+                     "mean_device_batch": len(results) / calls[name]}
+        return rec[name]
+
+    closed = arm("closed", lambda: sb.run_closed(host, port, body, 8, 24))
+    if not closed["mean_device_batch"] > 1:
+        raise AssertionError(f"tools closed loop: mean device batch "
+                             f"{closed['mean_device_batch']:.2f} (must be "
+                             f"> 1)")
+    rate = closed["pairs_per_s"] / 2
+    arm("open", lambda: sb.run_open(host, port, body, 8, 24, rate, seed=0))
+    rec["open"]["rate"] = rate
+    seqs = [sb.make_session_frames(H_IMG, W_IMG, 4, seed=100 + i)
+            for i in range(2)]
+    arm("video", lambda: sb.run_video(host, port, seqs, stream=True))
+    n = sum(calls.values())
+    rec["device_calls"] = n
+    rec["launches_by_replay"] = {
+        "corr_lookup": n * iters,
+        "sep_conv_gru": n * iters * gru_cuda.LAUNCHES_PER_CALL}
+    rec["s"] = time.perf_counter() - t0
+    print(f"tools sub-step (raft_tpu_torch.tools.serve_bench on S1): closed "
+          f"{closed['pairs_per_s']:.2f} pairs/s, mean device batch "
+          f"{closed['mean_device_batch']:.2f}; open at {rate:.2f}/s "
+          f"{rec['open']['pairs_per_s']:.2f} pairs/s, median "
+          f"{rec['open']['ms_median']:.1f} ms; video 2 x 3 advances "
+          f"{rec['video']['pairs_per_s']:.2f} pairs/s, mean step width "
+          f"{rec['video']['mean_device_batch']:.2f}; {n} device calls; "
+          f"{rec['s']:.1f} s")
+    return rec
+
+
 def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
                    hold_step) -> dict:
     """Phase 8: the port's FlowServer (``raft_tpu_torch.serving``) on the
@@ -1121,6 +1189,8 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
         adv_ms = statistics.median(adv_lat)
         for w in stream1:
             w["mean_step_width"] = w.pop("mean_device_batch")
+        tools_rec = tools_substep(url, (pairs_st, steps_st, solo_st), frame,
+                                  iters)
         finish("S1", server, warm1)
         served = _launches(*kernels)
 
@@ -1289,6 +1359,7 @@ def serving_phases(dev, kernels, iters: int, frame_rng, hold_pair,
             "held_batches": held1,
             "weight_version": version, "reload": reload_rec,
             "launches": got1,
+            "tools": tools_rec,
             "flow_graph_replays": flow_replays,
             "launches_by_replay": replayed1,
             "compile_hits": eng.compile_hits}
@@ -3443,6 +3514,10 @@ def _parallel_rank(rank: int, world: int, go: str) -> dict:
                                           for p in state.model.parameters()))
     _par_mark(who, t0, "(c) checked")
     del state
+    # the card is shared by this process, the other rank, the NCCL rank and
+    # the parent's references: give this rank's cache back before (f)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # (f) the row-sharded train step, dp 1 x sp 2, raft-things f32 at
     # 2x512x1024, 3 iterations, under both GRUs (B2 on the halo'd slab)
@@ -3737,6 +3812,8 @@ def _nccl_captures(dev, model, u1, u2) -> dict:
                           f"iterations", make_dp_train_step(cfg_3, tc, tx, dmesh),
                           dbatch)
     del dbatch
+    gc.collect()                  # the captured step's pool, back to the card
+    torch.cuda.empty_cache()
     smesh = make_mesh((DATA_AXIS, SPATIAL_AXIS), shape=(1, 1), device=dev)
     sbatch = Batch(*(torch.from_numpy(x).to(dev) for x in _par_sp_batch(
         PAR_G_HW, PAR_G_B, 21)))
@@ -3747,6 +3824,8 @@ def _nccl_captures(dev, model, u1, u2) -> dict:
         make_pjit_train_step(cfg_3, tc, tx, smesh, spatial_axis=SPATIAL_AXIS),
         sbatch)
     del sbatch
+    gc.collect()
+    torch.cuda.empty_cache()
     mesh = make_mesh((SPATIAL_AXIS,), device=dev)
     fn = make_shard_inference_fn(cfg_s, mesh, iters=ITERS)
     if fn.graphs is None:
@@ -3771,6 +3850,42 @@ def _nccl_captures(dev, model, u1, u2) -> dict:
         raise AssertionError(f"parallel (g) shard inference: "
                              f"{out['shard_inference']}")
     return out
+
+
+def _release_captures(namespace: dict) -> int:
+    """Drop the captured graphs (and their pools) of every factory found in
+    ``namespace`` (a function's locals; containers looked into two levels
+    deep), then return the cache to the card.  Returns how many
+    factories held graphs."""
+    from raft_tpu_torch.models.capture import GraphedForward
+    seen, found = set(), []
+
+    def visit(v, depth):
+        if id(v) in seen or depth > 2:
+            return
+        seen.add(id(v))
+        g = v if isinstance(v, GraphedForward) else getattr(v, "graphs", None)
+        if isinstance(g, GraphedForward) and id(g) not in seen:
+            seen.add(id(g))
+            found.append(g)
+        if isinstance(v, dict):
+            for x in v.values():
+                visit(x, depth + 1)
+        elif isinstance(v, (list, tuple)):
+            for x in v:
+                visit(x, depth + 1)
+
+    for v in list(namespace.values()):
+        visit(v, 0)
+    n = 0
+    for g in found:
+        if g.graph_count():
+            n += 1
+        g._graphs.clear()
+        g.pool = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
 
 
 def parallel_phases(dev, smi: str) -> dict:
@@ -3857,6 +3972,10 @@ def parallel_phases(dev, smi: str) -> dict:
                          "bn": {n: v.detach().clone()
                                 for n, v in st.model.named_buffers()}}
             del st, capf
+        # this process's cache goes back to the card after each of its big
+        # references: the ranks and the NCCL rank share it meanwhile
+        gc.collect()
+        torch.cuda.empty_cache()
         _par_mark("main", t_phase, "(f) whole-batch steps done")
         # (b) references while the ranks run: per iteration, and the peak
         model = _par_model(cfg_s, dev).eval()
@@ -3866,6 +3985,7 @@ def parallel_phases(dev, smi: str) -> dict:
         with torch.no_grad():
             for k in range(1, PAR_ITERS_HELD + 1):
                 ref[k] = raft_forward(model, t1, t2, cfg_s, iters=k).flow
+        torch.cuda.empty_cache()
         _par_mark("main", t_phase, "(b) references done")
 
         # (c) the single-process eager step on the whole batch
@@ -3900,6 +4020,9 @@ def parallel_phases(dev, smi: str) -> dict:
             raise AssertionError("parallel (d): data-parallel serving disagrees")
         rec["dp_serving"] = {"hw": [H_IMG, W_IMG], "batch": 2,
                              "worst_ratio_to_bound": w}
+        del want, got
+        gc.collect()
+        torch.cuda.empty_cache()
         _par_mark("main", t_phase, "(d) checked")
 
         # (e) the one-card refusals
@@ -3939,6 +4062,8 @@ def parallel_phases(dev, smi: str) -> dict:
                   f"collectives over {nccl['backend']}, worst "
                   f"{max(nccl['worst_ratio_to_bound']):.3f} of phase 4's bound")
         # this process is done with the card until the ranks have timed
+        print(f"parallel: {torch.cuda.mem_get_info(dev)[0] / 2 ** 30:.1f} GiB "
+              f"free when the ranks start timing", flush=True)
         open(go, "w").close()
         ranks = group.results()
         _par_mark("main", t_phase, "the ranks' results in")
@@ -6789,6 +6914,13 @@ def main() -> int:
 
     # -- 12. the parallel layer (two ranks on this card, gloo; NCCL at 1)
     stamp("12")
+    # the paths' captured graphs are timed and held: their pools go back
+    # to the card, which phase 12's ranks share with this process
+    free0 = torch.cuda.mem_get_info(dev)[0]
+    n_rel = _release_captures(locals())
+    print(f"chip_smoke: released the graphs of {n_rel} captured factories, "
+          f"{(torch.cuda.mem_get_info(dev)[0] - free0) / 2 ** 30:.1f} GiB",
+          flush=True)
     par = parallel_phases(dev, smi)
     par_launches = par["launches"]
     print(json.dumps({"parallel": par["record"]}))
@@ -6799,6 +6931,8 @@ def main() -> int:
     fleet_launches = fleet.pop("launches")
     print(json.dumps({"fleet": fleet}))
 
+    tools = dict(serving["s1"]["tools"], device=smi)
+    print(json.dumps({"tools": tools}))
     wall_s = time.perf_counter() - t_start
     print(f"chip_smoke wall time {wall_s:.1f} s")
     print(json.dumps({"e2e": {"latency_ms_median": med_k, "pairs_per_s": 1e3 / med_k,
@@ -6848,7 +6982,9 @@ def main() -> int:
     def entry(name, source, replaces, runs, err, ms, plain_ms, bound, by):
         # train_launches: phase 9's share of launches (its captures and
         # eager steps, f32 main and BF); fleet_launches: phase 13's (the
-        # replicas' captures, probe-thread forwards and reload probes)
+        # replicas' captures, probe-thread forwards and reload probes);
+        # tools_launches: the kernels phase 8's tools sub-step ran, as
+        # replays of S1's graphs (none through the wrappers)
         dtype_key = "bf16" if name.endswith("_bf16") else "f32"
         trained = train_launches[dtype_key].get(name.replace("_bf16", ""), 0)
         return {"name": name, "route": "cuda", "source": source,
@@ -6856,7 +6992,8 @@ def main() -> int:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": None,
                 "train_launches": trained,
-                "fleet_launches": fleet_launches.get(name, 0)}
+                "fleet_launches": fleet_launches.get(name, 0),
+                "tools_launches": tools["launches_by_replay"].get(name, 0)}
 
     # phase 12's main-path launches: the ring (B1, B3, B5 in both dtypes),
     # the row-sharded model (B1), the DP train step and serving (B1, B2)

@@ -558,9 +558,12 @@ class FlowServer:
         self._stopped.set()
 
     def wait(self) -> None:
-        """Block until stop() completes (the CLI foreground call)."""
-        while not self._stopped.is_set():
-            self._stopped.wait(0.5)
+        """Block until stop() completes (the CLI foreground call).  This
+        thread opens the profiler's first session when ``POST
+        /debug/profile`` first asks for one (telemetry/trace.py
+        ``host_profiler_warmup``)."""
+        from ..telemetry.trace import host_profiler_warmup
+        host_profiler_warmup(self._stopped)
 
     # -- request path ------------------------------------------------------
 

@@ -42,6 +42,7 @@ No jax anywhere: pure stdlib, importable by ``tools/tlm.py``.
 from __future__ import annotations
 
 import json
+import os
 import re
 import threading
 import time
@@ -75,7 +76,9 @@ def new_trace_id() -> str:
 
 
 def new_span_id() -> str:
-    return uuid.uuid4().hex[:16]
+    # 64 random bits, as uuid4().hex[:16] has, for a fifth of its cost (a
+    # request mints ten span ids on the serving threads)
+    return os.urandom(8).hex()
 
 
 def clean_trace_id(tid: Optional[str]) -> str:

@@ -75,6 +75,81 @@ def _activities():
     return acts
 
 
+_profiler_warm = False
+# the thread that opens the profiler's first session for captures asked on
+# other threads (host_profiler_warmup), and its handshake with them
+_warm_host: Optional[int] = None
+_warm_asked = threading.Event()
+_warm_done = threading.Event()
+_warm_error: Optional[BaseException] = None
+#: Seconds a capture waits for the hosting thread to open the first session.
+WARM_TIMEOUT_S = 60.0
+
+
+def _warm() -> None:
+    global _profiler_warm
+    if not _profiler_warm:
+        prof = _start_profiler()
+        prof.stop()
+        _profiler_warm = True
+
+
+def warm_profiler() -> None:
+    """Start and stop one empty ``torch.profiler`` session (the CUDA
+    activity included when there is a card) on the calling thread.  The
+    profiler's CUDA backend (kineto over CUPTI) initializes on its first
+    session and requires that to happen on the thread that registered its
+    client: a first session opened from a request handler thread (``POST
+    /debug/profile``) fails that check: its sessions then lose their CUDA
+    events, and a capture can hang.  The first session costs seconds (~8 s
+    on an H100; 1-2 s on the CPU).  Once per process."""
+    if _profiler_warm:
+        return
+    with _capture_lock:
+        _warm()
+
+
+def host_profiler_warmup(stopped: threading.Event,
+                         poll_s: float = 0.5) -> None:
+    """Block until ``stopped`` is set.  Meanwhile, when a capture on another
+    thread needs the profiler's first session, open it here: a server's
+    foreground thread (``FlowServer.wait``, the main thread of ``-m
+    serve``) hosts it, so a process pays the start-up only when it is
+    first profiled, never at boot."""
+    global _warm_host, _warm_error
+    prev, _warm_host = _warm_host, threading.get_ident()
+    try:
+        while not stopped.is_set():
+            if _warm_asked.wait(poll_s):
+                _warm_asked.clear()
+                try:
+                    _warm()
+                except BaseException as e:  # noqa: BLE001 — the capture's
+                    _warm_error = e
+                _warm_done.set()
+    finally:
+        _warm_host = prev
+
+
+def _first_session() -> None:
+    """Open the profiler's first session, on the hosting thread where one
+    waits (the caller holds ``_capture_lock``), else on this one."""
+    global _warm_error
+    host = _warm_host
+    if host is None or host == threading.get_ident():
+        _warm()
+        return
+    _warm_error = None
+    _warm_done.clear()
+    _warm_asked.set()
+    if not _warm_done.wait(WARM_TIMEOUT_S):
+        raise RuntimeError(f"the profiler's first session did not open "
+                           f"within {WARM_TIMEOUT_S:g} s on its host "
+                           f"thread")
+    if _warm_error is not None:
+        raise _warm_error
+
+
 def _start_profiler():
     import torch
     prof = torch.profiler.profile(activities=_activities())
@@ -166,6 +241,8 @@ def capture_profile(trace_dir: Optional[str], duration_ms: float,
         else:
             dest = os.path.join(trace_dir, time.strftime(
                 "%Y%m%dT%H%M%S", time.gmtime(started)))
+        if not _profiler_warm:
+            _first_session()
         prof = _start_profiler()
         try:
             time.sleep(duration_ms / 1000.0)

@@ -24,15 +24,38 @@ from pathlib import Path
 from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
 from ..convert.weights import from_jax_train_state, to_jax_train_state
 
 
+class DeviceSnapshot:
+    """A train state's leaves copied where they live (on the card: device
+    copies, enqueued on the step's stream, no host sync) and its step:
+    what the step loop hands the checkpoint writer, whose thread turns it
+    into host arrays (:func:`host_state`), so the copy to the host and the
+    layout conversion stay off the step path."""
+
+    def __init__(self, state):
+        from ..convert.weights import _train_state_leaves
+        self.step = int(state.step)
+        with torch.no_grad():
+            self.leaves = [(name, t.detach().clone(), kernel)
+                           for name, t, kernel in _train_state_leaves(state)]
+
+
 def host_state(state) -> dict:
-    """A :class:`~raft_tpu_torch.training.state.TrainState` as its named
-    numpy leaves (copied to the host); a dict of arrays passes through."""
+    """A :class:`~raft_tpu_torch.training.state.TrainState` (or its
+    :class:`DeviceSnapshot`) as its named numpy leaves (copied to the
+    host); a dict of arrays passes through."""
     if isinstance(state, Mapping):
         return dict(state)
+    if isinstance(state, DeviceSnapshot):
+        from ..convert.weights import _to_jax
+        named = {"step": np.asarray(state.step, dtype=np.int32)}
+        for name, t, kernel in state.leaves:
+            named[name] = _to_jax(t, kernel)
+        return named
     return to_jax_train_state(state)
 
 

@@ -45,7 +45,8 @@ from ..telemetry import Registry, config_hash, run_manifest
 from ..telemetry import events as tlm_events
 from ..telemetry.trace import TraceWindow, stage
 from .capture import GraphedTrainStep
-from .checkpoint import host_state, restore_latest_with_fallback
+from .checkpoint import (DeviceSnapshot, host_state,
+                         restore_latest_with_fallback)
 from .optim import make_optimizer
 from .resilience import (CheckpointWriter, LastGood, PreemptionGuard,
                          TrainingPreempted)
@@ -342,7 +343,7 @@ def train(config: RAFTConfig, tconfig: TrainConfig, batch_iter: Iterable,
                         f"is in {ckpt_dir or '<none>'}")
             if writer is not None and (step + 1) % tconfig.ckpt_every == 0:
                 writer.submit(Path(ckpt_dir) / f"ckpt_{step + 1}.npz",
-                              host_state(state), step + 1)
+                              DeviceSnapshot(state), step + 1)
             if guard.requested:
                 _preempt_exit()
 

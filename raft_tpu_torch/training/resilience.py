@@ -45,8 +45,8 @@ from typing import Optional
 import numpy as np
 
 from ..telemetry.log import get_logger
-from .checkpoint import (checkpoint_readable, prune_checkpoints,
-                         save_checkpoint)
+from .checkpoint import (checkpoint_readable, host_state as to_host,
+                         prune_checkpoints, save_checkpoint)
 
 _log = get_logger("train")
 
@@ -168,8 +168,9 @@ def save_if_finite(path, host_state, log_fn, final: bool = False) -> bool:
 class CheckpointWriter:
     """Single background writer for training checkpoints.
 
-    ``submit(path, host_state, step)`` enqueues an already-host-side
-    snapshot; the writer thread runs the finite check, the atomic
+    ``submit(path, host_state, step)`` enqueues a snapshot (host arrays,
+    or a ``checkpoint.DeviceSnapshot`` the writer copies to the host);
+    the writer thread runs the finite check, the atomic
     fsync'd write, the verify pass, retention pruning, and the last-good
     promotion — the step loop never blocks on disk.  The queue is bounded
     (default 2): a disk slower than the checkpoint cadence backpressures
@@ -275,6 +276,8 @@ class CheckpointWriter:
     def _write(self, path: Path, host_state, step: int, final: bool) -> None:
         t0 = time.monotonic()
         try:
+            # a DeviceSnapshot becomes host arrays here, off the step path
+            host_state = to_host(host_state)
             if not save_if_finite(path, host_state, self._log, final=final):
                 return
             if self._on_good is not None:

@@ -19,13 +19,18 @@ torch.set_num_threads(2)   # several test workers share the host's cores
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "raft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+TOOLS = ("serve_bench", "tlm", "bench_train", "profile_breakdown",
+         "envelope_check", "warmstart_bench", "train_chaos",
+         "make_qualitative")
+BLOCK = ("import sys\n"
+         "sys.modules['jax'] = None\n"
+         "sys.modules['raft_tpu'] = None\n"
+         "sys.modules['cv2'] = None\n"
+         "sys.modules['bench'] = None\n")
 
 
 def test_imports_with_jax_and_raft_tpu_blocked():
-    code = ("import sys\n"
-            "sys.modules['jax'] = None\n"
-            "sys.modules['raft_tpu'] = None\n"
-            "sys.modules['cv2'] = None\n"
+    code = (BLOCK +
             "import raft_tpu_torch\n"
             "import raft_tpu_torch.ops.corr_cuda, raft_tpu_torch.ops.gru_cuda\n"
             "import raft_tpu_torch._build\n"
@@ -50,6 +55,7 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch.serving.aot_cache, raft_tpu_torch.fleet\n"
             "import raft_tpu_torch.fleet.manager, raft_tpu_torch.fleet.router\n"
             "import raft_tpu_torch.fleet.controller, raft_tpu_torch.fleet.launch\n"
+            + "".join(f"import raft_tpu_torch.tools.{m}\n" for m in TOOLS) +
             "assert raft_tpu_torch.cli.build_parser().parse_args([]).mode == 'test'\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
@@ -59,10 +65,31 @@ def test_imports_with_jax_and_raft_tpu_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_every_tool_runs_help_with_jax_and_raft_tpu_blocked():
+    """``python -m raft_tpu_torch.tools.<name> --help`` for every tool, with
+    jax, raft_tpu, cv2 and the root ``bench.py`` blocked."""
+    code = (BLOCK + "import runpy\n"
+            "for name in sys.argv[1:]:\n"
+            "    sys.argv = [name, '--help']\n"
+            "    try:\n"
+            "        runpy.run_module('raft_tpu_torch.tools.' + name,\n"
+            "                         run_name='__main__')\n"
+            "    except SystemExit as e:\n"
+            "        assert e.code in (0, None), (name, e.code)\n"
+            "    else:\n"
+            "        raise AssertionError(name + ' --help did not exit')\n"
+            "    print('HELP-OK', name)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, *TOOLS], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("HELP-OK") == len(TOOLS), proc.stdout
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_sources_import_neither_jax_nor_raft_tpu(path):
     """Nor OpenCV: the card's machine has no cv2 (the warm start's fill
-    is scipy's)."""
+    is scipy's); nor the root ``bench.py``, which is the JAX package's."""
     tree = ast.parse(path.read_text())
     # a function returning the format name 'native' (convert.detect_format,
     # as the JAX package names its params npz) names no path
@@ -77,7 +104,7 @@ def test_sources_import_neither_jax_nor_raft_tpu(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "raft_tpu", "cv2",
-                               "native"), (path, name)
+                               "native", "bench"), (path, name)
         if isinstance(node, ast.Constant) and isinstance(node.value, str):
             assert "libraftio" not in node.value, (path, node.value)
             assert (node.value != "native" or id(node) in returned) and \

@@ -269,6 +269,46 @@ def test_stage_provenance_and_profiler_captures(tmp_path):
         trace._capture_lock.release()
 
 
+def test_first_profiler_session_opens_on_the_hosting_thread(monkeypatch,
+                                                            tmp_path):
+    """A capture asked for on a handler thread has its first session
+    opened by the thread waiting in ``host_profiler_warmup`` (a server's
+    foreground thread); later captures open none; nothing opens one before
+    a capture is asked for."""
+    opened = []
+
+    class Prof:
+        def stop(self):
+            pass
+
+        def export_chrome_trace(self, path):
+            open(path, "w").write("{}")
+
+    def start():
+        opened.append(threading.get_ident())
+        return Prof()
+
+    monkeypatch.setattr(trace, "_start_profiler", start)
+    monkeypatch.setattr(trace, "_profiler_warm", False)
+    stopped = threading.Event()
+    host = threading.Thread(target=trace.host_profiler_warmup,
+                            args=(stopped, 0.05), daemon=True)
+    host.start()
+    for _ in range(200):
+        if trace._warm_host == host.ident:
+            break
+        stopped.wait(0.01)
+    assert trace._warm_host == host.ident and opened == []
+    me = threading.get_ident()
+    trace.capture_profile(str(tmp_path / "a"), 5.0)
+    assert opened == [host.ident, me]
+    trace.capture_profile(str(tmp_path / "b"), 5.0)
+    assert opened == [host.ident, me, me]
+    stopped.set()
+    host.join(timeout=10)
+    assert not host.is_alive() and trace._warm_host is None
+
+
 def test_run_manifest_carries_torch_device_fields(tmp_path):
     m = events.run_manifest(config=ServeConfig(), mode="serve")
     for key in ("torch_version", "cuda_version", "device_kind",
