@@ -369,9 +369,25 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    the router's HTTP median beside a replica's, the card's memory.  The
    ``fleet`` JSON line; the replicas' launches (their ``/metrics``) join
    B1's and B2's records.
+14. the lint's checks on the card (``lint_phases``, after phase 13): (a)
+   every kernel entry's launch envelope, float32 and bfloat16 at the main
+   path's shapes and raft-small's: the Python mirror
+   (``lint/budget.py::corr_envelope``, ``gru_envelopes``) equal to each
+   source's ``extern "C"`` ``*_envelope`` query (dynamic shared bytes,
+   threads, launch bounds) and to ``cudaFuncGetAttributes`` (static shared
+   bytes, registers equal to ``ptxas``'s), the blocks an SM holds equal to
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, no entry over the
+   H100's per-block or per-SM limits; (b) the graph pools priced from fake
+   tensors (a subprocess started before the build) against the measured
+   ones, S1's (phase 8) and the f32 chairs step's (phase 9), within 20%;
+   (c) with contract checking on, one captured raft-small request and one
+   eager train step raise nothing, a wrong shape raises ContractError;
+   (d) the span accounting of a closed loop at 8 clients on raft-small at
+   32x48 (serve_bench's smoke server): spans cover >= 95% of a request on
+   average and >= 75% each.  The ``lint`` JSON line.
 
-Before the last lines the serving, train, data, cli, parallel, fleet and
-e2e JSON records (PERF.md §2
+Before the last lines the serving, train, data, cli, parallel, fleet, lint
+and e2e JSON records (PERF.md §2
 says what each key means); the line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
@@ -4783,6 +4799,278 @@ def fleet_phases(dev, smi: str) -> dict:
     return rec
 
 
+# -- 14. the lint on the card: envelopes, graph pools, contracts, spans --
+
+POOL_TOL = 0.20                  # static graph-pool price vs the measured
+SPAN_CLIENTS, SPAN_REQUESTS = 8, 96
+
+
+def start_pricing() -> subprocess.Popen:
+    """The graph pools' static prices (``lint/budget.py``, fake tensors on
+    the CPU) of phase 8's S1 and phase 9's f32 chairs step, computed in a
+    process of its own beside the build; :func:`lint_phases` reads its one
+    JSON line."""
+    code = (
+        "import json, sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from raft_tpu_torch.config import RAFTConfig, TrainConfig\n"
+        "from raft_tpu_torch.lint import budget\n"
+        "from raft_tpu_torch.serving import ServeConfig\n"
+        "cfg = RAFTConfig.full(corr_impl='pallas', gru_impl='pallas', "
+        f"iters={ITERS})\n"
+        f"sc = ServeConfig(buckets=(({H_IMG}, {W_IMG}),), max_batch=4, "
+        "max_sessions=4)\n"
+        "s1 = budget.serving_pool_prices(cfg, sc)\n"
+        "tc = TrainConfig.for_stage('chairs')\n"
+        "tr = budget.train_pool_price(cfg, tc, tc.batch_size, "
+        "*tc.image_size)\n"
+        "print(json.dumps({'s1': s1, 'train_f32': tr}))\n")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _ptxas_registers() -> dict:
+    """{demangled kernel instantiation: registers} from the build's ptxas
+    report (``c++filt`` demangles; None when it is missing)."""
+    from raft_tpu_torch import _build
+    regs, names = {}, []
+    for stem in ("corr_lookup", "sep_conv_gru"):
+        log = _build.build_dir() / f"{stem}.log"
+        entry = None
+        for ln in log.read_text().splitlines():
+            if "Compiling entry function" in ln and "'" in ln:
+                entry = ln.split("'")[1]
+            elif "Used " in ln and entry is not None:
+                n = int(ln.split("Used ")[1].split()[0])
+                regs[entry] = n
+                names.append(entry)
+                entry = None
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    plain = {}
+    for mangled, dem in zip(names, out):
+        # "void (anonymous namespace)::corr_lookup_kernel<float, true, 2,
+        # false>(...)": keep "corr_lookup_kernel<float, true, 2, false>"
+        dem = dem.replace("(anonymous namespace)::", "")
+        head = dem.split("(")[0]
+        plain[head[5:] if head.startswith("void ") else head] = regs[mangled]
+    return plain
+
+
+def lint_phases(dev, smi: str, pricing: subprocess.Popen,
+                measured_pools: dict) -> dict:
+    """Phase 14 (module docstring): the lint's envelopes, pool prices and
+    contracts held on the card, and the span accounting of C8's regime."""
+    t0 = time.perf_counter()
+    rec = {"device": smi, "envelopes": lint_envelopes()}
+    rec["envelopes_s"] = time.perf_counter() - t0
+    rec.update(lint_pools(pricing, measured_pools))
+    rec["contracts"] = lint_contracts(dev)
+    rec["span_accounting"] = lint_spans(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"lint: phase 14 took {rec['phase_s']:.1f} s; {smi}")
+    return rec
+
+
+def lint_envelopes() -> list:
+    """(a) every kernel entry's envelope: the Python mirror equal to the
+    source's query and to the runtime's attributes and occupancy."""
+    import ctypes
+
+    from raft_tpu_torch import RAFTConfig, _build
+    from raft_tpu_torch.lint import budget
+    ptxas = _ptxas_registers()
+    lims = budget.H100_LIMITS
+    out_t = ctypes.POINTER(ctypes.c_int)
+    corr_query = _build.load("corr_lookup.cu").corr_lookup_envelope
+    corr_query.argtypes = [ctypes.c_int] * 5 + [out_t]
+    gru_query = _build.load("sep_conv_gru.cu").sep_conv_gru_envelope
+    gru_query.argtypes = [ctypes.c_int] * 3 + [out_t]
+    corr_query.restype = gru_query.restype = ctypes.c_int
+    rows = []
+    for cfg_name, cfg in (("full", RAFTConfig.full()),
+                          ("small", RAFTConfig.small_model())):
+        for e in budget.kernel_envelopes(cfg)["entries"]:
+            if cfg_name == "small" and e["kernel"] == "B2":
+                continue                  # raft-small runs no GRU kernel
+            bf16 = int(e["entry"].endswith("bf16"))
+            out = (ctypes.c_int * 12)()
+            if e["kernel"] == "B2":
+                err = gru_query(bf16, e["launch"], 1, out)
+            else:
+                err = corr_query(bf16, int(e["kernel"] == "B4"),
+                                 cfg.fnet_dim, cfg.corr_radius, 1, out)
+            if err:
+                raise AssertionError(f"lint: {e['entry']} envelope query "
+                                     f"returned cudaError {err}")
+            q = list(out)
+            got = {"dynamic_smem": q[0], "threads": q[1],
+                   "launch_bounds_min_blocks": q[2], "static_smem": q[8]}
+            want = {k: e[k] for k in got}
+            if e["kernel"] != "B2":
+                got.update(opt_in_smem=q[3], vec=q[4], nv=q[5], mma=q[6])
+                want.update({k: e[k] for k in ("opt_in_smem", "vec", "nv",
+                                               "mma")})
+            if got != want:
+                raise AssertionError(f"lint: {cfg_name} {e['entry']}#"
+                                     f"{e['launch']}: the mirror {want} != "
+                                     f"the source's query {got}")
+            regs = q[7]
+            if ptxas.get(e["instantiation"]) not in (None, regs):
+                raise AssertionError(f"lint: {e['instantiation']}: ptxas "
+                                     f"{ptxas[e['instantiation']]} registers"
+                                     f" != cudaFuncGetAttributes' {regs}")
+            blocks, limiter = budget.blocks_per_sm(
+                e["threads"], e["dynamic_smem"] + e["static_smem"], regs)
+            if blocks != q[11]:
+                raise AssertionError(f"lint: {e['instantiation']}: "
+                                     f"{blocks} blocks an SM by the mirror "
+                                     f"({limiter}), the occupancy API says "
+                                     f"{q[11]}")
+            smem = e["dynamic_smem"] + e["static_smem"]
+            if smem > lims["smem_per_block"] \
+                    or blocks < e["launch_bounds_min_blocks"]:
+                raise AssertionError(f"lint: {e['instantiation']}: {smem} B "
+                                     f"a block, {blocks} blocks an SM")
+            rows.append({"config": cfg_name, "kernel": e["kernel"],
+                         "entry": e["entry"], "launch": e["launch"],
+                         "instantiation": e["instantiation"],
+                         "block_smem": smem, "threads": e["threads"],
+                         "registers": regs,
+                         "registers_ptxas": ptxas.get(e["instantiation"]),
+                         "local_bytes": q[10],
+                         "blocks_per_sm": blocks, "limited_by": limiter})
+            print(f"lint: (a) {cfg_name} {e['entry']}#{e['launch']} "
+                  f"{e['instantiation']}: {smem} B shared a block, "
+                  f"{e['threads']} threads, {regs} registers (ptxas "
+                  f"{ptxas.get(e['instantiation'])}), {q[10]} B local, "
+                  f"{blocks} blocks an SM ({limiter}) = the occupancy "
+                  f"API's")
+    return rows
+
+
+def lint_pools(pricing: subprocess.Popen, measured_pools: dict) -> dict:
+    """(b) the graph pools' static prices against the measured pools."""
+    out, err = pricing.communicate(timeout=300)
+    if pricing.returncode:
+        raise AssertionError(f"lint: the pricing process failed:\n{err}")
+    priced = json.loads(out.strip().splitlines()[-1])
+    pools = {}
+    for name, price_b, key in (
+            ("s1", priced["s1"]["total_bytes"], "s1"),
+            ("train_f32", priced["train_f32"]["price_bytes"], "train_f32")):
+        got_mib = measured_pools.get(key)
+        price = price_b / 2 ** 20
+        ratio = None if not got_mib else price / got_mib
+        pools[name] = {"price_mib": price, "measured_mib": got_mib,
+                       "ratio": ratio}
+        print(f"lint: (b) {name} graph pools: priced {price:.0f} MiB, "
+              f"measured {got_mib} MiB"
+              + ("" if ratio is None else f" ({ratio:.3f}x)"))
+        if ratio is None or abs(ratio - 1.0) > POOL_TOL:
+            raise AssertionError(f"lint: {name}: the priced pool is not "
+                                 f"within {POOL_TOL:.0%} of the measured")
+    return {"pools": pools, "pools_per_key": priced["s1"]["keys"]}
+
+
+def lint_contracts(dev) -> dict:
+    """(c) contract checking on: one captured request and one eager train
+    step raise nothing; a wrong shape raises."""
+    from raft_tpu_torch import RAFTConfig, init_raft_torch, make_inference_fn
+    from raft_tpu_torch.config import TrainConfig
+    from raft_tpu_torch.lint import contracts
+    from raft_tpu_torch.models.raft import raft_forward
+    from raft_tpu_torch.training import TrainState, make_optimizer
+    from raft_tpu_torch.training.step import make_train_step
+    t1 = time.perf_counter()
+    was = contracts.checking_enabled()
+    contracts.enable_checking(True)
+    try:
+        cfg = RAFTConfig.small_model(iters=2, corr_impl="pallas")
+        model = init_raft_torch(cfg, torch.Generator().manual_seed(0),
+                                device=dev)
+        rng = np.random.RandomState(14)
+        im = rng.rand(2, 1, 64, 96, 3).astype(np.float32)
+        fn = make_inference_fn(cfg, device=dev)
+        flow = fn(model, im[0], im[1])
+        flow = fn(model, im[0], im[1])           # a replay
+        captures = fn.graphs.captures
+        tc = TrainConfig(batch_size=2, image_size=(64, 96))
+        tx = make_optimizer(tc)
+        state = TrainState.create(init_raft_torch(
+            cfg, torch.Generator().manual_seed(1), device=dev).train(), tx)
+        batch = (rng.rand(2, 64, 96, 3).astype(np.float32),
+                 rng.rand(2, 64, 96, 3).astype(np.float32),
+                 rng.randn(2, 64, 96, 2).astype(np.float32),
+                 np.ones((2, 64, 96), np.float32))
+        state, metrics = make_train_step(cfg, tc, tx)(state, batch)
+        loss = float(metrics["loss"])
+        a = torch.as_tensor(im[0], device=dev)
+        try:
+            raft_forward(model, a, a[:, :32], cfg)
+            raise AssertionError("lint: a wrong shape passed the contract")
+        except contracts.ContractError as e:
+            wrong = str(e)
+    finally:
+        contracts.enable_checking(was)
+    finite = bool(torch.isfinite(torch.as_tensor(flow)).all())
+    if not (finite and np.isfinite(loss) and captures == 1):
+        raise AssertionError(f"lint: (c) flow finite {finite}, loss "
+                             f"{loss}, captures {captures}")
+    print(f"lint: (c) contracts on: a captured raft-small request "
+          f"({captures} capture) and an eager train step (loss {loss:.3f}) "
+          f"raised nothing; a wrong shape raised: {wrong[:120]}")
+    return {"captures": captures, "loss": loss, "violations": 0,
+            "wrong_shape_error": wrong[:160], "s": time.perf_counter() - t1}
+
+
+def lint_spans(dev) -> dict:
+    """(d) C8's regime: the span accounting of a closed loop at 8 clients
+    on raft-small at 32x48 (serve_bench's smoke server)."""
+    from raft_tpu_torch import RAFTConfig, init_raft_torch
+    from raft_tpu_torch.serving import FlowServer, ServeConfig
+    from raft_tpu_torch.tools.serve_bench import (SMOKE_CUDNN, _pair_body,
+                                                  fetch_trace_accounting,
+                                                  run_closed)
+    t2 = time.perf_counter()
+    cfg = RAFTConfig.small_model(iters=2, corr_impl="pallas", gru_impl="xla")
+    model = init_raft_torch(cfg, torch.Generator().manual_seed(0),
+                            device=dev)
+    sc = ServeConfig(buckets=((32, 48),), max_batch=4, port=0,
+                     max_sessions=0, iters_policy="converge:1e-2",
+                     history_interval_s=0.0, cudnn=SMOKE_CUDNN)
+    bench0 = torch.backends.cudnn.benchmark     # the server sets its mode
+    server = FlowServer(cfg, model, sc, iters=2)
+    server.start()
+    try:
+        body = _pair_body(32, 48)
+        run_closed(sc.host, server.port, body, SPAN_CLIENTS, 16)
+        results, elapsed = run_closed(sc.host, server.port, body,
+                                      SPAN_CLIENTS, SPAN_REQUESTS)
+        acc, problems = fetch_trace_accounting(sc.host, server.port)
+    finally:
+        server.stop()
+        torch.backends.cudnn.benchmark = bench0
+    ok = sum(st == 200 for st, _ in results)
+    rec = dict(acc or {}, clients=SPAN_CLIENTS, requests=SPAN_REQUESTS,
+               ok=ok, pairs_per_s=ok / elapsed, s=time.perf_counter() - t2)
+    print(f"lint: (d) closed loop, raft-small 32x48, {SPAN_CLIENTS} "
+          f"clients: {ok / elapsed:.1f} pairs/s, spans cover "
+          f"{(acc or {}).get('span_coverage_mean')} of a request on average, "
+          f"{(acc or {}).get('span_coverage_min')} at least")
+    if problems or ok != SPAN_REQUESTS:
+        raise AssertionError(f"lint: (d) {ok}/{SPAN_REQUESTS} answered; "
+                             f"{problems}")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -4858,6 +5146,7 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------
     stamp("2")
+    pricing = start_pricing()          # phase 14's, beside the build
     secs = _build.build_all()
     print(f"build: {secs:.1f} s into {_build.build_dir()}")
     print(_build.compiler_report())
@@ -6930,6 +7219,13 @@ def main() -> int:
     fleet = fleet_phases(dev, smi)
     fleet_launches = fleet.pop("launches")
     print(json.dumps({"fleet": fleet}))
+
+    # -- 14. the lint's checks on the card
+    stamp("14")
+    lint = lint_phases(dev, smi, pricing, {
+        "s1": serving["s1"]["graph_pool_mib"],
+        "train_f32": train["f32"]["graph_pool_mib"]})
+    print(json.dumps({"lint": lint}))
 
     tools = dict(serving["s1"]["tools"], device=smi)
     print(json.dumps({"tools": tools}))

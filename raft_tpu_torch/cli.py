@@ -330,6 +330,10 @@ def add_serve_flags(p: argparse.ArgumentParser) -> None:
                    help="the AOT engine cache: kernel objects and a probe "
                         "digest per warm key (serve_fleet default: "
                         "<--out>/engine-cache)")
+    p.add_argument("--cudnn", default=None, choices=["benchmark",
+                                                     "heuristic"],
+                   help="cuDNN's algorithm choice for the captured graphs "
+                        "(default: the serving config's)")
     p.add_argument("--history-interval-s", type=float, default=1.0,
                    metavar="T", help="metric-history sampling interval; 0 "
                                      "disables history and sentinels")

@@ -654,3 +654,65 @@ extern "C" int corr_ragged_bf16(const void* f1, const float* coords,
 
 #undef RAFT_LOOKUP_ENTRY
 #undef RAFT_ARGS
+
+// The launch envelope an entry gives a configuration (element type, ragged
+// or not, channels C, radius), from the expressions run() and launch()
+// use, with 16-byte aligned maps: out[0] dynamic shared bytes, out[1]
+// threads per block, out[2] the blocks per SM __launch_bounds__ asks for,
+// out[3] the largest dynamic shared bytes any configuration opts in to,
+// out[4] VEC, out[5] NV, out[6] the MMA path.  With attrs != 0 it also
+// reads the instantiation it would launch: out[7] cudaFuncGetAttributes'
+// numRegs, out[8] its static shared bytes, out[9] maxThreadsPerBlock,
+// out[10] local (spill) bytes per thread, out[11] the blocks per SM
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives at out[0] bytes
+// (after the opt-in launch() makes).  Returns a cudaError_t.
+namespace {
+
+template <typename T, bool RAGGED>
+int envelope(int C, int radius, int attrs, int* out) {
+  constexpr int kN = raft_corr::Vec16<T>::kN;
+  if (C < 1 || C > 512 || radius < 0 || 2 * radius + 2 > kMaxWin)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = C % kN == 0;
+  const int nv = !vec ? 4 : C <= 32 * kN ? 1 : C <= 64 * kN ? 2 : 4;
+  if (vec && nv == 4 && kN != 4) return (int)cudaErrorInvalidValue;
+  const int mma_ok = vec && 2 * radius + 2 <= kMmaMaxWin;
+  const int nwin = (2 * radius + 2) * (2 * radius + 2);
+  out[0] = mma_ok ? kStagingBytes + kTile * nwin * 4 : kWarps * nwin * 4;
+  out[1] = kThreads;
+  out[2] = 2;
+  out[3] = kStagingBytes + kTile * kMmaMaxWin * kMmaMaxWin * 4;
+  out[4] = vec;
+  out[5] = nv;
+  out[6] = mma_ok;
+  if (!attrs) return 0;
+  const void* k = nullptr;
+  if (!vec) k = (const void*)corr_lookup_kernel<T, false, 4, RAGGED>;
+  else if (nv == 1) k = (const void*)corr_lookup_kernel<T, true, 1, RAGGED>;
+  else if (nv == 2) k = (const void*)corr_lookup_kernel<T, true, 2, RAGGED>;
+  if constexpr (kN == 4)
+    if (vec && nv == 4) k = (const void*)corr_lookup_kernel<T, true, 4, RAGGED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, out[3]);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return (int)err;
+  out[7] = fa.numRegs;
+  out[8] = (int)fa.sharedSizeBytes;
+  out[9] = fa.maxThreadsPerBlock;
+  out[10] = (int)fa.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[11], k, kThreads, out[0]);
+}
+
+}  // namespace
+
+extern "C" int corr_lookup_envelope(int bf16, int ragged, int C, int radius,
+                                    int attrs, int* out) {
+  if (bf16)
+    return ragged ? envelope<__nv_bfloat16, true>(C, radius, attrs, out)
+                  : envelope<__nv_bfloat16, false>(C, radius, attrs, out);
+  return ragged ? envelope<float, true>(C, radius, attrs, out)
+                : envelope<float, false>(C, radius, attrs, out);
+}

@@ -533,3 +533,57 @@ extern "C" int sep_conv_gru_bf16(const void* h, const void* motion,
                                    wzr2, wqh2, wqm2, z, rh, h1, out, B, H, W,
                                    hid, mot, stream);
 }
+
+// The launch envelope of the entry's launch `which` (0-3, in the order
+// run() issues them: the 1x5 pass's z/r and q GEMMs, then the 5x1 pass's),
+// from the template launch() instantiates: out[0] dynamic shared bytes
+// (Gemm<...>::kSmemBytes), out[1] threads per block, out[2] the blocks per
+// SM __launch_bounds__ asks for, out[3] BM (pixels per tile), out[4] BN
+// (output channels per tile).  With attrs != 0, as corr_lookup_envelope:
+// out[7] numRegs, out[8] static shared bytes, out[9] maxThreadsPerBlock,
+// out[10] local bytes per thread, out[11] the occupancy's blocks per SM at
+// out[0] bytes.  Returns a cudaError_t.
+namespace {
+
+template <int MODE, bool VERT, typename TIO, bool PASS2, bool TF32, int BM>
+int gru_envelope(int attrs, int* out) {
+  constexpr int smem = Gemm<MODE, VERT, TIO, PASS2, TF32, BM>::kSmemBytes;
+  out[0] = smem;
+  out[1] = kThreads;
+  out[2] = 2;
+  out[3] = BM;
+  out[4] = BN;
+  if (!attrs) return 0;
+  const void* k = (const void*)gru_gemm<MODE, VERT, TIO, PASS2, TF32, BM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return (int)err;
+  out[7] = fa.numRegs;
+  out[8] = (int)fa.sharedSizeBytes;
+  out[9] = fa.maxThreadsPerBlock;
+  out[10] = (int)fa.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[11], k, kThreads, smem);
+}
+
+template <typename TIO, bool TF32>
+int gru_envelopes(int which, int attrs, int* out) {
+  switch (which) {
+    case 0: return gru_envelope<0, false, TIO, false, TF32, 128>(attrs, out);
+    case 1: return gru_envelope<1, false, TIO, false, TF32, 64>(attrs, out);
+    case 2: return gru_envelope<0, true, TIO, true, TF32, 128>(attrs, out);
+    case 3: return gru_envelope<1, true, TIO, true, TF32, 64>(attrs, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" int sep_conv_gru_envelope(int bf16, int which, int attrs,
+                                     int* out) {
+  return bf16 ? gru_envelopes<__nv_bfloat16, false>(which, attrs, out)
+              : gru_envelopes<float, true>(which, attrs, out);
+}

@@ -96,6 +96,7 @@ import torch.nn as nn
 
 from ..config import (RAFTConfig, adaptive_iters, check_port_support,
                       parse_iters_policy)
+from ..lint.contracts import contract
 from ..ops.conv import init_conv_, to_nchw, to_nhwc
 from ..ops.coords import coords_grid
 from ..ops.corr import (build_pyramid, lookup_blockwise_onehot, lookup_dense,
@@ -357,6 +358,7 @@ def _encode_frame(model: RAFT, image: torch.Tensor, config: RAFTConfig):
 
 
 @torch.no_grad()
+@contract(image="*[B,H,W,3]")
 def encode_frame(model: RAFT, image: torch.Tensor, config: RAFTConfig):
     """Encode one frame for sequential (video) inference: image [B, H, W, 3]
     in [0, 1] -> ``(fmap, cnet)``, the fnet map [B, H/8, W/8, fnet_dim] and
@@ -408,6 +410,8 @@ def _features_core(fmap1: torch.Tensor, fmap2: torch.Tensor,
                 inp, flow_init, active, sizes8)
 
 
+@contract(image1="*[B,H,W,3]", image2="*[B,H,W,3]",
+          flow_init="*[B,HL,WL,2]")
 def raft_forward(model: RAFT, image1: torch.Tensor, image2: torch.Tensor,
                  config: RAFTConfig, iters: Optional[int] = None,
                  all_flows: Optional[bool] = None,
@@ -638,6 +642,8 @@ def _train_iterations(model: RAFT, core: "Core", config: RAFTConfig,
 
 
 @torch.no_grad()
+@contract(fmap1="*[B,HL,WL,C]", fmap2="*[B,HL,WL,C]",
+          cnet1="*[B,HL,WL,D]", flow_init="*[B,HL,WL,2]")
 def forward_from_features(model: RAFT, fmap1: torch.Tensor,
                           fmap2: torch.Tensor, cnet1: torch.Tensor,
                           config: RAFTConfig, iters: Optional[int] = None,

@@ -50,6 +50,7 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..lint.contracts import contract
 from .conv import avg_pool2d
 
 # The TPU's vector lanes: raft_tpu's row-packed kernel lays ``128 // W_l``
@@ -162,6 +163,7 @@ def _onehot_interp(idx0: torch.Tensor, frac: torch.Tensor, n: int, size: int,
             + torch.where(ids == tgt + 1, f, zero))
 
 
+@contract(corr3="f32[B,Q,HB,W]", coords="*[B,Q,2]", _returns="f32[B,Q,N]")
 def lookup_partial_onehot(corr3: torch.Tensor, coords: torch.Tensor,
                           radius: int, level: int,
                           row_offset: int = 0) -> torch.Tensor:
@@ -185,6 +187,8 @@ def lookup_partial_onehot(corr3: torch.Tensor, coords: torch.Tensor,
     return win.reshape(B, Q, n * n)
 
 
+@contract(fmap1="*[B,H,W,C]", fmap2_l="*[B,H2,W2,C]",
+          _returns="f32[B,Q,H2,W2]")
 def dense_corr(fmap1: torch.Tensor, fmap2_l: torch.Tensor) -> torch.Tensor:
     """[B, H1, W1, C] x [B, H2, W2, C] -> [B, H1*W1, H2, W2] float32
     correlation, divided by ``sqrt(C)`` as the JAX package's
@@ -212,6 +216,7 @@ def build_pyramid(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor]
     return [dense_corr(fmap1, f2) for f2 in f2_levels]
 
 
+@contract(coords="*[B,H,W,2]", _returns="f32[B,H,W,N]")
 def lookup_dense_onehot(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                         radius: int) -> torch.Tensor:
     """Sample the dense pyramid at ``coords`` [B, H, W, 2] (x, y) with the
@@ -255,6 +260,7 @@ def _bilinear_window(winv: torch.Tensor, fx: torch.Tensor, fy: torch.Tensor,
     return out.transpose(2, 3).reshape(*out.shape[:2], n * n)
 
 
+@contract(coords="*[B,H,W,2]", _returns="f32[B,H,W,N]")
 def lookup_dense(pyramid: Sequence[torch.Tensor], coords: torch.Tensor,
                  radius: int) -> torch.Tensor:
     """Sample the dense pyramid at ``coords`` [B, H, W, 2] (x, y) with the
@@ -291,6 +297,7 @@ def _level_blockwise(f1: torch.Tensor, f2: torch.Tensor, coords: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+@contract(fmap1="*[B,H,W,C]", coords="*[B,H,W,2]", _returns="f32[B,H,W,N]")
 def lookup_blockwise_onehot(fmap1: torch.Tensor,
                             f2_levels: Sequence[torch.Tensor],
                             coords: torch.Tensor, radius: int,
@@ -507,6 +514,7 @@ def ondemand_chunk(B: int, C: int, radius: int) -> int:
     return 1 << (chunk.bit_length() - 1)
 
 
+@contract(fmap1="*[B,H,W,C]", coords="*[B,H,W,2]", _returns="f32[B,H,W,N]")
 def lookup_ondemand(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                     coords: torch.Tensor, radius: int,
                     chunk: Optional[int] = None) -> torch.Tensor:

@@ -82,6 +82,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from ..lint.contracts import contract
 from ..telemetry.trace import stage
 from . import spmd
 from .corr import (lookup_blockwise_onehot, lookup_operands,
@@ -485,6 +486,8 @@ def _supported(t: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {t.device}")
 
 
+@contract(fmap1="f32|bf16[B,H,W,C]", coords="f32[B,H,W,2]",
+          _returns="f32[B,H,W,N]")
 def fused_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                  coords: torch.Tensor, radius: int) -> torch.Tensor:
     """The lookup of ``corr_impl='pallas'`` (``raft_tpu_torch::
@@ -496,6 +499,8 @@ def fused_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                          *f2_levels)
 
 
+@contract(fmap1="f32|bf16[B,H,W,C]", coords="f32[B,H,W,2]",
+          _returns="f32[B,H,W,N]")
 def window_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                   coords: torch.Tensor, radius: int) -> torch.Tensor:
     """The lookup of ``pallas_p_select='window'`` (``corr_window``):
@@ -506,6 +511,8 @@ def window_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                          *f2_levels)
 
 
+@contract(fmap1="f32|bf16[B,H,W,C]", coords="f32[B,H,W,2]",
+          _returns="f32[B,H,W,N]")
 def packed_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                   coords: torch.Tensor, radius: int,
                   p_select: str = "all") -> torch.Tensor:
@@ -518,6 +525,8 @@ def packed_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
         fmap1, coords, None, *f2_levels)
 
 
+@contract(fmap1="f32|bf16[B,H,W,C]", coords="f32[B,H,W,2]",
+          sizes8="i32[B,2]", _returns="f32[B,H,W,N]")
 def ragged_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                   coords: torch.Tensor, sizes8: torch.Tensor,
                   radius: int) -> torch.Tensor:
@@ -529,6 +538,7 @@ def ragged_lookup(fmap1: torch.Tensor, f2_levels: Sequence[torch.Tensor],
                          *f2_levels)
 
 
+@contract(fmap1="*[B,H,W,C]", fmap2="*[B,H2,W2,C]")
 def make_fused_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
                       num_levels: int, radius: int, pack: bool = False,
                       corr_precision: str = "highest"):
@@ -546,6 +556,7 @@ def make_fused_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
     return lookup
 
 
+@contract(fmap1="*[B,H,W,C]", fmap2="*[B,H2,W2,C]")
 def make_window_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
                        num_levels: int, radius: int, pack: bool = False,
                        corr_precision: str = "highest"):
@@ -564,6 +575,7 @@ def make_window_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
     return lookup
 
 
+@contract(fmap1="*[B,H,W,C]", fmap2="*[B,H,W,C]", sizes8="*[B,2]")
 def make_ragged_fused_lookup(fmap1: torch.Tensor, fmap2: torch.Tensor,
                              sizes8: torch.Tensor, num_levels: int,
                              radius: int, corr_precision: str = "highest"):

@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..lint.contracts import contract
+
 
 def _sample(img: torch.Tensor, grid: torch.Tensor, padding_mode: str,
             align_corners: bool) -> torch.Tensor:
@@ -39,6 +41,7 @@ def _sample(img: torch.Tensor, grid: torch.Tensor, padding_mode: str,
     return out[:, :, 0].transpose(1, 2).reshape(out_shape)
 
 
+@contract(img="*[B,H,W,C]", coords="*[B,...,2]", _returns="*[B,...,C]")
 def grid_sample(img: torch.Tensor, coords: torch.Tensor,
                 padding_mode: str = "zeros") -> torch.Tensor:
     """Sample ``img`` [B, H, W, C] bilinearly at pixel coordinates
@@ -49,6 +52,7 @@ def grid_sample(img: torch.Tensor, coords: torch.Tensor,
                    padding_mode, align_corners=False)
 
 
+@contract(img="*[B,H,W,C]", grid="*[B,...,2]", _returns="*[B,...,C]")
 def grid_sample_normalized(img: torch.Tensor, grid: torch.Tensor,
                            padding_mode: str = "zeros",
                            align_corners: bool = True) -> torch.Tensor:

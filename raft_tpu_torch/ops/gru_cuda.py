@@ -56,6 +56,7 @@ import torch
 import torch.nn as nn
 from torch.utils.flop_counter import register_flop_formula
 
+from ..lint.contracts import contract
 from . import spmd
 from .conv import conv_nchw, to_nchw, to_nhwc
 from ..telemetry.trace import stage
@@ -165,6 +166,7 @@ def prepare_gru_weights(fw: Dict[str, torch.Tensor], dtype: torch.dtype
     return out
 
 
+@contract(h="*[B,H,W,C]", motion="*[B,H,W,M]", _returns="*[B,H,W,C]")
 def sep_conv_gru_plain(fw: Dict[str, torch.Tensor], h: torch.Tensor,
                        motion: torch.Tensor,
                        ctx: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -358,6 +360,7 @@ class _SepConvGRU(torch.autograd.Function):
         return (None, *grads)
 
 
+@contract(h="*[B,H,W,C]", motion="*[B,H,W,M]", _returns="*[B,H,W,C]")
 def sep_conv_gru(fw: Dict[str, torch.Tensor], h: torch.Tensor,
                  motion: torch.Tensor,
                  ctx: Tuple[torch.Tensor, torch.Tensor],

@@ -89,10 +89,12 @@ def weights_digest(model) -> str:
     return h.hexdigest()
 
 
-def cache_identity(config, model) -> dict:
-    """The (config, weights, toolchain, device, kernel sources) identity a
-    cache directory is valid for, ``model`` on the device it serves from.
-    Every field must match exactly at load time."""
+def cache_identity(config, model, cudnn: str = "benchmark") -> dict:
+    """The (config, weights, toolchain, device, kernel sources, cuDNN's
+    algorithm choice) identity a cache directory is valid for, ``model``
+    on the device it serves from, ``cudnn`` the engine's
+    ``ServeConfig.cudnn``.  Every field must match exactly at load
+    time."""
     from .. import _build
     from ..telemetry.events import config_hash
     device = next(model.parameters()).device
@@ -110,6 +112,7 @@ def cache_identity(config, model) -> dict:
         "cudnn_version": torch.backends.cudnn.version(),
         "kernel_digest": _build._digest(),
         "weights_digest": weights_digest(model),
+        "cudnn": cudnn,
     }
 
 
@@ -184,9 +187,9 @@ class EngineCache:
     every file is renamed into place whole, and the kernel objects are
     built under their directory's file lock."""
 
-    def __init__(self, root, config, model):
+    def __init__(self, root, config, model, cudnn: str = "benchmark"):
         self.root = Path(root)
-        self.identity = cache_identity(config, model)
+        self.identity = cache_identity(config, model, cudnn)
         sub = (f"{self.identity['config_hash']}-"
                f"{_slug(self.identity['device_name'])}-"
                f"{_slug(self.identity['torch_version'])}")

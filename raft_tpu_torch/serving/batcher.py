@@ -589,6 +589,11 @@ class MicroBatcher:
         row_ok = np.isfinite(flows[:n].reshape(n, -1)).all(axis=1)
         now = time.monotonic()
         served = 0
+        # every row's bookkeeping first, then the wake-ups in one tight
+        # loop: a handler woken early competes with this thread for the
+        # interpreter lock, so resolving row by row made each later row
+        # wait for its earlier neighbours' responses
+        deliver = []
         for i, r in enumerate(group):
             r.batch_real, r.batch_padded = n, padded
             if iters_used is not None:
@@ -602,7 +607,8 @@ class MicroBatcher:
                 self._observe("requests", "ok", 1)
                 self.served += 1
                 served += 1
-                r.resolve(unpad(flows[i:i + 1], r.pads)[0])
+                deliver.append((r.resolve,
+                                unpad(flows[i:i + 1], r.pads)[0]))
             else:
                 if r.trace is not None:
                     _exec_span(r.trace, tlm_spans.POISONED)
@@ -615,9 +621,11 @@ class MicroBatcher:
                     log.event("nonfinite_output", request=r.id,
                               trace_id=(r.trace.trace_id
                                         if r.trace is not None else None))
-                r.fail(NonFiniteOutput(
+                deliver.append((r.fail, NonFiniteOutput(
                     f"non-finite flow output for request {r.id} "
-                    f"(poisoned row in an otherwise-healthy batch)"))
+                    f"(poisoned row in an otherwise-healthy batch)")))
+        for finish, value in deliver:
+            finish(value)
         if served:
             self._observe("pairs", float(served))
 

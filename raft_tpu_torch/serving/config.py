@@ -23,6 +23,10 @@ from typing import Optional, Tuple
 from ..config import parse_iters_policy
 
 
+#: ServeConfig.cudnn's values.
+CUDNN_MODES = ("benchmark", "heuristic")
+
+
 def parse_buckets(spec: str) -> Tuple[Tuple[int, int], ...]:
     """Parse a CLI bucket spec like ``"432x1024,240x432"`` into an (H, W)
     tuple list.  Each side must be a positive multiple of 8 (the RAFT
@@ -192,6 +196,12 @@ class ServeConfig:
     # members.  A group exceeding it is split greedily in arrival order.
     # 0 = no cap (max_batch alone bounds the group).
     ragged_batch_pixels: int = 0
+    # How cuDNN picks its convolution algorithms for the graphs the engine
+    # captures: "benchmark" times the candidates in each process (the
+    # fastest, but the pick can differ between processes at near ties);
+    # "heuristic" takes cuDNN's heuristic order, the same in every process
+    # for a shape and a card.
+    cudnn: str = "benchmark"
 
     def __post_init__(self):
         if self.batch_steps is None:
@@ -203,6 +213,9 @@ class ServeConfig:
             if h % 8 or w % 8:
                 raise ValueError(f"bucket ({h}, {w}): sides must be "
                                  f"multiples of 8")
+        if self.cudnn not in CUDNN_MODES:
+            raise ValueError(f"cudnn must be one of {CUDNN_MODES}, "
+                             f"got {self.cudnn!r}")
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         if self.queue_depth < 1:

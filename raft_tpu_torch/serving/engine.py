@@ -35,10 +35,14 @@ replica of the model and of the captured forward a card; on the CPU, N
 replicas of the CPU model), and the engine raises when fewer cards exist.
 The streaming calls stay on the first device, as in the JAX package.
 
-On CUDA the engine turns ``torch.backends.cudnn.benchmark`` on before it
-captures anything: a graph keeps the cuDNN algorithms it was captured
-with, and with TF32 off the heuristic choice of some motion-encoder convs
-is hundreds of times slower than the benchmarked one.
+On CUDA the engine sets ``torch.backends.cudnn.benchmark`` from
+``ServeConfig.cudnn`` before it captures anything: a graph keeps the cuDNN
+algorithms it was captured with.  "benchmark" (the default) times the
+candidates in each process: with TF32 off the heuristic choice of some
+motion-encoder convs at batch 4 on 432x1024 is 18-21x slower than the
+benchmarked one.  "heuristic" is the same in every process, so another
+process's capture replays the same bits (the engine cache's hit); the
+smoke-sized servers run it.
 
 With an AOT engine cache attached (``serving/aot_cache.py``,
 ``ServeConfig(engine_cache_dir=...)``) warmup first takes the kernel
@@ -153,7 +157,7 @@ class InferenceEngine:
         self.device = next(model.parameters()).device
         self._cuda = self.device.type == "cuda"
         if self._cuda:
-            torch.backends.cudnn.benchmark = True
+            torch.backends.cudnn.benchmark = sconfig.cudnn == "benchmark"
         dev = self.device
         self._replicas = None
         if sconfig.dp_devices > 1:
@@ -436,7 +440,8 @@ class InferenceEngine:
                     continue
             loaded = self._warm_key(key, kind, h, w, b)
             n += 1
-            self.warmup_loaded += int(loaded)
+            with self._lock:
+                self.warmup_loaded += int(loaded)
             if verbose:
                 verb = "warmed (cache hit)" if loaded else "warmed"
                 _log.info(f"{verb} {kind} bucket {h}x{w} batch {b} "

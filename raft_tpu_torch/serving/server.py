@@ -24,6 +24,7 @@ serve_cli is the ``python -m raft_tpu_torch.serving`` entry point
 from __future__ import annotations
 
 import dataclasses
+import gc
 import threading
 import time
 from typing import Optional
@@ -130,6 +131,7 @@ class FlowServer:
                  trace_dir: Optional[str] = None, trace_steps: int = 4):
         self.sconfig = sconfig
         self.verbose = verbose
+        self._frozen = False          # start() froze the heap (gc.freeze)
         # --trace generalized to serving: profile device batches 1..1+N
         # (batch 0 may pay a capture under --no-warmup)
         self._trace_window = TraceWindow(trace_dir, first=1,
@@ -252,7 +254,8 @@ class FlowServer:
                 rconfig = dataclasses.replace(
                     config, iters_policy=sconfig.iters_policy)
             self.engine_cache = EngineCache(sconfig.engine_cache_dir,
-                                            rconfig, model)
+                                            rconfig, model,
+                                            cudnn=sconfig.cudnn)
         # engine injection: tests drive the batching policy with stubs.
         # A streaming engine shares the coordinator's slot pool: the
         # store owns the alloc/free policy, the engine owns the device
@@ -365,7 +368,9 @@ class FlowServer:
         and side-effect-free on the engine: profiling never captures a
         graph."""
         from ..telemetry.trace import capture_profile
-        info = capture_profile(self.profile_dir, ms, log_fn=_log.info)
+        info = capture_profile(self.profile_dir, ms, log_fn=_log.info,
+                               quiesce=getattr(self.engine, "_device_lock",
+                                               None))
         run_log = tlm_events.current()
         if run_log is not None:
             run_log.event("profile_capture", **info)
@@ -516,6 +521,15 @@ class FlowServer:
                 # arm AFTER warmup: the compile storm and the cold queue
                 # are expected — steady-state invariants start here
                 self.anomaly.arm()
+        # the heap built so far (the model, the graphs' Python side, the
+        # imports: ~190k objects) leaves the collector's generations: a
+        # full collection over it paused every serving thread for tens of
+        # ms, which a host-bound server showed as latency spikes (the
+        # smokes' p95-drift sentinel) and as the history sampler's and the
+        # tracer's cost (their allocations trigger the collections)
+        gc.collect()
+        gc.freeze()
+        self._frozen = True
         self.batcher.start()
         self._httpd = make_http_server(self, self.sconfig.host,
                                        self.sconfig.port)
@@ -555,6 +569,9 @@ class FlowServer:
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
+        if self._frozen:
+            gc.unfreeze()
+            self._frozen = False
         self._stopped.set()
 
     def wait(self) -> None:
@@ -732,6 +749,7 @@ def serve_cli(args, config: RAFTConfig, load_model) -> int:
             ragged=getattr(args, "ragged", False),
             ragged_batch_pixels=getattr(args, "ragged_batch_pixels", 0),
             engine_cache_dir=getattr(args, "engine_cache_dir", None),
+            cudnn=getattr(args, "cudnn", None) or ServeConfig.cudnn,
             history_interval_s=getattr(args, "history_interval_s", 1.0),
             history_window=getattr(args, "history_window", 600),
             history_path=history_path or None,

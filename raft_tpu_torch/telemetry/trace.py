@@ -161,6 +161,12 @@ def _stop_profiler(prof, dest: str) -> str:
     """Stop ``prof`` and write its Chrome trace into directory ``dest``;
     returns the file's path."""
     prof.stop()
+    return _write_trace(prof, dest)
+
+
+def _write_trace(prof, dest: str) -> str:
+    """Write stopped ``prof``'s Chrome trace into directory ``dest``;
+    returns the file's path."""
     os.makedirs(dest, exist_ok=True)
     path = os.path.join(dest, TRACE_FILE)
     prof.export_chrome_trace(path)
@@ -217,7 +223,7 @@ MAX_CAPTURE_MS = 60_000.0
 
 
 def capture_profile(trace_dir: Optional[str], duration_ms: float,
-                    log_fn=None) -> dict:
+                    log_fn=None, quiesce=None) -> dict:
     """Time-boxed on-demand ``torch.profiler`` capture: start a trace,
     sleep ``duration_ms`` while the serving threads keep working, stop,
     write the Chrome trace, return ``{"trace_dir", "trace_file",
@@ -227,7 +233,13 @@ def capture_profile(trace_dir: Optional[str], duration_ms: float,
     Single-flight via a process-wide non-blocking lock (:class:`CaptureBusy`
     when one is already running).  ``trace_dir=None`` allocates a fresh
     temp dir per capture; each capture lands in a timestamped subdirectory
-    so repeated captures never collide."""
+    so repeated captures never collide.
+
+    ``quiesce``: a lock (the serving engine's device lock) held while the
+    profiler's session opens and closes, so no other thread launches a
+    CUDA graph then: on an H100 a replay launched while CUPTI switched its
+    activity collection on or off hung (ROADMAP C10).  The capture window
+    itself runs unlocked, so what is profiled is live serving."""
     if not 0 < duration_ms <= MAX_CAPTURE_MS:
         raise ValueError(f"duration_ms must be in (0, {MAX_CAPTURE_MS:g}], "
                          f"got {duration_ms}")
@@ -241,13 +253,17 @@ def capture_profile(trace_dir: Optional[str], duration_ms: float,
         else:
             dest = os.path.join(trace_dir, time.strftime(
                 "%Y%m%dT%H%M%S", time.gmtime(started)))
-        if not _profiler_warm:
-            _first_session()
-        prof = _start_profiler()
+        held = quiesce if quiesce is not None else contextlib.nullcontext()
+        with held:
+            if not _profiler_warm:
+                _first_session()
+            prof = _start_profiler()
         try:
             time.sleep(duration_ms / 1000.0)
         finally:
-            path = _stop_profiler(prof, dest)
+            with held:
+                prof.stop()
+            path = _write_trace(prof, dest)
         if log_fn is not None:
             log_fn(f"on-demand profiler capture: {duration_ms:g}ms "
                    f"-> {path}")

@@ -69,6 +69,16 @@ from ._common import card, default_out, device_kind, resolve_device
 #: gives up on it (a join that times out is a failure, never a hang).
 JOIN_S = 300.0
 
+#: cuDNN's algorithm choice of every ``--smoke`` server (raft-small at
+#: 32x48): its heuristic choice is the same in every process, so an engine
+#: cache's respawned replica replays the writer's bits, and at these shapes
+#: it is no slower than the timed benchmark (on an H100, each of the smoke
+#: fleet's 8 keys 4-12% faster, where the benchmark's own picks differed
+#: between two processes on 3 of them: ``tools/port_cudnn_modes.py``).
+#: The full-size configurations keep the benchmark (ServeConfig's default):
+#: there the heuristic took 7-11% longer at batch 1 and 18-21x at batch 4.
+SMOKE_CUDNN = "heuristic"
+
 
 def parse_prom(text: str):
     """Minimal Prometheus text parser: 'name{labels}' -> float."""
@@ -451,6 +461,7 @@ def fetch_trace_accounting(host, port, settle_s=5.0):
             break
         time.sleep(0.05)
     coverages, dispatch_seen, block_seen = [], 0, 0
+    worst = None
     for tr in payload.get("traces", []):
         spans = tr.get("spans", [])
         root = next((s for s in spans if s["name"] == "request"), None)
@@ -464,6 +475,8 @@ def fetch_trace_accounting(host, port, settle_s=5.0):
         top = sum(s.get("dur_ms", 0.0) for s in spans
                   if s.get("parent") == root["span"])
         coverages.append(top / root["dur_ms"])
+        if worst is None or coverages[-1] < worst[0]:
+            worst = (coverages[-1], root, spans)
     rec = {
         "open_traces": payload.get("open_traces"),
         "finished": payload.get("finished"),
@@ -473,6 +486,7 @@ def fetch_trace_accounting(host, port, settle_s=5.0):
         "span_coverage_min": round(min(coverages), 4) if coverages else None,
         "span_coverage_mean": round(sum(coverages) / len(coverages), 4)
         if coverages else None,
+        "worst_trace_gaps": _gaps(*worst[1:]) if worst else None,
     }
     problems = []
     if payload.get("open_traces"):
@@ -494,6 +508,23 @@ def fetch_trace_accounting(host, port, settle_s=5.0):
         problems.append("execute_dispatch/execute_block spans missing — "
                         "device time is not split dispatch vs block")
     return rec, problems
+
+
+def _gaps(root: dict, spans: list) -> list:
+    """Where a trace's top-level spans leave its root uncovered: each gap
+    over 0.1 ms as [ms, the span before it, the span after it] (a
+    diagnostic beside the accounting gate)."""
+    top = sorted((s for s in spans if s.get("parent") == root["span"]),
+                 key=lambda s: s["start_ms"])
+    out, end, last = [], 0.0, "start"
+    for s in top:
+        if s["start_ms"] - end > 0.1:
+            out.append([round(s["start_ms"] - end, 3), last, s["name"]])
+        if s["start_ms"] + s["dur_ms"] >= end:
+            end, last = s["start_ms"] + s["dur_ms"], s["name"]
+    if root["dur_ms"] - end > 0.1:
+        out.append([round(root["dur_ms"] - end, 3), last, "end"])
+    return out
 
 
 def run_chaos_recovery(args, host, port, server, results, body, deadline_s,
@@ -1266,6 +1297,8 @@ def run_fleet_bench(args, dev) -> int:
         base += ["--iters-policy", args.iters_policy]
     if args.trace_sample is not None:
         base += ["--trace-sample", str(args.trace_sample)]
+    for flag, value in _serve_knobs(args).items():
+        base += ["--" + flag.replace("_", "-"), str(value)]
     if dev.type == "cpu":
         base.append("--cpu")
     fcfg = FleetConfig(
@@ -1437,7 +1470,7 @@ def run_coldstart_bench(args, dev) -> int:
             max_sessions=args.max_sessions,
             trace_sample=(1.0 if args.trace_sample is None
                           else args.trace_sample),
-            engine_cache_dir=cache_dir)
+            engine_cache_dir=cache_dir, **_serve_knobs(args))
 
     body = _pair_body(h, w)
 
@@ -1548,7 +1581,8 @@ def run_coldstart_bench(args, dev) -> int:
         "buckets": bucket_spec, "quant": config.quant,
         "iters_policy": args.iters_policy,
         "max_sessions": args.max_sessions, "cache_dir": cache_dir,
-        "cache_identity": cache_identity(config, model),
+        "cache_identity": cache_identity(
+            config, model, args.cudnn or ServeConfig.cudnn),
         "cold": cold, "cached": cached,
         "first_200_speedup": speedup,
         "faster_gated": faster_gated,
@@ -1648,7 +1682,7 @@ def run_ragged_bench(args, dev) -> int:
             max_wait_ms=args.max_wait_ms, queue_depth=args.queue_depth,
             default_deadline_ms=args.deadline_ms, port=0,
             max_sessions=sessions, trace_sample=0.0,
-            history_interval_s=0.0, ragged=ragged)
+            history_interval_s=0.0, ragged=ragged, **_serve_knobs(args))
         server = FlowServer(config, model, sconfig, iters=args.iters)
         try:
             t0 = time.monotonic()
@@ -1767,6 +1801,13 @@ def _config(args):
     return RAFTConfig.full(iters=args.iters or 12, **kw)
 
 
+def _serve_knobs(args) -> dict:
+    """The ServeConfig knobs given on the command line (the rest keep
+    ServeConfig's defaults)."""
+    return {k: getattr(args, k) for k in ("cudnn",)
+            if getattr(args, k) is not None}
+
+
 def _load(args, config, dev):
     """The served model: ``--load``'s weights (any format the CLI reads),
     else seeded random ones (seed 0), on ``dev``."""
@@ -1848,6 +1889,10 @@ def build_parser():
     p.add_argument("--engine-cache-dir", default=None, metavar="DIR")
     p.add_argument("--quant", default=None,
                    choices=["none", "int8", "bf16w", "int8+bf16w"])
+    p.add_argument("--cudnn", default=None, choices=["benchmark",
+                                                     "heuristic"],
+                   help="the servers' cuDNN algorithm choice (default: "
+                        "ServeConfig's)")
     return p
 
 
@@ -1865,6 +1910,8 @@ def main(argv=None) -> int:
     if args.smoke:
         args.small = True
         args.iters = args.iters or 2
+        if args.cudnn is None:
+            args.cudnn = SMOKE_CUDNN
         args.size = (32, 48)
         args.requests = min(args.requests, 64 if args.chaos else 24)
         args.clients = min(args.clients, 4)
@@ -1923,7 +1970,7 @@ def main(argv=None) -> int:
             max_sessions=args.max_sessions if args.video else 0,
             trace_sample=(1.0 if args.trace_sample is None
                           else args.trace_sample),
-            **robustness)
+            **robustness, **_serve_knobs(args))
         server = FlowServer(config, model, sconfig, iters=args.iters)
         t0 = time.monotonic()
         server.start()

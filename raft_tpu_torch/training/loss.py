@@ -10,6 +10,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..lint.contracts import contract
 from ..ops import spmd
 
 
@@ -24,6 +25,8 @@ def _psum_all(x: torch.Tensor, axes: Sequence) -> torch.Tensor:
     return x
 
 
+@contract(flow_preds="*[I,B,H,W,2]", flow_gt="*[B,H,W,2]",
+          valid="*[B,H,W]")
 def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
                   valid: Optional[torch.Tensor] = None, gamma: float = 0.8,
                   max_flow: float = 400.0, normalization: str = "total",

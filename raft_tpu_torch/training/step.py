@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import RAFTConfig, TrainConfig, adaptive_iters
+from ..lint.contracts import contract
 from ..models.raft import draw_dropout_masks, raft_forward, tf32_off
 from ..ops import spmd
 from .loss import sequence_loss
@@ -167,6 +168,8 @@ def make_train_step(config: RAFTConfig, tconfig: TrainConfig,
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(params, grads)], metrics
 
+    @contract({"batch.image1": "*[B,H,W,3]", "batch.image2": "*[B,H,W,3]",
+               "batch.flow": "*[B,H,W,2]", "batch.valid": "*[B,H,W]"})
     def compute(state: TrainState, batch: Batch, masks) -> dict:
         params = state.params
         with precision(), (spmd.spatial_sharding(spatial) if sharded
@@ -262,6 +265,8 @@ def make_eval_step(config: RAFTConfig, iters: Optional[int] = None,
     """``step(model, image1, image2) -> flow`` [B, H, W, 2] (eval mode,
     the final full-resolution flow), or with ``with_iters`` ``(flow,
     iters_used)``: each sample's live GRU iterations."""
+    @contract(image1="*[B,H,W,3]", image2="*[B,H,W,3]",
+              **({} if with_iters else {"_returns": "*[B,H,W,2]"}))
     def eval_step(model, image1, image2):
         with torch.no_grad(), precision():
             out = raft_forward(model, image1, image2, config, iters=iters,
@@ -278,6 +283,8 @@ def make_warm_eval_step(config: RAFTConfig, iters: Optional[int] = None,
     resolution; zeros = a cold start) seeds the recurrence, and the
     low-resolution flow returned is what seeds the next frame of the
     scene.  ``with_iters`` appends ``iters_used``."""
+    @contract(image1="*[B,H,W,3]", image2="*[B,H,W,3]",
+              flow_init="*[B,HL,WL,2]")
     def eval_step(model, image1, image2, flow_init):
         with torch.no_grad(), precision():
             out = raft_forward(model, image1, image2, config, iters=iters,

@@ -21,7 +21,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "raft_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 TOOLS = ("serve_bench", "tlm", "bench_train", "profile_breakdown",
          "envelope_check", "warmstart_bench", "train_chaos",
-         "make_qualitative")
+         "make_qualitative", "raftlint")
 BLOCK = ("import sys\n"
          "sys.modules['jax'] = None\n"
          "sys.modules['raft_tpu'] = None\n"
@@ -37,6 +37,8 @@ def test_imports_with_jax_and_raft_tpu_blocked():
             "import raft_tpu_torch.serving, raft_tpu_torch.serving.__main__\n"
             "import raft_tpu_torch.telemetry, raft_tpu_torch.lint\n"
             "import raft_tpu_torch.lint.budget, raft_tpu_torch.lint.concurrency\n"
+            "import raft_tpu_torch.lint.contracts, raft_tpu_torch.lint.engine\n"
+            "import raft_tpu_torch.lint.rules\n"
             "import raft_tpu_torch.training, raft_tpu_torch.training.__main__\n"
             "import raft_tpu_torch.training.loop, raft_tpu_torch.training.faults\n"
             "import raft_tpu_torch.data.synthetic, raft_tpu_torch.data.datasets\n"
