@@ -11,8 +11,9 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    6e), so every comparison below is float32 end to end; cuDNN runs in
    benchmark mode.
 2. build: compiles the two kernel sources of raft_tpu_torch/csrc (nvcc,
-   one process each, all started together, into build/raft_tpu_torch/) and
-   prints the build time and ptxas's report.
+   one process each) and, beside them, phase 15's host libraries
+   (jpeg.cpp, dis_flow.cpp: g++), all started together, into
+   build/raft_tpu_torch/, and prints the build time and ptxas's report.
 3. kernels vs plain, at the main paths' shapes, each held to its plain
    PyTorch version at rtol = atol = 1e-5: the correlation lookup on a
    [1, 54, 128, 256] query map and its 4-level pyramid (coords with noise
@@ -385,9 +386,23 @@ Phases, each printing a line; any failure raises and the exit code is not 0:
    (d) the span accounting of a closed loop at 8 clients on raft-small at
    32x48 (serve_bench's smoke server): spans cover >= 95% of a request on
    average and >= 75% each.  The ``lint`` JSON line.
+15. 8b, the host codec and the classical flow (``host_phases``, after
+   phase 14; nothing on the card: the card's host has no libjpeg and no
+   OpenCV, which these modules replace): a seeded 436x1024 BGR frame made
+   with numpy alone (``host_jpeg_frame``) through the port's JPEG encoder
+   at qualities 70, 85, 95 and 99 and back through its decoder, the sha256
+   of each file and of each decoded frame equal to the constants a CPU
+   test ties to cv2's output (``JPEG_SHA256``); ``calc_flow`` (DIS at
+   PRESET_MEDIUM + the guided filter) on a seeded textured pair at
+   436x1024 translated by (2.3, -1.7) px, its interior EPE within
+   ``DIS_EPE_BOUND`` (0.05 px; 0.0342 px on the CPU test host), the flows'
+   sha256 printed beside the CPU test host's (not gated); the JPEG round
+   trip's and calc_flow's ms with the card's name and power limit; the
+   phase, the two host builds included, within 8 s.  The ``host`` JSON
+   line.
 
-Before the last lines the serving, train, data, cli, parallel, fleet, lint
-and e2e JSON records (PERF.md §2
+Before the last lines the serving, train, data, cli, parallel, fleet, lint,
+host and e2e JSON records (PERF.md §2
 says what each key means); the line before the last is the kernels' JSON record; the
 last line is {"ok": true, "device": {...}}.  No single PyTorch call computes any of the
 kernels' functions, so library_ms is null.  A bound is the larger of the
@@ -5071,6 +5086,166 @@ def lint_spans(dev) -> dict:
     return rec
 
 
+# -- 15. 8b: the host codec and the classical flow ------------------------
+
+HOST_LIBS = ("jpeg.cpp", "dis_flow.cpp")   # built beside phase 2's nvcc
+HOST_HW = (436, 1024)                      # Sintel's frame
+HOST_SHIFT = (2.3, -1.7)                   # the flow pair's motion, px
+JPEG_QUALITIES = (70, 85, 95, 99)
+# sha256 of cv2.imencode(".jpg", host_jpeg_frame(), [IMWRITE_JPEG_QUALITY,
+# q]) and of cv2.imdecode of those bytes, with OpenCV 5.0.0 and
+# libjpeg-turbo 3.1.2 (tests/test_torch_port_jpeg.py ties them to cv2)
+JPEG_SHA256 = {
+    70: ("8133d313eca9597e2df09fccc56e57dc99d94b0e0923663fbf6898fb2ea1420e",
+         "d82f76fee2e0cf948d240ced10336ecdae060eca1ff74841fef65229a63e1524"),
+    85: ("63a03b233e23b09b662014f83a85dd87ef5d194918da35b5a2f4e92d5a82b287",
+         "cf7351768fc78099716cc2639e110536979f25c953c9c0a6cacace87e41ca493"),
+    95: ("3578e610c9679eed723dbf7a5aca72df044d82ca4271df6d56355847c2f0e25a",
+         "d936d2c7738843beda5d00211745a51c86e4c8fb6c9d5b7207dc9c503bf5fa6f"),
+    99: ("51621fa66b7b30ed1bc3492a4da2c1b2e3eec5b198f0ba9cba0a6e07a64f8c2a",
+         "20b0e8268f0fb8ca78b76367a27a340b3fd5d3f05475c8507cd3bf4d6ae72190"),
+}
+# calc_flow on host_texture_pair(*HOST_HW, shift=HOST_SHIFT): the interior
+# EPE (16 px border left out) against the true motion measured on the CPU
+# test host (0.03421 px; cv2's raw DIS 0.03489) and its gate; the flows'
+# sha256 there (printed beside the card host's, not gated: the guided
+# filter's float64 sums may round otherwise on another numpy)
+DIS_EPE_MEASURED = 0.03421209752559662
+DIS_EPE_BOUND = 0.05
+FLOW_SHA256_CPU_HOST = {
+    "dis": "cc2de69b35d3602b7685e747cc05af133f05268ebe74413718cd379237b6dbe7",
+    "calc_flow": "2da7c709b3a0e12b4f3d391b0bd1ff57fa75a384d60114d7c64091e370b5532f"}
+HOST_PHASE_LIMIT_S = 8.0
+
+
+def host_texture_pair(h: int, w: int, seed: int = 0, shift=(0.0, 0.0),
+                      angle_deg: float = 0.0, zoom: float = 1.0):
+    """A seeded BGR texture (24 plane waves, periods 8-48 px; numpy only)
+    and the same texture under a known motion about the frame's centre
+    (rotation ``angle_deg``, scale ``zoom``, then ``shift``), with the true
+    flow from the first frame to the second: ([H, W, 3] uint8 twice,
+    [H, W, 2] float32).  A warped plane wave is a plane wave, so each frame
+    is two matrix products of per-row and per-column sines."""
+    rng = np.random.RandomState(seed)
+    n = 24
+    period = np.exp(rng.uniform(np.log(8.0), np.log(48.0), n))
+    theta = rng.uniform(0, np.pi, n)
+    k = np.stack([np.cos(theta), np.sin(theta)], -1) * (2 * np.pi / period)[:, None]
+    phase = rng.uniform(0, 2 * np.pi, n)
+    amp = rng.uniform(0.5, 1.0, n)
+    mix = rng.uniform(0.3, 1.0, (n, 3))
+    weight = amp[:, None] * mix / (amp[:, None] * mix).sum(0)     # [n, 3]
+    xs, ys = np.arange(w, dtype=np.float64), np.arange(h, dtype=np.float64)
+    c = np.array([(w - 1) / 2.0, (h - 1) / 2.0])
+    a = np.deg2rad(angle_deg)
+    A = zoom * np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+
+    def image(kk, ph):
+        # sum_n weight_n sin(kk_n . (x, y) + ph_n), split over x and y
+        ax = kk[:, 0:1] * xs + ph[:, None]                         # [n, W]
+        ay = kk[:, 1:2] * ys                                       # [n, H]
+        out = np.stack([(np.cos(ay).T * weight[:, ch]) @ np.sin(ax)
+                        + (np.sin(ay).T * weight[:, ch]) @ np.cos(ax)
+                        for ch in range(3)], -1)
+        return np.clip(np.rint(127.5 + 110.0 * out), 0, 255).astype(np.uint8)
+
+    # frame 1 at q is the texture at A^-1 (q - c - shift) + c
+    Ai = np.linalg.inv(A)
+    k1 = k @ Ai
+    ph1 = phase + k @ c - k1 @ (c + np.asarray(shift, np.float64))
+    X, Y = np.meshgrid(xs - c[0], ys - c[1])
+    flow = np.stack([A[0, 0] * X + A[0, 1] * Y + c[0] + shift[0] - (X + c[0]),
+                     A[1, 0] * X + A[1, 1] * Y + c[1] + shift[1] - (Y + c[1])], -1)
+    return image(k, phase), image(k1, ph1), flow.astype(np.float32)
+
+
+def host_jpeg_frame(texture: np.ndarray) -> np.ndarray:
+    """Phase 15's JPEG frame: ``texture`` (host_texture_pair's first frame
+    at HOST_HW) plus seeded uniform noise of +-12 levels, uint8 BGR."""
+    noise = np.random.RandomState(1).randint(-12, 13, texture.shape)
+    return np.clip(texture.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+
+
+def interior_epe(flow: np.ndarray, truth: np.ndarray, border: int = 16) -> float:
+    """Mean endpoint error over the frame less ``border`` px on each side."""
+    d = np.sqrt(((flow.astype(np.float64) - truth) ** 2).sum(-1))
+    return float(d[border:-border, border:-border].mean())
+
+
+def host_phases(smi: str) -> dict:
+    """Phase 15: the port's JPEG codec and DIS + guided-filter flow on the
+    card's host (no libjpeg, no OpenCV there).  Gates the JPEG digests
+    against cv2's, the flow's interior EPE and the phase's seconds (the
+    host libraries' builds, which ran beside phase 2's nvcc, included)."""
+    import hashlib
+    from raft_tpu_torch import _build, imageio
+    from raft_tpu_torch.utils import frame_utils
+
+    def sha(b) -> str:
+        return hashlib.sha256(bytes(b)).hexdigest()
+
+    t0 = time.perf_counter()
+    build_s = max(_build.BUILD_SECONDS.get(src, 0.0) for src in HOST_LIBS)
+    im0, im1, truth = host_texture_pair(*HOST_HW, seed=0, shift=HOST_SHIFT)
+    frame = host_jpeg_frame(im0)
+    digests = {}
+    for q in JPEG_QUALITIES:
+        enc = imageio.encode_jpeg(frame, q)
+        dec = imageio.decode_jpeg(enc)
+        got = (sha(enc), sha(dec.tobytes()))
+        digests[q] = got == JPEG_SHA256[q]
+        print(f"host: JPEG q{q}: {len(enc)} bytes, encoded sha256 "
+              f"{'equals' if got[0] == JPEG_SHA256[q][0] else 'DIFFERS from'} "
+              f"cv2's, decoded {'equals' if got[1] == JPEG_SHA256[q][1] else 'DIFFERS from'} "
+              f"cv2's")
+    if not all(digests.values()):
+        raise AssertionError(f"phase 15: JPEG digests differ from cv2's at "
+                             f"{[q for q, ok in digests.items() if not ok]}")
+    trip = []
+    for _ in range(3):
+        ta = time.perf_counter()
+        imageio.decode_jpeg(imageio.encode_jpeg(frame, 95))
+        trip.append((time.perf_counter() - ta) * 1e3)
+    g0, g1 = frame_utils._gray(im0), frame_utils._gray(im1)
+    dis_ms = []
+    for _ in range(2):
+        ta = time.perf_counter()
+        dis = frame_utils._dis_flow(g0, g1)
+        dis_ms.append((time.perf_counter() - ta) * 1e3)
+    ta = time.perf_counter()
+    flow = frame_utils.calc_flow(im0, im1)
+    flow_ms = [(time.perf_counter() - ta) * 1e3]
+    epe, epe_dis = interior_epe(flow, truth), interior_epe(dis, truth)
+    shas = {"dis": sha(dis.tobytes()), "calc_flow": sha(flow.tobytes())}
+    for k, v in shas.items():
+        print(f"host: {k} flow sha256 {v} (CPU test host "
+              f"{FLOW_SHA256_CPU_HOST[k]}: "
+              f"{'same' if v == FLOW_SHA256_CPU_HOST[k] else 'differs'})")
+    if not (np.isfinite(flow).all() and flow.shape == HOST_HW + (2,)):
+        raise AssertionError("phase 15: calc_flow is not finite [436, 1024, 2]")
+    if epe > DIS_EPE_BOUND:
+        raise AssertionError(f"phase 15: calc_flow's interior EPE {epe:.5f} px "
+                             f"> {DIS_EPE_BOUND} px")
+    phase_s = build_s + (time.perf_counter() - t0)
+    rec = {"jpeg_digests_equal": True, "jpeg_round_trip_ms": min(trip),
+           "jpeg_round_trip_ms_all": trip, "dis_ms": min(dis_ms),
+           "calc_flow_ms": min(flow_ms), "calc_flow_ms_all": flow_ms,
+           "epe_px": epe, "epe_dis_px": epe_dis, "epe_bound_px": DIS_EPE_BOUND,
+           "flow_sha256": shas,
+           "flow_sha256_same_as_cpu_host": {
+               k: v == FLOW_SHA256_CPU_HOST[k] for k, v in shas.items()},
+           "host_build_s": build_s, "phase_s": phase_s, "device": smi}
+    print(f"host: JPEG q95 round trip {min(trip):.2f} ms, DIS {min(dis_ms):.1f} ms, "
+          f"calc_flow {min(flow_ms):.1f} ms (DIS + guided filter) at "
+          f"{HOST_HW[0]}x{HOST_HW[1]} on the card's host; interior EPE "
+          f"{epe:.5f} px (raw DIS {epe_dis:.5f}; bound {DIS_EPE_BOUND}); "
+          f"phase 15 took {phase_s:.2f} s with its builds ({build_s:.2f} s); {smi}")
+    if phase_s > HOST_PHASE_LIMIT_S:
+        raise AssertionError(f"phase 15 took {phase_s:.2f} s > "
+                             f"{HOST_PHASE_LIMIT_S} s")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -5147,8 +5322,9 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------
     stamp("2")
     pricing = start_pricing()          # phase 14's, beside the build
-    secs = _build.build_all()
-    print(f"build: {secs:.1f} s into {_build.build_dir()}")
+    secs = _build.build_all(host=HOST_LIBS)
+    print(f"build: {secs:.1f} s into {_build.build_dir()} (host libraries "
+          f"{', '.join(f'{k} {_build.BUILD_SECONDS.get(k, 0.0):.1f} s' for k in HOST_LIBS)})")
     print(_build.compiler_report())
 
     # -- 9. training, first: its host-bound eager step is timed before any
@@ -7226,6 +7402,11 @@ def main() -> int:
         "s1": serving["s1"]["graph_pool_mib"],
         "train_f32": train["f32"]["graph_pool_mib"]})
     print(json.dumps({"lint": lint}))
+
+    # -- 15. 8b: the host codec and the classical flow
+    stamp("15")
+    host = host_phases(smi)
+    print(json.dumps({"host": host}))
 
     tools = dict(serving["s1"]["tools"], device=smi)
     print(json.dumps({"tools": tools}))

@@ -1,16 +1,18 @@
-"""Build and load the port's CUDA kernels and its host image codec.
+"""Build and load the port's CUDA kernels and its host libraries.
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  ``csrc/imageio.cpp``, the PNG codec of
-``raft_tpu_torch/imageio.py``, is host code: the host C++ compiler builds
-it, linked to zlib, with no ``nvcc`` and no GPU (so it builds on the CPU
-too).  Libraries go to ``build/raft_tpu_torch/<hash>/`` at the root of the
+a build takes seconds).  The ``csrc/*.cpp`` files are host code (the PNG
+and JPEG codecs of ``raft_tpu_torch/imageio.py`` and the DIS optical flow
+of ``utils/frame_utils.py``): the host C++
+compiler builds them, linked to zlib, with no ``nvcc`` and no GPU (so they
+build on the CPU too), at ``-O2`` with floating-point contraction off, so
+that every host computes the same floats.  Libraries go to ``build/raft_tpu_torch/<hash>/`` at the root of the
 checkout (in a process that attached an AOT engine cache, to the cache's
 ``kernels/<hash>/``), keyed by a hash of every source and of the compiler
 flags; a file lock keeps concurrent processes from building the same
-directory at once.  Nothing is built at import: the first call of a kernel wrapper on a
-CUDA tensor, or of the codec, builds (or loads) its library.
+directory at once.  Nothing is built at import: the first call of a kernel
+wrapper on a CUDA tensor, or of a host library, builds (or loads) it.
 """
 
 from __future__ import annotations
@@ -31,10 +33,13 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "raft_tpu_torch"
 SOURCES = ("corr_lookup.cu", "sep_conv_gru.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+CXX_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 CXX_LIBS = ("-lz",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# seconds each source's compiler process ran in this process's last build
+# that compiled it (the builds of one call run side by side)
+BUILD_SECONDS: Dict[str, float] = {}
 # compiler processes this process started (nvcc or the host compiler): the
 # AOT engine cache calls a warm boot one that ran none
 COMPILER_RUNS = 0
@@ -105,6 +110,7 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
         todo = [s for s in sources if not libs[s].exists()]
         if todo:
             COMPILER_RUNS += len(todo)
+            t0 = time.perf_counter()
             procs = []
             for s in todo:
                 tmp = libs[s].with_suffix(f".so.tmp{os.getpid()}")
@@ -113,13 +119,21 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
                 procs.append((s, tmp, log, subprocess.Popen(
                     cmd, stdout=log, stderr=subprocess.STDOUT)))
             failed = []
-            for s, tmp, log, proc in procs:
-                rc = proc.wait()
-                log.close()
-                if rc == 0:
-                    os.replace(tmp, libs[s])
-                else:
-                    failed.append(s)
+            running = list(procs)
+            while running:                 # each compiler's own finish time
+                for item in list(running):
+                    s, tmp, log, proc = item
+                    if proc.poll() is None:
+                        continue
+                    running.remove(item)
+                    log.close()
+                    BUILD_SECONDS[s] = time.perf_counter() - t0
+                    if proc.returncode == 0:
+                        os.replace(tmp, libs[s])
+                    else:
+                        failed.append(s)
+                if running:
+                    time.sleep(0.02)
             if failed:
                 logs = "\n".join(
                     (out_dir / (Path(s).stem + ".log")).read_text()
@@ -137,10 +151,12 @@ def load(source: str) -> ctypes.CDLL:
     return lib
 
 
-def build_all() -> float:
-    """Build (or find built) and load every kernel; returns the seconds."""
+def build_all(host: Sequence[str] = ()) -> float:
+    """Build (or find built) and load every kernel, and the host libraries
+    ``host`` names in the same call (their compilers run beside ``nvcc``);
+    returns the seconds."""
     t0 = time.perf_counter()
-    libs = build(SOURCES)
+    libs = build(tuple(SOURCES) + tuple(host))
     for s, path in libs.items():
         if s not in _loaded:
             _loaded[s] = ctypes.CDLL(str(path))

@@ -19,8 +19,8 @@ Without OpenCV: resizes are ``data/synthetic.py::resize_linear`` (what
 ``cv2.resize`` computes with ``INTER_LINEAR`` on float32, up to float32
 rounding); the blur is a separable Gaussian in numpy with OpenCV's border
 (``utils/frame_utils.py::gaussian_blur``); the JPEG round trip of
-``PairAugmentor(rgb_augmentation=True)`` needs a JPEG codec the port's
-machine lacks and raises NotImplementedError (ROADMAP item 8b).
+``PairAugmentor(rgb_augmentation=True)`` runs through the port's own JPEG
+codec (``imageio.py``), which writes and reads the bytes OpenCV does.
 """
 
 from __future__ import annotations
@@ -64,9 +64,9 @@ def _apply_blur(im: np.ndarray, size: int, sigma: float) -> np.ndarray:
 
 
 def _apply_jpeg(im: np.ndarray, quality: int) -> np.ndarray:
-    raise NotImplementedError(
-        "the JPEG round trip of rgb_augmentation needs a JPEG codec, which "
-        "the port's target machine does not have: ROADMAP item 8b")
+    from ..imageio import decode_jpeg, encode_jpeg
+    enc = encode_jpeg(im.astype(np.uint8), int(quality))
+    return decode_jpeg(enc).astype(np.float32)
 
 
 def _paired_color(rng: np.random.RandomState, im1: np.ndarray,

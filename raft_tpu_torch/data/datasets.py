@@ -6,8 +6,8 @@ The port's copy of the JAX package's ``data/datasets.py``, with the same
 directory layouts, pairings and errors.  Each dataset scans its tree
 once, then serves (im1, im2, flow, valid) samples through an optional
 augmentor.  Frames decode through the port's own codec
-(``raft_tpu_torch/imageio.py``: PNG in C++ on zlib, PPM in numpy; no
-OpenCV), as BGR uint8, as the JAX package's readers return them; flows
+(``raft_tpu_torch/imageio.py``: PNG in C++ on zlib, JPEG in C++ with
+libjpeg-turbo's arithmetic, PPM in numpy; no OpenCV), as BGR uint8, as the JAX package's readers return them; flows
 through ``utils/flow_io.py``.
 """
 

@@ -18,12 +18,22 @@ OpenCV the port computes the same in numpy and scipy:
   the nearest pixel repeats, which for a minimum is OpenCV's border (it
   ignores pixels outside the image).
 
-``calc_flow`` is OpenCV's DIS optical flow and has no equivalent here: it
-raises naming ROADMAP item 8b.
+* :func:`calc_flow`, the classical baseline, is OpenCV's DIS optical flow
+  at ``PRESET_MEDIUM`` followed by a guided filter.  The DIS is the port's
+  own C++ (``csrc/dis_flow.cpp``, built by ``_build.py`` with the host
+  compiler), which replays OpenCV's float arithmetic stage by stage; the
+  grey frames are ``cv2.cvtColor``'s fixed point, bitwise
+  (``COLOR_BGR2GRAY``, or the Y of ``COLOR_BGR2YUV``).  The guided filter
+  (:func:`_guided_filter`) is He et al.'s colour-guide filter in numpy,
+  with the conventions its docstring states.  Where OpenCV lacks
+  ``ximgproc`` the JAX function returns the raw DIS flow; the port always
+  filters, as the reference's code intends.
 """
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -71,13 +81,183 @@ def aug_img(im: np.ndarray, contrast: float = 1.5, bias: float = 0.0,
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
+# DIS at OpenCV's PRESET_MEDIUM: finest scale 1, the coarsest from the
+# frame size, 8x8 patches at stride 3, 25 gradient-descent iterations, 5
+# variational-refinement iterations (alpha 20, gamma 10, delta 5, epsilon
+# 0.01), mean normalisation and spatial propagation on
+_DIS_MEDIUM = dict(finest_scale=1, coarsest_scale=-1, patch_size=8,
+                   patch_stride=3, grad_descent_iter=25, var_iter=5,
+                   mean_normalization=True, spatial_propagation=True,
+                   alpha=20.0, gamma=10.0, delta=5.0, epsilon=0.01)
+_ERRLEN = 256
+_dis_lib: Optional[ctypes.CDLL] = None
+_dis_lock = threading.Lock()
+
+
+def _dis() -> ctypes.CDLL:
+    """The DIS library, built and loaded at the first call."""
+    global _dis_lib
+    with _dis_lock:
+        if _dis_lib is None:
+            from .. import _build
+            lib = _build.load("dis_flow.cpp")
+            p, i32 = ctypes.c_void_p, ctypes.c_int32
+            lib.rt_dis_flow.argtypes = [p, p, i32, i32, p, p, p,
+                                        ctypes.c_char_p, ctypes.c_int]
+            lib.rt_dis_flow.restype = ctypes.c_int
+            lib.rt_variational_refinement.argtypes = [
+                p, p, i32, i32, p, p, p, p, ctypes.c_char_p, ctypes.c_int]
+            lib.rt_variational_refinement.restype = ctypes.c_int
+            _dis_lib = lib
+        return _dis_lib
+
+
+def _gray(im: np.ndarray, use_yuv: bool = False) -> np.ndarray:
+    """[H, W, 3] uint8 BGR -> [H, W] uint8, bitwise ``cv2.cvtColor``:
+    ``COLOR_BGR2GRAY`` (15-bit fixed point) or the Y of ``COLOR_BGR2YUV``
+    (14-bit)."""
+    if im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3:
+        raise ValueError(f"calc_flow takes [H, W, 3] uint8 BGR frames, got "
+                         f"{im.dtype}{list(im.shape)}")
+    b, g, r = (im[:, :, c].astype(np.int32) for c in range(3))
+    if use_yuv:
+        y = (b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >> 14
+    else:
+        y = (b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15
+    return y.astype(np.uint8)
+
+
+def _dis_flow(g0: np.ndarray, g1: np.ndarray, **knobs) -> np.ndarray:
+    """DIS optical flow of two [H, W] uint8 frames -> [H, W, 2] float32,
+    what ``cv2.DISOpticalFlow_create(PRESET_MEDIUM).calc`` returns; the
+    knobs (``_DIS_MEDIUM``'s names) are its setters, for holding each
+    stage against OpenCV."""
+    unknown = set(knobs) - set(_DIS_MEDIUM)
+    if unknown:
+        raise TypeError(f"unknown DIS knobs {sorted(unknown)}")
+    k = {**_DIS_MEDIUM, **knobs}
+    if g0.shape != g1.shape or g0.ndim != 2:
+        raise ValueError(f"DIS takes two [H, W] frames of one size, got "
+                         f"{g0.shape} and {g1.shape}")
+    g0 = np.ascontiguousarray(g0, np.uint8)
+    g1 = np.ascontiguousarray(g1, np.uint8)
+    h, w = g0.shape
+    params = np.array([k["finest_scale"], k["coarsest_scale"],
+                       k["patch_size"], k["patch_stride"],
+                       k["grad_descent_iter"], k["var_iter"],
+                       int(k["mean_normalization"]),
+                       int(k["spatial_propagation"])], np.int32)
+    fparams = np.array([k["alpha"], k["gamma"], k["delta"], k["epsilon"]],
+                       np.float32)
+    flow = np.empty((h, w, 2), np.float32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if _dis().rt_dis_flow(g0.ctypes.data, g1.ctypes.data, h, w,
+                          params.ctypes.data, fparams.ctypes.data,
+                          flow.ctypes.data, err, _ERRLEN):
+        raise ValueError(f"DIS: {err.value.decode(errors='replace')}")
+    return flow
+
+
+def _variational_refinement(g0: np.ndarray, g1: np.ndarray, u: np.ndarray,
+                            v: np.ndarray, alpha: float = 20.0,
+                            gamma: float = 10.0, delta: float = 5.0,
+                            epsilon: float = 0.001, omega: float = 1.6,
+                            fixed_point_iters: int = 5,
+                            sor_iters: int = 5):
+    """DIS's variational refinement alone: what
+    ``cv2.VariationalRefinement.calcUV`` returns for [H, W] uint8 frames
+    and float32 flow components (its defaults)."""
+    g0 = np.ascontiguousarray(g0, np.uint8)
+    g1 = np.ascontiguousarray(g1, np.uint8)
+    u = np.array(u, np.float32, order="C")
+    v = np.array(v, np.float32, order="C")
+    if g0.ndim != 2 or not g0.shape == g1.shape == u.shape == v.shape:
+        raise ValueError(f"the frames and the flow components are [H, W] of "
+                         f"one size, got {g0.shape}, {g1.shape}, {u.shape}, "
+                         f"{v.shape}")
+    h, w = g0.shape
+    fparams = np.array([alpha, gamma, delta, epsilon, omega], np.float32)
+    iters = np.array([fixed_point_iters, sor_iters], np.int32)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if _dis().rt_variational_refinement(
+            g0.ctypes.data, g1.ctypes.data, h, w, u.ctypes.data,
+            v.ctypes.data, fparams.ctypes.data, iters.ctypes.data, err,
+            _ERRLEN):
+        raise ValueError(f"variational refinement: "
+                         f"{err.value.decode(errors='replace')}")
+    return u, v
+
+
+def _box_mean(x: np.ndarray, r: int) -> np.ndarray:
+    """Mean over the (2r+1)^2 window of each channel of [H, W] or
+    [H, W, C] (float64), the border mirrored without repeating the edge
+    (``BORDER_REFLECT_101``, scipy's "mirror")."""
+    size = (2 * r + 1, 2 * r + 1) + (1,) * (x.ndim - 2)
+    return ndimage.uniform_filter(x, size=size, mode="mirror")
+
+
+def _guided_filter(guide: np.ndarray, src: np.ndarray, radius: int = 9,
+                   eps: float = 2.0) -> np.ndarray:
+    """He et al.'s guided filter (ECCV 2010, eq. 19-21) with a 3-channel
+    guide, applied to each channel of ``src`` ([H, W] or [H, W, C]);
+    float32 out.
+
+    Conventions (``cv2.ximgproc.guidedFilter``, which the JAX
+    ``calc_flow`` calls, is missing from OpenCV on both machines the port
+    is checked on, so they could not be held to it bitwise): box means
+    over (2 radius + 1)^2 windows with the border mirrored without
+    repeating the edge (``BORDER_REFLECT_101``); the guide in its own
+    units (0-255 for uint8, no rescaling); ``eps`` added as is, not
+    squared, to the diagonal of each window's 3x3 covariance of the guide;
+    float64 arithmetic."""
+    I = np.asarray(guide, np.float64)
+    if I.ndim != 3 or I.shape[2] != 3:
+        raise ValueError(f"the guide is [H, W, 3], got {list(I.shape)}")
+    p = np.asarray(src, np.float64)
+    squeeze = p.ndim == 2
+    if squeeze:
+        p = p[:, :, None]
+    if p.shape[:2] != I.shape[:2]:
+        raise ValueError(f"guide {I.shape[:2]} and source {p.shape[:2]} "
+                         f"differ in size")
+    r = radius
+    mean_I = _box_mean(I, r)                                    # [H, W, 3]
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    prods = np.stack([I[:, :, i] * I[:, :, j] for i, j in pairs], -1)
+    corr = _box_mean(prods, r)
+    s = {ij: corr[:, :, k] - mean_I[:, :, ij[0]] * mean_I[:, :, ij[1]]
+         + (eps if ij[0] == ij[1] else 0.0) for k, ij in enumerate(pairs)}
+    # the inverse of the symmetric 3x3 covariance by its adjugate
+    c00 = s[1, 1] * s[2, 2] - s[1, 2] * s[1, 2]
+    c01 = s[0, 2] * s[1, 2] - s[0, 1] * s[2, 2]
+    c02 = s[0, 1] * s[1, 2] - s[0, 2] * s[1, 1]
+    c11 = s[0, 0] * s[2, 2] - s[0, 2] * s[0, 2]
+    c12 = s[0, 2] * s[0, 1] - s[0, 0] * s[1, 2]
+    c22 = s[0, 0] * s[1, 1] - s[0, 1] * s[0, 1]
+    det = s[0, 0] * c00 + s[0, 1] * c01 + s[0, 2] * c02
+    inv = [[c00, c01, c02], [c01, c11, c12], [c02, c12, c22]]
+    out = np.empty(p.shape, np.float32)
+    for c in range(p.shape[2]):
+        pc = p[:, :, c]
+        mean_p = _box_mean(pc, r)
+        cov_Ip = _box_mean(I * pc[:, :, None], r) - mean_I * mean_p[:, :, None]
+        a = np.stack([sum(inv[i][j] * cov_Ip[:, :, j] for j in range(3))
+                      for i in range(3)], -1) / det[:, :, None]
+        b = mean_p - (a * mean_I).sum(-1)
+        q = (_box_mean(a, r) * I).sum(-1) + _box_mean(b, r)
+        out[:, :, c] = q.astype(np.float32)
+    return out[:, :, 0] if squeeze else out
+
+
 def calc_flow(im0: np.ndarray, im1: np.ndarray,
               use_yuv: bool = False) -> np.ndarray:
-    """The JAX package's classical baseline is OpenCV's DIS optical flow
-    with a guided filter; the port has no OpenCV."""
-    raise NotImplementedError(
-        "calc_flow is OpenCV's DIS optical flow, which the port does not "
-        "have: ROADMAP item 8b")
+    """Classical DIS optical-flow baseline with guided-filter
+    post-processing (reference flow_utils.py:137-153): [H, W, 3] uint8 BGR
+    frames -> [H, W, 2] float32 flow from im0 to im1.  DIS at OpenCV's
+    PRESET_MEDIUM on the grey frames (the Y of YUV with ``use_yuv``), then
+    :func:`_guided_filter` with im0 as the guide, radius 9, eps 2."""
+    flow = _dis_flow(_gray(im0, use_yuv), _gray(im1, use_yuv))
+    return _guided_filter(im0, flow, radius=9, eps=2.0)
 
 
 def set_static_flow(flow01: np.ndarray, im0: np.ndarray, bg: np.ndarray,

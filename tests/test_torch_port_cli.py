@@ -1,6 +1,7 @@
 """``python -m raft_tpu_torch.cli`` on the CPU, held against the JAX
 package's ``python -m raft_tpu.cli``: the frame pair it reads (bitwise,
-OpenCV's uint8 resize without OpenCV), ``-m test`` flows from the same
+OpenCV's uint8 resize without OpenCV; JPEG frames too, whose flow is that
+of the same pixels as PNG), ``-m test`` flows from the same
 checkpoint (within the per-iteration tolerance ``1e-3 + 1e-3*max|flow|``,
 PNG pixels within 2 levels), the modes ``-m val`` and ``-m train``
 dispatch, the flags the port does not have raise naming their ROADMAP
@@ -36,6 +37,36 @@ def test_read_pair_is_bitwise_jax(size, rgb):
     for got, want in zip(cli.read_pair(args), jcli._read_pair(args)):
         assert got.dtype == want.dtype and got.shape == want.shape
         assert np.array_equal(got, want)
+
+
+def test_mode_test_reads_jpeg_frames(tmp_path):
+    """``-m test --im1 a.jpg --im2 b.jpg``: the pair is what the JAX CLI's
+    ``cv2.imread`` gives (bitwise), and the flow is the flow of the same
+    pixels stored as PNG."""
+    import cv2
+    paths = {}
+    for name, src in (("a", "assets/frame_0016.png"),
+                      ("b", "assets/frame_0017.png")):
+        img = read_image(src)
+        jpg = tmp_path / f"{name}.jpg"
+        jpg.write_bytes(cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90])[1])
+        png = tmp_path / f"{name}.png"
+        cv2.imwrite(str(png), cv2.imread(str(jpg)))
+        paths[name] = (jpg, png)
+    args = argparse.Namespace(im1=str(paths["a"][0]), im2=str(paths["b"][0]),
+                              size=(48, 64), rgb=False)
+    for got, want in zip(cli.read_pair(args), jcli._read_pair(args)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    flows = []
+    for k, ext in ((0, "jpg"), (1, "png")):
+        out = tmp_path / ext
+        assert cli.main(["-m", "test", "--cpu", "--small", "--iters", "2",
+                         "--size", "48", "64", "--im1", str(paths["a"][k]),
+                         "--im2", str(paths["b"][k]), "--save-flo",
+                         "--out", str(out)]) == 0
+        flows.append(read_flo(out / "raft_flow_raft-small.flo"))
+    assert flows[0].shape == (48, 64, 2)
+    np.testing.assert_array_equal(flows[0], flows[1])
 
 
 CASES = {

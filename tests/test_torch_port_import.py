@@ -67,6 +67,35 @@ def test_imports_with_jax_and_raft_tpu_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_codec_and_classical_flow_run_with_jax_raft_tpu_and_cv2_blocked():
+    """The JPEG codec and calc_flow (DIS + guided filter) are the port's
+    own: they build and run with jax, raft_tpu and cv2 blocked, and their
+    C++ sources include no OpenCV and no libjpeg header."""
+    code = (BLOCK +
+            "import numpy as np\n"
+            "from raft_tpu_torch import imageio\n"
+            "from raft_tpu_torch.utils import frame_utils\n"
+            "import raft_tpu_torch.data.augment as A\n"
+            "rng = np.random.RandomState(0)\n"
+            "im = rng.randint(0, 256, (40, 48, 3), np.uint8)\n"
+            "back = imageio.decode_image(imageio.encode_jpeg(im, 90))\n"
+            "assert back.shape == im.shape and back.dtype == np.uint8\n"
+            "f = frame_utils.calc_flow(im, np.roll(im, 2, axis=1))\n"
+            "assert f.shape == (40, 48, 2) and np.isfinite(f).all()\n"
+            "A._apply_jpeg(im.astype(np.float32), 80)\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'raft_tpu.'))\n"
+            "               for m in sys.modules if sys.modules[m] is not None)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for src in ("jpeg.cpp", "dis_flow.cpp"):
+        text = (REPO / "raft_tpu_torch" / "csrc" / src).read_text()
+        includes = [ln for ln in text.splitlines() if ln.startswith("#include")]
+        assert includes and not any(
+            k in ln for ln in includes for k in ("opencv", "jpeglib", "turbojpeg")), src
+
+
 def test_every_tool_runs_help_with_jax_and_raft_tpu_blocked():
     """``python -m raft_tpu_torch.tools.<name> --help`` for every tool, with
     jax, raft_tpu, cv2 and the root ``bench.py`` blocked."""

@@ -1,6 +1,6 @@
 """The port's readers against the JAX package's, on the same fabricated
 trees: the image codec (``raft_tpu_torch/imageio.py``, PNG in C++ on zlib,
-PPM in numpy) against OpenCV, the flow formats, and the datasets of
+JPEG in C++, PPM in numpy) against OpenCV, the flow formats, and the datasets of
 FlyingChairs, MPI-Sintel, FlyingThings3D and KITTI, whose arrays must be
 bitwise equal to the JAX readers' (8- and 16-bit PNG, PPM, .flo, .pfm,
 KITTI's 16-bit flow PNGs), with the same pairing, ``scene_list``,
@@ -8,7 +8,7 @@ KITTI's 16-bit flow PNGs), with the same pairing, ``scene_list``,
 by the port's own writers (``data/fabricate.py``) and, for the codec,
 also by OpenCV.  Also the host tools of ``utils/`` against the JAX
 package's (``aug_img`` within one level of 255: OpenCV's uint8 blur runs
-in fixed point)."""
+in fixed point; ``calc_flow``'s DIS part bitwise)."""
 
 import cv2
 import numpy as np
@@ -129,8 +129,8 @@ def test_ppm_and_jpeg():
         cv2.imdecode(np.frombuffer(imageio.encode_ppm(img), np.uint8),
                      cv2.IMREAD_COLOR), img)
     ok, jpg = cv2.imencode(".jpg", img)
-    with pytest.raises(NotImplementedError, match="8b"):
-        imageio.decode_image(bytes(jpg))
+    np.testing.assert_array_equal(imageio.decode_image(bytes(jpg)),
+                                  cv2.imdecode(jpg, cv2.IMREAD_COLOR))
 
 
 # ----------------------------------------------------------- flow files
@@ -263,5 +263,12 @@ def test_frame_tools_match_jax():
                       - JFU.set_static_flow(flow, im0, bg))
     np.testing.assert_array_equal(PVIZ.flow_to_color(flow),
                                   JVIZ.flow_to_color(flow))
-    with pytest.raises(NotImplementedError, match="8b"):
-        PFU.calc_flow(im0, im0)
+    # calc_flow runs; its DIS part is the JAX function's output (raw DIS:
+    # this OpenCV has no ximgproc), bitwise
+    f0 = np.clip(im0, 0, 255).astype(np.uint8)
+    f1 = np.roll(f0, (1, 2), axis=(0, 1))
+    flow = PFU.calc_flow(f0, f1)
+    assert flow.dtype == np.float32 and flow.shape == (20, 30, 2)
+    assert np.isfinite(flow).all()
+    np.testing.assert_array_equal(
+        PFU._dis_flow(PFU._gray(f0), PFU._gray(f1)), JFU.calc_flow(f0, f1))
